@@ -1,0 +1,118 @@
+"""Carry a scene built by the JAX package across to the port.
+
+`numpy_fields` flattens any dataclass tree (the JAX package's SceneArrays
+and MeshArrays are dataclasses) into plain dicts, lists and numpy arrays;
+it never imports JAX.  `scene_from_numpy` builds the port's SceneArrays
+from such a dict, including each mesh's clustered arrays (re-laid out by
+ops.cluster.from_tpu_arrays), shade_pack, flags and static metadata, so
+both packages can trace exactly the same scene.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .ops import cluster
+from .scene import mesh as mesh_mod
+from .scene import scene as scn
+
+
+def numpy_fields(obj):
+    """Dataclass trees -> dicts; tuples / lists -> lists; arrays -> numpy;
+    None and Python scalars unchanged."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: numpy_fields(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, (tuple, list)):
+        return [numpy_fields(x) for x in obj]
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    return np.asarray(obj)
+
+
+def _refuse(what, roadmap):
+    raise NotImplementedError(f'{what} is not ported yet (ROADMAP {roadmap})')
+
+
+def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
+    if not m['use_cluster']:
+        _refuse('a non-cluster mesh tier', 'Queue 2: the port has only the '
+                'cluster tier; upload with use_cluster=True')
+    if m.get('world_space') or m.get('group_rows') is not None:
+        _refuse('the merged multi-mesh BVH', 'Queue 1 item 5')
+    if m.get('scene_axis') is not None:
+        _refuse('scene-axis sharding', 'Queue 1 item 12')
+    if m.get('atlases') or any(v is not None for gt in m['textures']
+                               for v in gt.values()):
+        _refuse('mesh textures', 'Queue 1 item 7')
+    names = {c[0] for c in m['shade_cols']}
+    if names & {'vc0', 'fc', 'se', 'ec'} or m.get('display_edges'):
+        _refuse('vertex / face colours and edge display', 'Queue 1 item 7')
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32, order="C"), device=dev)
+
+    g = np.asarray(m['g_kd']).shape[0]
+    n_tris = int(m['n_tris'])
+    if n_tris < 0:
+        n_tris = int(np.asarray(m['shade_pack']).shape[0])
+    return mesh_mod.MeshArrays(
+        clustered=cluster.from_tpu_arrays(m['clustered'], dev),
+        shade_pack=f32(m['shade_pack']),
+        shade_cols=tuple((str(nm), int(s), int(w))
+                         for nm, s, w in m['shade_cols']),
+        g_kd=f32(m['g_kd']), g_ks=f32(m['g_ks']), g_ne=f32(m['g_ne']),
+        g_ksub=f32(np.broadcast_to(m['g_ksub'], (g, 3))),
+        g_transp=torch.as_tensor(np.array(m['g_transp'], bool), device=dev),
+        g_refr=f32(m['g_refr']),
+        obj_row=int(m['obj_row']), n_tris=n_tris,
+        interp_normals=bool(m['interp_normals']),
+        backface_cull=bool(m['backface_cull']))
+
+
+def scene_from_numpy(fields: dict, device='cpu') -> scn.SceneArrays:
+    """The port's SceneArrays from `numpy_fields(jax_scene)`."""
+    f = fields
+    if f.get('fog_enabled'):
+        _refuse('fog', 'Queue 1 item 8')
+    if f.get('ss_enabled'):
+        _refuse('ksub subsurface scattering', 'Queue 1 item 8')
+    if f.get('ghost_enabled'):
+        _refuse('ghost objects', 'Queue 1 item 8')
+    if f.get('background') is not None:
+        _refuse('background photos', 'Queue 1 item 8')
+    if f.get('envmap') is not None:
+        _refuse('environment-map images', 'Queue 1 item 3')
+    if f.get('measured_brdfs'):
+        _refuse('measured BRDFs', 'Queue 1 item 7')
+    if f.get('pointsets') or f.get('yarns'):
+        _refuse('pointsets and yarns', 'Queue 1 item 9')
+    if any(t is not None for t in f.get('obj_textures') or ()):
+        _refuse('analytic-object textures', 'Queue 1 item 7')
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)
+
+    def bools(x):
+        return torch.as_tensor(np.array(x, bool), device=device)
+
+    return scn.SceneArrays(
+        obj_type=torch.as_tensor(np.array(f['obj_type'], np.int32),
+                                 device=device),
+        center=f32(f['center']), radius=f32(f['radius']),
+        normal=f32(f['normal']), flip_normals=bools(f['flip_normals']),
+        kd=f32(f['kd']), ks=f32(f['ks']), ne=f32(f['ne']),
+        ksub=f32(f['ksub']), transp=bools(f['transp']),
+        refr_index=f32(f['refr_index']), miroir=bools(f['miroir']),
+        trans=f32(f['trans']), inv_trans=f32(f['inv_trans']),
+        rot=f32(f['rot']),
+        identity_transform=bool(f['identity_transform']),
+        light_intensity=f32(f['light_intensity']),
+        light_scale=f32(f['light_scale']),
+        envmap_intensity=f32(f['envmap_intensity']),
+        center_light=f32(f['center_light']),
+        radius_light=f32(f['radius_light']),
+        meshes=tuple(_mesh_from_numpy(m, device) for m in f['meshes']))
