@@ -4,27 +4,50 @@
 
 1. Refuses to run without a CUDA device (no CPU fallback); prints the
    torch version and the card's name and power limit.
-2. Builds the hand-written CUDA kernels (csrc/cluster_sweep.cu) with nvcc
-   and prints the build time and the ptxas report.
+2. Builds the hand-written CUDA kernels (csrc/*.cu, one nvcc process per
+   source, all started together) and prints the build time and the ptxas
+   reports.
 3. Kernel phase: the bench's 2.4M-triangle displaced sphere, 1080p primary
    rays and one batch of shadow rays from their hits to the light.  Each
-   kernel runs on the whole first-round cull output at those shapes and is
-   held against its plain PyTorch version: tri equal on >= 99.9% of lanes,
-   every other lane a tie within 2^-16 relative t, t within 1e-5 relative
-   on equal lanes; occlusion equal on >= 99.9% of lanes.  Both are timed
-   with CUDA events.
+   sweep kernel runs on the whole first-round cull output at those shapes
+   and is held against its plain PyTorch version: tri equal on >= 99.9%
+   of lanes, every other lane a tie within 2^-16 relative t, t within
+   1e-5 relative on equal lanes; occlusion equal on >= 99.9% of lanes.
+   Both are timed with CUDA events.
 4. Reference phase: a 64x48 render of the 2k-triangle mesh scene through
    the kernels on the card against the plain versions on the CPU, per
    sample with the boundary-flip allowance of the CPU tests.
 5. Main path: Renderer on the 2.4M-triangle scene at 1920x1080, 3
    bounces, one sample per wave, compaction on; one warm-up wave, two
-   timed waves.  Both kernels' launch counters must rise; the image must
-   be finite and lit.
+   timed waves.  Both sweep kernels' launch counters must rise; the image
+   must be finite and lit.
+6. Tree-cull phase: a 3.4M-triangle displaced sphere cut into 256-triangle
+   clusters (more than DENSE_CULL_MAX), 1080p primaries.  The tree cull
+   kernel against its plain version on >= 256 packets and every packet
+   that overflowed (counts equal, keys within 1e-6 relative, kept ids
+   equal but for ties at the 128th key), timed on all packets; then the
+   tree tier end to end (two_level_hit with its residual lanes, the
+   bvh_hit_sparse net) against the same mesh on the dense tier: tri equal
+   on >= 99.9% of lanes, at most 0.05% of lanes hit in one build only, t
+   within 1e-5 relative on equal lanes.  The cull kernel must launch.
+7. Packet phase: the 2k-triangle mesh scene with the mesh uploaded with
+   use_cluster=False (the packet tier).  The packet kernel against its
+   plain version at 1080p primaries (tri equal on >= 99.9% of lanes, the
+   rest ties within 2^-16 relative t or hit/miss flips on at most 0.01%
+   of lanes, t within 1e-5 relative on equal lanes); then Renderer at
+   1920x1080, 3 bounces, compaction on, one warm-up and two timed waves,
+   whose image must agree with the same scene on the cluster tier (< 1%
+   of pixels beyond 1e-3 relative, means within 1%).  The packet kernel
+   must launch.
 
 Every failure raises.  The last three lines are the card line, the
-kernel JSON and the contract line.
+kernel JSON (per kernel: time, plain version's time, launches on its main
+path, agreement, and the roofline bound from this run's work) and the
+contract line.
 """
 
+import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,6 +57,16 @@ import numpy as np
 
 W, H, BOUNCES = 1920, 1080, 3
 TIE = 2.0 ** -16
+BIG_T = float(np.float32(1e30))
+# roofline of one H100 SXM (NVIDIA data sheet): fp32 outside the tensor
+# cores, HBM3 bandwidth
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations (products, sums, divides, min / max) per unit of work,
+# counted in the kernel sources
+SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
+SLAB_OPS = 23           # one ray x box slab test
+TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
 
 
 def log(*a):
@@ -47,10 +80,28 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=1):
+def bound(ops, nbytes):
+    """Least time (ms) for `ops` fp32 operations and `nbytes` bytes on the
+    card, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def entry(name, source, replaces, err, agree, ms, plain_ms, ops, nbytes,
+          **extra):
+    """One kernel's record of the kernel JSON line."""
+    bound_ms, bound_by = bound(ops, nbytes)
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                launches=0, max_abs_err=err, agree=agree, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, **extra)
+
+
+def cuda_ms(fn, reps=1, warm=True):
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
     import torch
-    fn()                                    # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -131,11 +182,27 @@ def kernel_phase(sc, cam, dev):
     chunks = first_round(org_l, dir_l, tmax0)
     n_packets = sum(c[0].shape[0] for c in chunks)
 
-    def run(fn):
-        return [fn(cm, *c) for c in chunks]
+    def run(fn, stats=None):
+        if stats is None:
+            return [fn(cm, *c) for c in chunks]
+        out = []
+        for c in chunks:
+            st = {}
+            out.append(fn(cm, *c, stats=st))
+            for k_, v in st.items():
+                stats[k_] = stats.get(k_, 0) + v
+        return out
+
+    def sweep_bytes(stats, out_bytes):
+        """Rays in (org, dir, tmax, tmin), the cull tables, the planes of
+        every distinct subtile swept, and the outputs."""
+        n_rays = n_packets * cl.BLOCK
+        return (n_rays * (32 + out_bytes) + n_packets * (8 * cl.MAXC + 4)
+                + stats['distinct'] * cl.PLANE_ROWS * cl.SUBT * 4)
 
     out_k = run(cl.cluster_sweep)
-    out_p = run(cl.cluster_sweep_plain)
+    st_c = {}
+    out_p = run(cl.cluster_sweep_plain, st_c)
     torch.cuda.synchronize()
     t_k = torch.cat([o[0] for o in out_k])
     tri_k = torch.cat([o[1] for o in out_k])
@@ -146,12 +213,11 @@ def kernel_phase(sc, cam, dev):
     ms_p = cuda_ms(lambda: run(cl.cluster_sweep_plain), reps=1)
     log(f'closest sweep: {n_packets} packets, tri agreement {frac:.6f}, '
         f'max |dt| {err:.3g}, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms')
-    results.append(dict(
-        name='cluster_sweep_closest', route='cuda',
-        source='pathtracer_tpu_torch/csrc/cluster_sweep.cu',
-        replaces='pathtracer_tpu/ops/pallas_cluster.py:668',
-        max_abs_err=err, agree=frac, ms=ms_k, plain_ms=ms_p,
-        packets=n_packets))
+    results.append(entry(
+        'cluster_sweep_closest', 'pathtracer_tpu_torch/csrc/cluster_sweep.cu',
+        'pathtracer_tpu/ops/pallas_cluster.py:668', err, frac, ms_k, ms_p,
+        st_c['subtiles'] * cl.BLOCK * cl.SUBT * SWEEP_PAIR_OPS,
+        sweep_bytes(st_c, 8), packets=n_packets))
 
     # ---- shadow rays from the primary hits to the light ----
     n0 = org_l.shape[0]
@@ -169,7 +235,8 @@ def kernel_phase(sc, cam, dev):
     limit = torch.where(hit, (dist - 0.01) * 0.999, torch.zeros_like(dist))
     chunks = first_round(s_org, wi, limit)
     occ_k = torch.cat(run(cl.cluster_sweep_any))
-    occ_p = torch.cat(run(cl.cluster_sweep_any_plain))
+    st_a = {}
+    occ_p = torch.cat(run(cl.cluster_sweep_any_plain, st_a))
     torch.cuda.synchronize()
     agree = float((occ_k == occ_p).float().mean())
     if agree < 0.999:
@@ -180,12 +247,15 @@ def kernel_phase(sc, cam, dev):
     log(f'shadow sweep: occlusion agreement {agree:.6f}, occluded share of '
         f'hit lanes {float(live.float().mean()):.3f}, kernel {ms_k:.3f} ms, '
         f'plain {ms_p:.3f} ms')
-    results.append(dict(
-        name='cluster_sweep_any', route='cuda',
-        source='pathtracer_tpu_torch/csrc/cluster_sweep.cu',
-        replaces='pathtracer_tpu/ops/pallas_cluster.py:885',
-        max_abs_err=float((occ_k != occ_p).float().max()), agree=agree,
-        ms=ms_k, plain_ms=ms_p))
+    results.append(entry(
+        'cluster_sweep_any', 'pathtracer_tpu_torch/csrc/cluster_sweep.cu',
+        'pathtracer_tpu/ops/pallas_cluster.py:885',
+        float((occ_k != occ_p).float().max()), agree, ms_k, ms_p,
+        st_a['subtiles'] * cl.BLOCK * cl.SUBT * SWEEP_PAIR_OPS,
+        sweep_bytes(st_a, 1)))
+    log(f'sweep work: closest {st_c["subtiles"]} subtiles swept '
+        f'({st_c["distinct"]} distinct), any-hit {st_a["subtiles"]} '
+        f'({st_a["distinct"]} distinct)')
     return results
 
 
@@ -267,6 +337,259 @@ def main_path(sc, cam, card):
     return launches
 
 
+def check_cull(out_k, out_p):
+    """Tree cull kernel (k) against its plain version (p): counts equal,
+    keys within 1e-6 relative, kept ids equal except among keys equal to
+    a packet's 128th key.  Returns (max |dkey|, agreeing packet share)."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    ids_k, cnt_k, keys_k = (x.cpu().numpy() for x in out_k)
+    ids_p, cnt_p, keys_p = (x.cpu().numpy() for x in out_p)
+    if not (cnt_k == cnt_p).all():
+        raise AssertionError(f'cull counts differ on '
+                             f'{int((cnt_k != cnt_p).sum())} packets')
+    live = keys_p < BIG_T
+    err = np.abs(keys_k - keys_p)
+    if (err[live] > 1e-6 * np.abs(keys_p[live])).any() \
+            or ((keys_k < BIG_T) != live).any():
+        raise AssertionError('cull keys differ beyond 1e-6 relative')
+    same = 0
+    for b in range(ids_p.shape[0]):
+        m = min(int(cnt_p[b, 0]), cl.MAXC)
+        below = np.ones(m, bool)
+        if cnt_p[b, 0] > cl.MAXC:
+            below = keys_p[b, :m] < keys_p[b, m - 1]
+        if set(ids_k[b, :m][below]) != set(ids_p[b, :m][below]):
+            raise AssertionError(f'packet {b}: kept clusters differ')
+        same += bool((ids_k[b] == ids_p[b]).all())
+    return float(err[live].max()) if live.any() else 0.0, \
+        same / ids_p.shape[0]
+
+
+def tree_phase(dev, cam):
+    """The tree-cull tier on a mesh of more than DENSE_CULL_MAX clusters:
+    kernel against plain version, then the tier end to end against the
+    dense tier.  Returns the cull kernel's record."""
+    import torch
+    from pathtracer_tpu_torch.ops import bvh as bvh_mod
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import traverse as tt
+    from pathtracer_tpu_torch.utils import procgen
+    t0 = time.perf_counter()
+    md = procgen.sphere_mesh(1300, 1300, radius=14.0, displace_amp=0.25)
+    tri = md.vertices[md.vtx_idx]
+    fb = bvh_mod.build_bvh(tri)
+    cm = cl.build_clustered(tri, fb=fb, tris_c=256, dev=dev)
+    cm_dense = cl.build_clustered(tri, fb=fb, dev=dev)
+    soup = tt.make_soup(tri[fb.order], device=dev)
+    bvh = tt.upload_bvh(fb, device=dev)
+    log(f'tree phase build {time.perf_counter() - t0:.1f} s: '
+        f'{tri.shape[0]} tris, {cm.n_clusters} clusters of <= 256 tris '
+        f'(top depth < {cl.STACK_DEPTH}, max leaf {cm.top_max_leaf}); dense '
+        f'build {cm_dense.n_clusters} clusters')
+    if not cm.n_clusters > cl.DENSE_CULL_MAX >= cm_dense.n_clusters:
+        raise AssertionError('the tree phase needs a tree-tier and a '
+                             'dense-tier build of one mesh')
+    org, dirn = primary_rays(cam, dev)
+    org = org - torch.tensor([0.0, -15.0, 0.0], device=dev)   # mesh space
+    n = org.shape[0]
+    tmax = torch.full((n,), BIG_T, device=dev)
+
+    # ---- kernel against plain version: the first round's cull ----
+    o, d, tm, _ = cl._prepare(cm, org, dirn, tmax, None)
+    tx = cl.root_exit_clamp(cm.bounds, o, d, tm)
+    nb = o.shape[0] // cl.BLOCK
+    work = torch.zeros(nb, dtype=torch.int32, device=dev)
+    out_k = cl.cull_tree(cm, o, d, tx, work=work)
+    torch.cuda.synchronize()
+    counts = out_k[1][:, 0]
+    over = (counts > cl.MAXC).nonzero()[:, 0]
+    pick = torch.unique(torch.cat([torch.arange(min(256, nb), device=dev),
+                                   over]))
+    rows = (pick[:, None] * cl.BLOCK
+            + torch.arange(cl.BLOCK, device=dev)[None]).reshape(-1)
+    out_p = cl.cull_tree_plain(cm, o[rows], d[rows], tx[rows])
+    err, agree = check_cull([x[pick] for x in out_k], out_p)
+    ms_k = cuda_ms(lambda: cl.cull_tree(cm, o, d, tx), reps=3)
+    ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
+                   warm=False)
+    inner = int(work.sum())
+    m_nodes = cm.top_box.shape[0]
+    rec = entry(
+        'cull_tree', 'pathtracer_tpu_torch/csrc/cluster_cull.cu',
+        'pathtracer_tpu/ops/pallas_cluster.py:538', err, agree, ms_k, ms_p,
+        inner * 2 * cl.BLOCK * SLAB_OPS,
+        m_nodes * 36 + cm.n_clusters * 4 + nb * cl.BLOCK * 28
+        + nb * (8 * cl.MAXC + 4), packets=nb, overflowed=int(over.numel()))
+    log(f'tree cull: {nb} packets, {over.numel()} overflowed, '
+        f'{pick.numel()} checked against the plain version (identical '
+        f'slot order on {agree:.4f}), max |dkey| {err:.3g}, mean '
+        f'{inner / nb:.1f} inner nodes per packet; kernel {ms_k:.3f} ms, '
+        f'plain {ms_p:.3f} ms')
+
+    # ---- the tier end to end, against the dense tier ----
+    cl.cull_tree.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t, tri_id, res = cl.two_level_hit(cm, org, dirn, tmax,
+                                      return_residual=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_res = int(res.sum())
+    t, tri_id, _, _ = tt.bvh_hit_sparse(bvh, soup, org, dirn, res,
+                                        fb.max_leaf, t, tri_id,
+                                        torch.ones_like(t),
+                                        torch.zeros_like(t))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec['launches'] = cl.cull_tree.launches
+    t_d, tri_d = cl.two_level_hit(cm_dense, org, dirn, tmax)
+    same = tri_id == tri_d
+    frac = float(same.float().mean())
+    one = int(((tri_id >= 0) != (tri_d >= 0)).sum())
+    hit = same & (tri_d >= 0)
+    terr = (t[hit] - t_d[hit]).abs()
+    log(f'tree tier end to end: {n_res} residual lanes after refine, '
+        f'two_level_hit {1e3 * (t1 - t0):.1f} ms, bvh_hit_sparse net '
+        f'{1e3 * (t2 - t1):.1f} ms (host clock); vs dense tier tri '
+        f'agreement {frac:.6f}, {one} lanes hit in one build only, hit '
+        f'share {float((tri_d >= 0).float().mean()):.3f}; cull launches '
+        f'{rec["launches"]}')
+    if frac < 0.999:
+        raise AssertionError(f'tree tier tri agrees on only {frac:.5f}')
+    if one > 0.0005 * n:
+        raise AssertionError(f'{one} lanes hit in one build only')
+    if bool((terr > 1e-5 * t_d[hit].abs()).any()):
+        raise AssertionError('tree tier t differs beyond 1e-5 relative')
+    if rec['launches'] <= 0:
+        raise AssertionError('cull_tree never launched on the tree tier')
+    return rec
+
+
+def packet_phase(dev, cam, card):
+    """The packet tier: kernel against plain version at 1080p primaries,
+    then Renderer waves through it, against the cluster tier's image.
+    Returns the packet kernel's record."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.scene import mesh as mesh_mod
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    md = procgen.sphere_mesh(32, 32, radius=12.0, displace_amp=0.25)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(md, translation=(0.0, -15.0, 0.0)))
+    sc_c = scn.build_scene(objs, scn.default_light_intensity(), device=dev)
+    row = sc_c.meshes[0].obj_row
+    mesh = mesh_mod.upload_mesh(md, obj_row=row, use_cluster=False, dev=dev)
+    if not (mesh.use_packet and not mesh.use_cluster):
+        raise AssertionError('the mesh did not take the packet tier')
+    sc_p = dataclasses.replace(sc_c, meshes=(mesh,))
+
+    # ---- kernel against plain version: the main path's mesh query ----
+    org, dirn = primary_rays(cam, dev)
+    n = org.shape[0]
+    tmax = scn._candidate_ts(sc_p, org, dirn)[0].amin(dim=-1)
+    org_l, dir_l = scn._local_ray_row(sc_p, row, org, dirn)
+    work = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    t_k, tri_k, al_k, be_k = pb.packet_hit(mesh.packed, mesh.soup, org_l,
+                                           dir_l, tmax, work=work)
+    t_p, tri_p, al_p, be_p = pb.packet_hit_plain(mesh.soup, org_l, dir_l,
+                                                 tmax)
+    torch.cuda.synchronize()
+    same = tri_k == tri_p
+    frac = float(same.float().mean())
+    flips = ~same & ((tri_k < 0) != (tri_p < 0))
+    n_flip = int(flips.sum())
+    tie = ~same & ~flips
+    hit = same & (tri_p >= 0)
+    err = (t_k[hit] - t_p[hit]).abs()
+    log(f'packet kernel: tri agreement {frac:.6f}, {n_flip} hit/miss '
+        f'flips, {int(tie.sum())} ties, max |dt| '
+        f'{float(err.max()) if err.numel() else 0.0:.3g}, max |dalpha| '
+        f'{float((al_k[hit] - al_p[hit]).abs().max()):.3g}')
+    if frac < 0.999:
+        raise AssertionError(f'packet tri agrees on only {frac:.5f}')
+    if n_flip > 1e-4 * n:
+        raise AssertionError(f'{n_flip} lanes hit in one version only')
+    if bool(((t_k[tie] - t_p[tie]).abs() > TIE * t_p[tie].abs()).any()):
+        raise AssertionError('packet ties beyond 2^-16 relative t')
+    if bool((err > 1e-5 * t_p[hit].abs()).any()):
+        raise AssertionError('packet t differs beyond 1e-5 relative')
+    ms_k = cuda_ms(lambda: pb.packet_hit(mesh.packed, mesh.soup, org_l, dir_l,
+                                         tmax), reps=5)
+    ms_p = cuda_ms(lambda: pb.packet_hit_plain(mesh.soup, org_l, dir_l,
+                                               tmax), reps=1, warm=False)
+    inner, tests = (int(x) for x in work.sum(dim=0))
+    rec = entry(
+        'packet_hit', 'pathtracer_tpu_torch/csrc/packet_bvh.cu',
+        'pathtracer_tpu/ops/pallas_bvh.py:41',
+        float(err.max()) if err.numel() else 0.0, frac, ms_k, ms_p,
+        inner * 2 * SLAB_OPS + tests * TRI_TEST_OPS,
+        n * 48 + mesh.packed.box.shape[0] * 36 + mesh.n_tris * 64)
+    log(f'packet kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; per ray '
+        f'{inner / n:.1f} inner nodes, {tests / n:.1f} triangle tests')
+
+    # ---- Renderer through the packet tier, against the cluster tier ----
+    cfg = pt.RenderConfig(width=W, height=H, nrays=8, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    waves = 2
+    imgs = {}
+    for name, sc in (('packet', sc_p), ('cluster', sc_c)):
+        r = pt.Renderer(sc, cam, cfg)
+        pb.packet_hit.launches = 0
+        r.step()                                   # warm-up wave
+        torch.cuda.synchronize()
+        rays0 = r.rays_traced
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(waves):
+            r.step()
+        stop.record()
+        torch.cuda.synchronize()
+        if name == 'packet':
+            rec['launches'] = pb.packet_hit.launches
+        ms_wave = start.elapsed_time(stop) / waves
+        live = r.rays_traced - rays0
+        imgs[name] = r.display().cpu().numpy()
+        log(f'{name} tier render {W}x{H}, 2k tris, 3 bounces, compaction: '
+            f'{ms_wave:.1f} ms/wave, {live / (waves * ms_wave / 1e3):.4g} '
+            f'live rays/s ({card})')
+    a, b = imgs['packet'], imgs['cluster']
+    if not np.isfinite(a).all() or a.std() <= 0.01:
+        raise AssertionError('packet-tier image not finite / not lit')
+    scale = max(np.abs(b).max(), 1e-6)
+    rel = np.abs(a - b).max(-1) / scale
+    beyond = float((rel > 1e-3).mean())
+    mean_rel = abs(a.mean() - b.mean()) / max(abs(b.mean()), 1e-6)
+    log(f'packet vs cluster tier image: {beyond:.5f} of pixels beyond 1e-3 '
+        f'relative, means within {mean_rel:.3g}; packet launches '
+        f'{rec["launches"]}')
+    if beyond >= 0.01 or mean_rel >= 0.01:
+        raise AssertionError('packet-tier image disagrees with the cluster '
+                             'tier')
+    if rec['launches'] <= 0:
+        raise AssertionError('packet_hit never launched on the packet tier')
+    return rec
+
+
+def build_kernels():
+    """One nvcc process per csrc/*.cu source, all started together."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import packet_bvh as pb
+    logs = {}
+    loaders = {'cluster_sweep': cl.load_kernels,
+               'cluster_cull': cl.load_cull_kernel,
+               'packet_bvh': pb.load_kernels}
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
+        futs = [ex.submit(fn, log=lambda m, k=k: logs.setdefault(k, m))
+                for k, fn in loaders.items()]
+        for f in futs:
+            f.result()
+    for k, m in logs.items():
+        log(f'[{k}] {m.strip()}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -276,11 +599,10 @@ def main():
     card = card_line()
     log(card)
     dev = torch.device('cuda:0')
-    from pathtracer_tpu_torch.ops import cluster as cl
     import pathtracer_tpu_torch as pt
 
     t0 = time.perf_counter()
-    cl.load_kernels(log=log)
+    build_kernels()
     log(f'kernel build {time.perf_counter() - t0:.1f} s')
 
     t0 = time.perf_counter()
@@ -295,6 +617,13 @@ def main():
     launches = main_path(sc, cam, card)
     for k in kernels:
         k['launches'] = launches[k['name']]
+    del sc
+    t0 = time.perf_counter()
+    kernels.append(tree_phase(dev, cam))
+    log(f'tree phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    kernels.append(packet_phase(dev, cam, card))
+    log(f'packet phase {time.perf_counter() - t0:.1f} s')
     log(card)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -3,9 +3,11 @@
 `numpy_fields` flattens any dataclass tree (the JAX package's SceneArrays
 and MeshArrays are dataclasses) into plain dicts, lists and numpy arrays;
 it never imports JAX.  `scene_from_numpy` builds the port's SceneArrays
-from such a dict, including each mesh's clustered arrays (re-laid out by
-ops.cluster.from_tpu_arrays), shade_pack, flags and static metadata, so
-both packages can trace exactly the same scene.
+from such a dict, including each mesh's tier arrays (the clustered arrays
+re-laid out by ops.cluster.from_tpu_arrays, or the soup, BVH and packed
+packet-tier nodes of a mesh uploaded with use_cluster=False),
+shade_pack, flags and static metadata, so both packages can trace exactly
+the same scene.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .ops import cluster
+from .ops import packet_bvh
+from .ops import traverse
 from .scene import mesh as mesh_mod
 from .scene import scene as scn
 
@@ -38,9 +43,6 @@ def _refuse(what, roadmap):
 
 
 def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
-    if not m['use_cluster']:
-        _refuse('a non-cluster mesh tier', 'Queue 2: the port has only the '
-                'cluster tier; upload with use_cluster=True')
     if m.get('world_space') or m.get('group_rows') is not None:
         _refuse('the merged multi-mesh BVH', 'Queue 1 item 5')
     if m.get('scene_axis') is not None:
@@ -55,12 +57,27 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=dev)
 
+    def tensors(xs):
+        return [torch.as_tensor(np.array(x), device=dev)
+                for x in xs]
+
+    soup = bvh = packed = None
+    if m.get('soup') is not None:
+        soup = traverse.TriSoup(*tensors(m['soup']))
+        bvh = traverse.BVHArrays(*tensors(m['bvh']))
+    if m['use_packet'] and m['packed']:
+        lox, loy, loz, hix, hiy, hiz, na, nb, nleaf = m['packed']
+        box = np.stack([lox, loy, loz, hix, hiy, hiz], axis=1)
+        packed = packet_bvh.PackedBVH(
+            *tensors([box.astype(np.float32), na, nb, nleaf]),
+            max_leaf=int(m['max_leaf']))
     g = np.asarray(m['g_kd']).shape[0]
     n_tris = int(m['n_tris'])
     if n_tris < 0:
         n_tris = int(np.asarray(m['shade_pack']).shape[0])
     return mesh_mod.MeshArrays(
-        clustered=cluster.from_tpu_arrays(m['clustered'], dev),
+        clustered=(cluster.from_tpu_arrays(m['clustered'], dev)
+                   if m['use_cluster'] else None),
         shade_pack=f32(m['shade_pack']),
         shade_cols=tuple((str(nm), int(s), int(w))
                          for nm, s, w in m['shade_cols']),
@@ -70,12 +87,17 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
         g_refr=f32(m['g_refr']),
         obj_row=int(m['obj_row']), n_tris=n_tris,
         interp_normals=bool(m['interp_normals']),
-        backface_cull=bool(m['backface_cull']))
+        backface_cull=bool(m['backface_cull']),
+        soup=soup, bvh=bvh, packed=packed, max_leaf=int(m['max_leaf']),
+        use_brute=bool(m['use_brute']), use_packet=packed is not None,
+        use_cluster=bool(m['use_cluster']))
 
 
-def scene_from_numpy(fields: dict, device='cpu') -> scn.SceneArrays:
-    """The port's SceneArrays from `numpy_fields(jax_scene)`."""
+def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
+    """The port's SceneArrays from `numpy_fields(jax_scene)`, on `device`
+    (None: the card)."""
     f = fields
+    device = device_mod.resolve(device)
     if f.get('fog_enabled'):
         _refuse('fog', 'Queue 1 item 8')
     if f.get('ss_enabled'):

@@ -1,4 +1,11 @@
-"""Precision rules and the native build directory of the PyTorch port.
+"""Default device, precision rules and the native build directory of the
+PyTorch port.
+
+Default device: every entry point that allocates (``build_scene``,
+``upload_mesh``, ``build_clustered``, ``make_soup``, ``make_film``, ...)
+builds on the CUDA card unless the caller names another device.  There
+is no fallback: without a card the first CUDA allocation fails.  CPU runs
+(the parity tests) pass ``device='cpu'``.
 
 Precision: every float32 product in the port runs in full float32.  A
 Hopper card would otherwise route float32 matmuls and convolutions through
@@ -6,9 +13,10 @@ TF32 (about three decimal digits), which flips barycentric edge tests the
 same way the TPU's bf16 matmul passes did (ops/cluster.py).  The flags are
 process-wide torch settings, so importing the package sets them once.
 
-Build directory: native code (the g++ BVH builder, the nvcc cluster-sweep
-library) is compiled at first use into ``pathtracer_tpu_torch/_build``,
-which git ignores.  Nothing is built when a module is imported.
+Build directory: native code (the g++ BVH builder, one nvcc library per
+``csrc/*.cu`` source) is compiled at first use into
+``pathtracer_tpu_torch/_build``, which git ignores.  Nothing is built when
+a module is imported.
 """
 
 from __future__ import annotations
@@ -25,6 +33,22 @@ torch.backends.cudnn.allow_tf32 = False
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
 
+# sm_90a (Hopper); contraction into FMAs is off, so a kernel rounds every
+# product and sum on its own as the plain PyTorch versions do
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+
+def default_device() -> torch.device:
+    """The device of every entry point called without one: the CUDA card.
+    It does not check that a card is present and never falls back."""
+    return torch.device('cuda')
+
+
+def resolve(dev) -> torch.device:
+    """`dev` as a torch.device; None means default_device()."""
+    return default_device() if dev is None else torch.device(dev)
+
 
 def build_dir() -> str:
     """The port's build directory, created on demand."""
@@ -39,14 +63,17 @@ def build_shared(src: str, name: str, cmd_prefix: list, timeout: float = 600,
     cmd_prefix is the compiler command without the output and source
     arguments.  The library is written to a temporary name and renamed,
     so a concurrent process never loads a half-written file.  Raises
-    CalledProcessError (with the compiler's output) when the build fails.
+    RuntimeError with the compiler's output when the build fails.
     Returns the library path."""
     out = os.path.join(build_dir(), name)
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
     tmp = f'{out}.{os.getpid()}.tmp'
-    proc = subprocess.run(cmd_prefix + ['-o', tmp, src], check=True,
-                          capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run(cmd_prefix + ['-o', tmp, src], capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f'building {os.path.basename(src)} failed:\n'
+                           f'{proc.stdout}{proc.stderr}')
     if log is not None and (proc.stdout or proc.stderr):
         log(proc.stdout + proc.stderr)
     os.replace(tmp, out)
@@ -60,3 +87,12 @@ def nvcc_path() -> str:
     if home and os.path.exists(os.path.join(home, 'bin', 'nvcc')):
         return os.path.join(home, 'bin', 'nvcc')
     return shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+
+
+def build_cuda(name: str, log=None) -> str:
+    """Compile ``csrc/<name>.cu`` with nvcc for sm_90a into
+    ``_build/lib<name>.so`` (once; kept while newer than the source).
+    `log` receives the compiler's output (the ptxas register and
+    shared-memory report).  Returns the library path."""
+    return build_shared(os.path.join(PKG_DIR, 'csrc', name + '.cu'),
+                        f'lib{name}.so', [nvcc_path()] + NVCC_FLAGS, log=log)

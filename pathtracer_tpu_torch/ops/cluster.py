@@ -17,12 +17,17 @@ the same; the layouts are the port's own.
   Pad and degenerate triangles carry zero planes, so t = 0/0 = NaN, which
   the positive acceptance `t > tmin` rejects.
 
-  Phase 1, torch (`_dense_cull` below HIER_MIN_CLUSTERS clusters,
-  `_hier_cull` above): per BLOCK-ray packet, the clusters some lane enters,
-  sorted near-first by packet-min slab entry, at most MAXC of them, with
-  `count > MAXC` flagging an incomplete emission whose keys stay lower
-  bounds.  Optional per-cluster unit-normal bounds cull clusters that are
-  entirely back-facing (exact on closed opaque meshes, rays from outside).
+  Phase 1 (`cluster_cull`): per BLOCK-ray packet, the clusters some lane
+  enters, sorted near-first by packet-min slab entry, at most MAXC of
+  them, with `count > MAXC` flagging an incomplete emission whose keys
+  stay lower bounds.  Up to DENSE_CULL_MAX clusters it is torch code
+  (`_dense_cull` below HIER_MIN_CLUSTERS clusters, `_hier_cull` above),
+  optionally with per-cluster unit-normal bounds that cull clusters
+  entirely back-facing (exact on closed opaque meshes, rays from
+  outside).  Above DENSE_CULL_MAX a hand-written CUDA kernel walks the top
+  BVH over the cluster AABBs (`cull_tree`; csrc/cluster_cull.cu, which
+  replaces pallas_cluster._cull_kernel), with `cull_tree_plain` the same
+  function as an exact rectangle for CPU tensors.
 
   Phase 2, a hand-written CUDA kernel per query (`cluster_sweep`,
   `cluster_sweep_any`; csrc/cluster_sweep.cu): one block per packet walks
@@ -30,10 +35,18 @@ the same; the layouts are the port's own.
   (`cluster_sweep_plain`, `cluster_sweep_any_plain`) compute the same
   thing and serve CPU tensors.
 
-  Exhaustive windowed rounds (`two_level_hit` / `two_level_any`): a packet
-  that overflowed re-culls with its merged per-lane best t and an
-  exclusion mask of the clusters already swept, MAXC at a time, until no
-  lane is residual — at most ceil(C / MAXC) rounds, and no hit is dropped.
+  Exhaustive windowed rounds (`two_level_hit` / `two_level_any`, up to
+  DENSE_CULL_MAX clusters): a packet that overflowed re-culls with its
+  merged per-lane best t and an exclusion mask of the clusters already
+  swept, MAXC at a time, until no lane is residual — at most
+  ceil(C / MAXC) rounds, and no hit is dropped.
+
+  Tree tier (`two_level_hit` above DENSE_CULL_MAX, or exhaustive=False):
+  one cull + sweep round, then `refine_rounds` re-culls of the packets
+  holding residual lanes with their tightened per-lane t; the lanes still
+  residual are returned for an exact fallback (traverse.bvh_hit_sparse in
+  scene.py).  Occlusion has no tree tier: two_level_any refuses it, as
+  the reference cannot serve it (ROADMAP Queue 3).
 
 BLOCK = 512 and MAXC = 128 are kept from the JAX package, so the cull's
 ids/counts/keys compare with JAX's array for array.
@@ -43,7 +56,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
 from typing import Optional
 
 import numpy as np
@@ -59,7 +71,8 @@ TRIS_C = 512            # default triangles per cluster below 1.5M tris
 SUBT = 256              # triangles per subtile (one shared-memory stage)
 PLANE_ROWS = 12         # [n | U' | V'] x [x, y, z, offset] per triangle
 MAXC = 128              # emitted cluster slots per packet and round
-DENSE_CULL_MAX = 16384  # clusters; the SMEM tree cull above is not ported
+DENSE_CULL_MAX = 16384  # clusters; above it the top-BVH tree cull kernel
+STACK_DEPTH = 64        # the tree cull kernel's traversal stack
 HIER_MIN_CLUSTERS = 256  # the exact dense rectangle below, two-stage above
 CAND_FACTOR = 4         # hier stage B exact-tests CAND_FACTOR * MAXC
 CHUNK_PACKETS = 256     # packets per cull/sweep chunk: bounds the cull's
@@ -83,6 +96,14 @@ class ClusteredMesh:
                               # tris (empty subtiles collapse to cluster lo)
     planes: torch.Tensor      # (C, n_sub, PLANE_ROWS, SUBT) f32
     nrm: torch.Tensor         # (C, 6) f32 oriented unit-normal bounds
+    # top BVH over the cluster AABBs (the tree cull), packed like
+    # packet_bvh.PackedBVH: leaf a = start in top_order, b = count
+    top_box: torch.Tensor     # (M, 6) f32 node AABB lo xyz | hi xyz
+    top_a: torch.Tensor       # (M,) int32 left child / leaf start
+    top_b: torch.Tensor       # (M,) int32 right child / leaf count
+    top_leaf: torch.Tensor    # (M,) int32 (1 = leaf)
+    top_order: torch.Tensor   # (C,) int32 leaf position -> cluster id
+    top_max_leaf: int
     host_tris: Optional[np.ndarray] = None   # (T,3,3) BVH order (oracles)
 
     @property
@@ -98,10 +119,10 @@ class ClusteredMesh:
         return self.ctab[:, 0:6]
 
     def to(self, dev) -> 'ClusteredMesh':
-        return dataclasses.replace(
-            self, ctab=self.ctab.to(dev), starts=self.starts.to(dev),
-            sub_bounds=self.sub_bounds.to(dev), planes=self.planes.to(dev),
-            nrm=self.nrm.to(dev))
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dev)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
 # ---------------------------------------------------------------------------
@@ -174,12 +195,16 @@ def _subtree_ranges(fb, tris_c: int, merge_factor=1.25):
 
 def build_clustered(tri_verts: np.ndarray, fb=None,
                     tris_c: Optional[int] = None, merge_factor=1.25,
-                    nrm_sign: float = 1.0, dev='cpu') -> ClusteredMesh:
-    """Partition the BVH order into clusters and precompute the sweep's
-    plane data (pallas_cluster.build_clustered, subtree layout).
+                    nrm_sign: float = 1.0, dev=None) -> ClusteredMesh:
+    """Partition the BVH order into clusters, build the top BVH over their
+    bounds and precompute the sweep's plane data
+    (pallas_cluster.build_clustered, subtree layout), on `dev` (None: the
+    card).
 
     tris_c defaults to 2048 above 1.5M triangles and TRIS_C below, doubled
-    until the cluster count fits the dense culls (<= DENSE_CULL_MAX)."""
+    until the cluster count fits the dense culls (<= DENSE_CULL_MAX); an
+    explicit tris_c may give more clusters, which the tree tier serves."""
+    dev = device.resolve(dev)
     t = tri_verts.shape[0]
     if fb is None:
         fb = bvh_mod.build_bvh(tri_verts)
@@ -209,6 +234,13 @@ def build_clustered(tri_verts: np.ndarray, fb=None,
     clo = np.where(vmask, pts, np.inf).min(axis=1).astype(np.float32)
     chi = np.where(vmask, pts, -np.inf).max(axis=1).astype(np.float32)
     centers = ((clo + chi) * 0.5).astype(np.float32)
+
+    # top BVH, one cluster per leaf
+    top = bvh_mod.build_bvh_from_bounds(clo, chi, centers, max_leaf_size=1)
+    if top.depth >= STACK_DEPTH:
+        raise ValueError(
+            f'cluster top-BVH depth {top.depth} >= the tree cull stack depth '
+            f'{STACK_DEPTH}: the traversal stack would overflow')
 
     # plane data per triangle, float64 precompute like make_soup
     av = grouped[:, :, 0, :].astype(np.float64)          # (c, T, 3)
@@ -263,22 +295,40 @@ def build_clustered(tri_verts: np.ndarray, fb=None,
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order='C'), device=dev)
 
+    top_b = np.where(top.node_leaf, top.node_b - top.node_a, top.node_b)
     return ClusteredMesh(
         ctab=f32(ctab),
         starts=torch.as_tensor(starts.astype(np.int32), device=dev),
         sub_bounds=f32(np.concatenate([slo, shi], axis=2)),
         planes=f32(planes),
         nrm=f32(np.concatenate([nrm_lo, nrm_hi], axis=1)),
+        **_top_fields(np.concatenate([top.node_lo, top.node_hi], axis=1),
+                      top.node_a, top_b, top.node_leaf, top.order, dev),
         host_tris=ordered)
 
 
-def from_tpu_arrays(arrays, dev='cpu') -> ClusteredMesh:
+def _top_fields(box, a, b, leaf, order, dev) -> dict:
+    """The ClusteredMesh top-tree fields from host arrays."""
+    def i32(x):
+        return torch.as_tensor(np.array(x, np.int32), device=dev)
+
+    leaf = np.asarray(leaf).astype(np.int32)
+    b = np.asarray(b)
+    return dict(top_box=torch.as_tensor(np.array(box, np.float32, order='C'),
+                                        device=dev),
+                top_a=i32(a), top_b=i32(b), top_leaf=i32(leaf),
+                top_order=i32(order),
+                top_max_leaf=int(b[leaf != 0].max()))
+
+
+def from_tpu_arrays(arrays, dev=None) -> ClusteredMesh:
     """The port's ClusteredMesh from the JAX package's `cluster_arrays`
     tuple as numpy (10 top-tree arrays, 6 cluster-bound arrays, the packed
-    (C, 4, W) sweep records, and the (C, 6) normal bounds).  The packed
-    record's plane blocks, tail scalars and subtile AABB blocks are
-    re-laid out as planes / ctab / starts / sub_bounds; the top tree
-    feeds only the SMEM tree cull, which is not ported."""
+    (C, 4, W) sweep records, and the (C, 6) normal bounds), on `dev`
+    (None: the card).  The packed record's plane blocks, tail scalars and
+    subtile AABB blocks are re-laid out as planes / ctab / starts /
+    sub_bounds; the top tree's per-axis arrays become top_box."""
+    dev = device.resolve(dev)
     a = [np.asarray(x) for x in arrays]
     if len(a) != 18:
         raise ValueError('expected the 18-array cluster tuple with nrm')
@@ -308,12 +358,13 @@ def from_tpu_arrays(arrays, dev='cpu') -> ClusteredMesh:
     return ClusteredMesh(
         ctab=f32(ctab), starts=torch.as_tensor(starts.astype(np.int32),
                                                device=dev),
-        sub_bounds=f32(sub), planes=f32(planes), nrm=f32(a[17]))
+        sub_bounds=f32(sub), planes=f32(planes), nrm=f32(a[17]),
+        **_top_fields(np.stack(a[0:6], axis=1), a[6], a[7], a[8], a[9], dev))
 
 
-def flat_soup(cm: ClusteredMesh, dev='cpu') -> TriSoup:
-    """The mesh as a flat BVH-ordered TriSoup (oracles): the sweep's tri
-    output indexes it directly."""
+def flat_soup(cm: ClusteredMesh, dev=None) -> TriSoup:
+    """The mesh as a flat BVH-ordered TriSoup (oracles), on `dev` (None:
+    the card): the sweep's tri output indexes it directly."""
     return make_soup(cm.host_tris, device=dev)
 
 
@@ -569,6 +620,44 @@ def _cull(cm: ClusteredMesh, org, dirn, tmax, nrm=None, exclude=None):
     return ids, counts, keys, ids
 
 
+def _leaf_boxes(cm: ClusteredMesh) -> torch.Tensor:
+    """(C, 6): each cluster's top-tree leaf box, which is the cluster's own
+    AABB when its leaf holds one cluster (top_max_leaf == 1)."""
+    leaf = cm.top_leaf.nonzero()[:, 0]
+    cnt = cm.top_b[leaf].long()
+    first = cnt.cumsum(0) - cnt
+    k = torch.arange(int(cnt.sum()), device=cnt.device) \
+        - first.repeat_interleave(cnt)
+    pos = cm.top_a[leaf].long().repeat_interleave(cnt) + k
+    out = torch.empty((cm.n_clusters, 6), device=cm.top_box.device)
+    out[cm.top_order.long()[pos]] = cm.top_box[leaf].repeat_interleave(cnt,
+                                                                        0)
+    return out
+
+
+def cull_tree_plain(cm: ClusteredMesh, org, dirn, tmax):
+    """The tree cull's function computed directly: per packet, the exact
+    slab rectangle over every cluster's leaf box; count = the live
+    clusters, the MAXC nearest by packet-min entry key, sorted (ties in
+    cluster order).  A leaf is reached by the walk iff some lane is live
+    for it: its ancestors' boxes contain it, and slab intervals only widen
+    with the box under rounding."""
+    return _dense_cull(_leaf_boxes(cm), org, dirn, tmax)
+
+
+def cluster_cull(cm: ClusteredMesh, org, dirn, tmax):
+    """Phase 1 without the backface cull (pallas_cluster.cluster_cull):
+    (ids (nb, MAXC) int32 near-first, -1 padded; count (nb, 1) int32;
+    keys (nb, MAXC) f32).  Up to DENSE_CULL_MAX clusters the torch culls
+    (hierarchical above HIER_MIN_CLUSTERS, exact dense below), in
+    CHUNK_PACKETS chunks; above it the tree cull."""
+    if cm.n_clusters > DENSE_CULL_MAX:
+        return cull_tree(cm, org, dirn, tmax)
+    outs = [_cull(cm, org[sl], dirn[sl], tmax[sl])[:3]
+            for sl in _chunks(org.shape[0])]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
 def _mark_swept(swept, ids):
     """OR emitted ids into the (nb, C + 1) exclusion mask in place; -1
     slots land in the sink column C."""
@@ -677,14 +766,21 @@ def _subtile_hits(planes, oc, d, tn):
     return t, (t > tn[:, :, None]) & (bary >= 0.0)
 
 
-def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit):
+def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit,
+                 stats=None):
     """Shared slot walk of the plain sweeps, vectorized over packets.
 
     Slot k of every still-active packet is processed together: cluster
     slab skip, then per subtile the subtile slab skip and the plane test
     on (packets, BLOCK, SUBT) tensors.  A packet stops after slot k when
     k + 1 >= count or the next key is >= every lane's best t (closest) or
-    live cap (any-hit)."""
+    live cap (any-hit).  `stats` (dict), optional, receives the work the
+    kernel does on these inputs: 'subtiles' swept (each BLOCK x SUBT ray-
+    triangle tests) and 'distinct' subtiles whose planes were read."""
+    if stats is not None:
+        stats['subtiles'] = 0
+        seen = torch.zeros((cm.n_clusters, cm.n_sub), dtype=torch.bool,
+                           device=org.device)
     nb = ids.shape[0]
     o = org.view(nb, BLOCK, 3)
     d = dirn.view(nb, BLOCK, 3)
@@ -715,6 +811,9 @@ def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit):
             ps, cs = p[ls], cid[ls]
             if ps.numel() == 0:
                 continue
+            if stats is not None:
+                stats['subtiles'] += ps.numel()
+                seen[cs, s] = True
             oc = o[ps] - cm.ctab[cs, None, 6:9]
             t, ok = _subtile_hits(cm.planes[cs, s], oc, d[ps], tn[ps])
             if any_hit:
@@ -730,53 +829,112 @@ def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit):
         p = active.nonzero()[:, 0]
         kn = min(k + 1, MAXC - 1)
         active[p] = (k + 1 < cnt[p]) & (keys[p, kn] < cap(p).amax(dim=1))
+    if stats is not None:
+        stats['distinct'] = int(seen.sum())
     if any_hit:
         return occ.view(-1)
     return best.view(-1), btri.view(-1)
 
 
-def cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin):
+def cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin,
+                        stats=None):
     """Closest hit over the emitted slots: (t (N,) — tmax where nothing
     beat it, tri (N,) int32 global BVH position or -1).  Exact argmin;
     equal t goes to the lower triangle index."""
-    return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, False)
+    return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, False,
+                        stats)
 
 
-def cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn, tmax, tmin):
+def cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn, tmax, tmin,
+                            stats=None):
     """Occlusion over the emitted slots: (N,) bool, True iff a triangle is
     hit with tmin < t < tmax."""
-    return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, True)
+    return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, True,
+                        stats)
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: the sweeps — hand-written CUDA kernels (csrc/cluster_sweep.cu)
+# Hand-written CUDA kernels: the sweeps (csrc/cluster_sweep.cu) and the
+# tree cull (csrc/cluster_cull.cu)
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(device.PKG_DIR, 'csrc', 'cluster_sweep.cu')
-_lib_handle = None
+_libs = {}
 
 
 def load_kernels(log=None) -> ctypes.CDLL:
     """Build csrc/cluster_sweep.cu with nvcc for sm_90a (once, into the
     build directory) and load it.  `log` receives the compiler's output
     (ptxas register and shared-memory report)."""
-    global _lib_handle
-    if _lib_handle is not None:
-        return _lib_handle
-    path = device.build_shared(
-        _SRC, 'libcluster_sweep.so',
-        [device.nvcc_path(), '-gencode', 'arch=compute_90a,code=sm_90a',
-         '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-         '-Xptxas', '-v'], log=log)
-    lib = ctypes.CDLL(path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    common = [ptr] * 7 + [i32] + [ptr] * 4
-    lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, i32, ptr]
-    lib.cluster_sweep_any.argtypes = common + [ptr, i32, ptr]
-    lib.cluster_sweep_closest.restype = i32
-    lib.cluster_sweep_any.restype = i32
-    _lib_handle = lib
-    return lib
+    if 'sweep' not in _libs:
+        lib = ctypes.CDLL(device.build_cuda('cluster_sweep', log=log))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        common = [ptr] * 7 + [i32] + [ptr] * 4
+        lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, i32, ptr]
+        lib.cluster_sweep_any.argtypes = common + [ptr, i32, ptr]
+        lib.cluster_sweep_closest.restype = i32
+        lib.cluster_sweep_any.restype = i32
+        _libs['sweep'] = lib
+    return _libs['sweep']
+
+
+def load_cull_kernel(log=None) -> ctypes.CDLL:
+    """Build csrc/cluster_cull.cu for sm_90a (once) and load it."""
+    if 'cull' not in _libs:
+        lib = ctypes.CDLL(device.build_cuda('cluster_cull', log=log))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.cluster_cull_tree.argtypes = [ptr] * 8 + [i32] + [ptr] * 5
+        lib.cluster_cull_tree.restype = i32
+        _libs['cull'] = lib
+    return _libs['cull']
+
+
+def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
+    """Tree cull of nb = N / BLOCK packets: (ids, count, keys) as
+    cluster_cull.  CPU tensors take cull_tree_plain; CUDA tensors launch
+    the hand-written kernel (replaces the TPU kernel
+    pallas_cluster._cull_kernel) or raise.  `work` (nb,) int32, optional:
+    the kernel writes each packet's count of expanded inner nodes there
+    (for the roofline bound)."""
+    if org.device.type == 'cpu':
+        return cull_tree_plain(cm, org, dirn, tmax)
+    dev = org.device
+    n = org.shape[0]
+    nb = n // BLOCK
+    if dev.type != 'cuda':
+        raise ValueError(f'cull_tree takes CUDA or CPU tensors, got {dev}')
+    f32, i32 = torch.float32, torch.int32
+    checks = ((cm.top_box, f32), (cm.top_a, i32), (cm.top_b, i32),
+              (cm.top_leaf, i32), (cm.top_order, i32), (org, f32),
+              (dirn, f32), (tmax, f32))
+    for x, dt in checks:
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError('cull_tree inputs must be contiguous tensors of '
+                             'the kernel types on one device')
+    if n % BLOCK or org.shape != (n, 3) or dirn.shape != (n, 3) \
+            or tmax.shape != (n,):
+        raise ValueError('cull_tree takes whole packets of rays')
+    if work is not None and (work.device != dev or work.dtype != i32
+                             or tuple(work.shape) != (nb,)):
+        raise ValueError('cull_tree work must be an (nb,) int32 tensor')
+    ids = torch.empty((nb, MAXC), dtype=i32, device=dev)
+    count = torch.empty((nb, 1), dtype=i32, device=dev)
+    keys = torch.empty((nb, MAXC), dtype=f32, device=dev)
+    if nb == 0:
+        return ids, count, keys
+    rc = load_cull_kernel().cluster_cull_tree(
+        cm.top_box.data_ptr(), cm.top_a.data_ptr(), cm.top_b.data_ptr(),
+        cm.top_leaf.data_ptr(), cm.top_order.data_ptr(), org.data_ptr(),
+        dirn.data_ptr(), tmax.data_ptr(), nb, ids.data_ptr(),
+        count.data_ptr(), keys.data_ptr(),
+        0 if work is None else work.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'cluster_cull_tree launch failed: CUDA error {rc}')
+    cull_tree.launches += 1
+    return ids, count, keys
+
+
+cull_tree.launches = 0
 
 
 def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin):
@@ -874,10 +1032,6 @@ def _pad_rays(org, dirn, tmax, tmin, target_n):
 
 
 def _prepare(cm, org, dirn, tmax, tmin):
-    if cm.n_clusters > DENSE_CULL_MAX:
-        raise NotImplementedError(
-            'meshes above DENSE_CULL_MAX clusters need the SMEM tree cull, '
-            'which is not ported yet (ROADMAP Queue 2: _cull_kernel)')
     n = org.shape[0]
     if tmin is None:
         tmin = torch.full((n,), -1.0, device=org.device)
@@ -929,20 +1083,63 @@ def _closest_chunk(cm, o, d, tx, tn, nrm):
     return t, tri
 
 
+def _refined(cm, org, dirn, tx, tn, refine_rounds):
+    """Tree tier (pallas_cluster._two_level_exec `chunk` when not dense):
+    one cull + sweep round, then up to `refine_rounds` rounds that re-cull
+    the packets holding residual lanes with their tightened per-lane t.
+    A packet without residual lanes cannot change in a re-cull, so only
+    those packets are re-culled.  Returns (t, tri, residual)."""
+    nb = org.shape[0] // BLOCK
+
+    def round_(o, d, tm, tn_):
+        ids, counts, keys = cluster_cull(cm, o, d, tm)
+        t_, tri_ = cluster_sweep(cm, ids, counts, keys, o, d, tm, tn_)
+        return t_, tri_, _residual_lanes(counts, keys, t_)
+
+    t, tri, res = round_(org, dirn, tx, tn)
+    for _ in range(refine_rounds):
+        p = res.view(nb, BLOCK).any(dim=1).nonzero()[:, 0]
+        if p.numel() == 0:
+            break
+        tp, trp = _packet_rows(t, p), _packet_rows(tri, p)
+        t2, tri2, res2 = round_(_packet_rows(org, p), _packet_rows(dirn, p),
+                                tp, _packet_rows(tn, p))
+        win = t2 < tp
+        t.view(nb, BLOCK)[p] = torch.where(win, t2, tp).view(-1, BLOCK)
+        tri.view(nb, BLOCK)[p] = torch.where(win, tri2, trp).view(-1, BLOCK)
+        res = torch.zeros_like(res)
+        res.view(nb, BLOCK)[p] = res2.view(-1, BLOCK)
+    return t, tri, res
+
+
 def two_level_hit(cm: ClusteredMesh, org, dirn, tmax, tmin=None,
-                  backface_cull: bool = False):
-    """Exact closest hit: (t, tri) with tri the global BVH position (-1 on
-    a miss) and t == the caller's tmax on a miss."""
+                  backface_cull: bool = False, exhaustive: bool = True,
+                  refine_rounds: int = 1, return_residual: bool = False):
+    """Closest hit: (t, tri) with tri the global BVH position (-1 on a
+    miss) and t == the caller's tmax on a miss.
+
+    Up to DENSE_CULL_MAX clusters with exhaustive=True, the windowed
+    rounds make every lane exact.  Otherwise (the tree tier) a lane may
+    stay residual after `refine_rounds` re-culls; return_residual=True
+    appends that (N,) bool mask, and the caller must send those lanes to
+    an exact fallback (traverse.bvh_hit_sparse).  The backface cull
+    applies to the windowed rounds only, as in the reference."""
     n0 = org.shape[0]
     org, dirn, tmax, tmin = _prepare(cm, org, dirn, tmax, tmin)
     tx = root_exit_clamp(cm.bounds, org, dirn, tmax)
-    nrm = cm.nrm if backface_cull else None
-    t = torch.empty_like(tmax)
-    tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
-    for sl in _chunks(org.shape[0]):
-        t[sl], tri[sl] = _closest_chunk(cm, org[sl], dirn[sl], tx[sl],
-                                        tmin[sl], nrm)
+    if exhaustive and cm.n_clusters <= DENSE_CULL_MAX:
+        nrm = cm.nrm if backface_cull else None
+        t = torch.empty_like(tmax)
+        tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
+        for sl in _chunks(org.shape[0]):
+            t[sl], tri[sl] = _closest_chunk(cm, org[sl], dirn[sl], tx[sl],
+                                            tmin[sl], nrm)
+        res = torch.zeros(tmax.shape, dtype=torch.bool, device=org.device)
+    else:
+        t, tri, res = _refined(cm, org, dirn, tx, tmin, refine_rounds)
     t = torch.where(tri >= 0, t, tmax)
+    if return_residual:
+        return t[:n0], tri[:n0], res[:n0]
     return t[:n0], tri[:n0]
 
 
@@ -978,7 +1175,17 @@ def _any_chunk(cm, o, d, tx, tn, nrm):
 
 def two_level_any(cm: ClusteredMesh, org, dirn, tmax, tmin=None,
                   backface_cull: bool = False):
-    """Occlusion: (N,) bool, True iff any triangle is hit in (tmin, tmax)."""
+    """Occlusion: (N,) bool, True iff any triangle is hit in (tmin, tmax).
+    Up to DENSE_CULL_MAX clusters only: the reference's two_level_any
+    always culls with _hier_cull / _dense_cull, and _hier_cull asserts
+    c <= 1 << 14 (pallas_cluster.py:1413-1414), so above DENSE_CULL_MAX a
+    shadow query fails there and the tree tier serves closest hits only."""
+    if cm.n_clusters > DENSE_CULL_MAX:
+        raise NotImplementedError(
+            f'occlusion above DENSE_CULL_MAX = {DENSE_CULL_MAX} clusters: '
+            f'the reference two_level_any fails _hier_cull\'s assertion '
+            f'(pallas_cluster.py:1413-1414) there, so the tree tier serves '
+            f'closest hits only (ROADMAP Queue 3)')
     n0 = org.shape[0]
     org, dirn, tmax, tmin = _prepare(cm, org, dirn, tmax, tmin)
     tx = root_exit_clamp(cm.bounds, org, dirn, tmax)

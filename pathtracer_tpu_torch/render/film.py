@@ -9,6 +9,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
+
 RADIANCE_SCALE = float(np.float32(196964.7))
 
 
@@ -21,9 +23,11 @@ class FilmSpec(NamedTuple):
 
 
 def make_film(width: int, height: int, sigma: float = 0.5,
-              device='cpu') -> FilmSpec:
-    """Per-pixel border ratio: the Gaussian taps separate as f(i)*f(j), so
-    the normalization is an outer product of clamped 1D window sums."""
+              device=None) -> FilmSpec:
+    """Per-pixel border ratio, on `device` (None: the card): the Gaussian
+    taps separate as f(i)*f(j), so the normalization is an outer product
+    of clamped 1D window sums."""
+    device = device_mod.resolve(device)
     fsize = int(math.ceil(sigma * 2.0))
     offs = np.arange(-fsize, fsize + 1, dtype=np.float64)
     f1d = np.exp(-offs ** 2 / (2.0 * sigma * sigma)) / (

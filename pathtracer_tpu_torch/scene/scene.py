@@ -4,7 +4,8 @@ Analytic objects live in one SoA table; a ray is tested against every row
 at once ((N rays) x (O objects) candidate t matrix, masked argmin).  Row 0
 is the spherical light, row 1 the environment dome, rows 2+ user objects.
 Triangle meshes are bound to a row (its transform and flags) and go
-through the cluster tier (ops/cluster.py).
+through their mesh's tier (scene/mesh.py): cluster, packet, brute force or
+lockstep BVH.
 
 Features outside the port's first slice raise NotImplementedError from
 `build_scene`, naming the ROADMAP item that ports them.
@@ -18,8 +19,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..core import vec
 from ..ops import cluster
+from ..ops import packet_bvh
 from ..ops import traverse
 from . import mesh as mesh_mod
 
@@ -226,18 +229,50 @@ def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf):
     return 1.0 - be - ga, be, ga
 
 
+def _mesh_closest_hit(mesh, org_l, dir_l, t_max):
+    """Closest hit of one mesh in its own space, by its tier
+    (pallas scene._mesh_closest_hit without the alpha-cutout rounds):
+    (t — t_max on a miss —, tri, barycentrics (alpha, beta, gamma), or
+    None where the cluster tier leaves them to the shade_pack)."""
+    if mesh.use_cluster:
+        cm = mesh.clustered
+        if cm.n_clusters <= cluster.DENSE_CULL_MAX:
+            # the windowed rounds leave no residual lane
+            t, tri = cluster.two_level_hit(cm, org_l, dir_l, t_max,
+                                           backface_cull=mesh.backface_cull)
+            return t, tri, None
+        # tree tier: residual lanes re-traverse the lockstep BVH
+        t, tri, res = cluster.two_level_hit(
+            cm, org_l, dir_l, t_max, backface_cull=mesh.backface_cull,
+            return_residual=True)
+        t, tri, _, _ = traverse.bvh_hit_sparse(
+            mesh.bvh, mesh.soup, org_l, dir_l, res, mesh.max_leaf, t, tri,
+            torch.ones_like(t), torch.zeros_like(t))
+        return t, tri, None
+    if mesh.use_packet:
+        t, tri, al, be = packet_bvh.packet_hit(mesh.packed, mesh.soup, org_l,
+                                               dir_l, t_max)
+        return t, tri, (al, be, 1.0 - al - be)
+    if mesh.use_brute:
+        mh = traverse.brute_force_hit(mesh.soup, org_l, dir_l, t_max=t_max)
+    else:
+        mh = traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
+                              max_leaf=mesh.max_leaf, t_init=t_max)
+    return mh.t, mh.tri, (mh.alpha, mh.beta, mh.gamma)
+
+
 def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
     """Intersect one mesh (closest hit pruned by the running best t) and
     fold it into the running hit, with its shading from one shade_pack
     row gather."""
     row = mesh.obj_row
     org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
-    t, tri = cluster.two_level_hit(mesh.clustered, org_l, dir_l, cur.t,
-                                   backface_cull=mesh.backface_cull)
+    t, tri, bary = _mesh_closest_hit(mesh, org_l, dir_l, cur.t)
     sf = mesh.shade_pack[tri.clamp_min(0).long()]
     win = t < cur.t
-    al, be, ga = traverse.bary_cleanup(
-        *_bary_from_pack(mesh, org_l, dir_l, t, tri, sf))
+    if bary is None:
+        bary = _bary_from_pack(mesh, org_l, dir_l, t, tri, sf)
+    al, be, ga = traverse.bary_cleanup(*bary)
     if mesh.interp_normals:
         s0, s1, s2 = mesh.col('n0'), mesh.col('n1'), mesh.col('n2')
         n_l = (sf[:, s0] * al[:, None] + sf[:, s1] * be[:, None]
@@ -298,8 +333,21 @@ def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light):
     blocked = (t_all < limit[:, None]).any(dim=-1)
     for mesh in sc.meshes:
         org_l, dir_l = _local_ray_row(sc, mesh.obj_row, origins, dirs)
-        blocked |= cluster.two_level_any(mesh.clustered, org_l, dir_l, limit,
-                                         backface_cull=mesh.backface_cull)
+        if mesh.use_cluster:
+            blocked |= cluster.two_level_any(
+                mesh.clustered, org_l, dir_l, limit,
+                backface_cull=mesh.backface_cull)
+        elif mesh.use_packet:
+            # the packet tier has no any-hit variant: closest hit bounded
+            # by the limit (t is transform-invariant, dir_l unnormalized)
+            blocked |= _mesh_closest_hit(mesh, org_l, dir_l, limit)[0] < limit
+        elif mesh.use_brute:
+            blocked |= traverse.brute_force_any(mesh.soup, org_l, dir_l,
+                                                limit)
+        else:
+            blocked |= traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
+                                        max_leaf=mesh.max_leaf,
+                                        any_hit_limit=limit).t < limit
     return blocked
 
 
@@ -479,9 +527,10 @@ def camera_backface_gate(sc: SceneArrays, cam_pos) -> SceneArrays:
 
 def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
                 light_scale=1.0, fog=None, background=None, frame=None,
-                merge_meshes=None, device='cpu') -> SceneArrays:
+                merge_meshes=None, device=None) -> SceneArrays:
     """Assemble SceneArrays from ObjectSpecs: objects[0] = light,
-    objects[1] = dome.  `frame` evaluates per-object keyframes."""
+    objects[1] = dome, on `device` (None: the card).  `frame` evaluates
+    per-object keyframes."""
     n = len(objects)
     if n < 2:
         raise ValueError('scene needs at least light (0) and dome (1) objects')
@@ -514,6 +563,8 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
                 o.translation = tuple(tr)
                 o.rotation = rot
                 o.scale = float(s)
+
+    device = device_mod.resolve(device)
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)

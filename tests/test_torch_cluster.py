@@ -28,6 +28,20 @@ BIG_T = np.float32(1e30)
 TIE = 2.0 ** -16
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """Run the port's torch code on one intra-op thread.  The plain
+    versions issue thousands of small ops, and each op of a multi-threaded
+    pool waits at a barrier for all its threads; with the suite's workers
+    sharing the host's cores those threads are often descheduled (the
+    tree-tier test took 577 s instead of 3.6 s, six copies on 8 cores).
+    Imported by the other JAX-parity test files of the port."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tris(md):
     return md.vertices[md.vtx_idx]
 
@@ -67,7 +81,7 @@ def small():
     sign = topology.closed_orientation(md.vertices, md.vtx_idx)
     assert sign != 0                     # closed: the cull is exact
     cj = pc.build_clustered(tri, nrm_sign=float(sign))
-    ct = tc.build_clustered(tri, nrm_sign=float(sign))
+    ct = tc.build_clustered(tri, nrm_sign=float(sign), dev='cpu')
     return cj, ct
 
 
@@ -77,7 +91,7 @@ def big():
     md = jprocgen.sphere_mesh(200, 200, radius=12.0, displace_amp=0.25)
     tri = _tris(md)
     cj = pc.build_clustered(tri, tris_c=pc.SUBT)
-    ct = tc.build_clustered(tri, tris_c=tc.SUBT)
+    ct = tc.build_clustered(tri, tris_c=tc.SUBT, dev='cpu')
     assert ct.n_clusters > tc.HIER_MIN_CLUSTERS
     return cj, ct
 
@@ -97,7 +111,7 @@ def _assert_cull_equal(jout, tout):
 @pytest.mark.parametrize('which', ['small', 'big'])
 def test_build_clustered_equals_jax(which, request):
     cj, ct = request.getfixturevalue(which)
-    conv = tc.from_tpu_arrays(pc.cluster_arrays(cj))
+    conv = tc.from_tpu_arrays(pc.cluster_arrays(cj), dev='cpu')
     for name in ('ctab', 'starts', 'sub_bounds', 'planes', 'nrm'):
         np.testing.assert_array_equal(getattr(ct, name).numpy(),
                                       getattr(conv, name).numpy(), err_msg=name)
@@ -214,7 +228,7 @@ def _slab_stack():
 
 def test_windowed_overflow_drops_no_hit():
     tri, g = _slab_stack()
-    cm = tc.build_clustered(tri)
+    cm = tc.build_clustered(tri, dev='cpu')
     assert cm.n_clusters == tc.MAXC + 2
     n = 2 * tc.BLOCK
     o = np.tile(np.array([5.5 + 1 / 3, 5.5 + 1 / 3, -50.0], np.float32),
@@ -228,7 +242,7 @@ def test_windowed_overflow_drops_no_hit():
     # ... and the windowed rounds still find the far-slab hits
     t, tri_id = tc.two_level_hit(cm, torch.as_tensor(o), torch.as_tensor(d),
                                  torch.full((n,), BIG_T))
-    ref = tt.brute_force_hit(tc.flat_soup(cm), torch.as_tensor(o),
+    ref = tt.brute_force_hit(tc.flat_soup(cm, dev='cpu'), torch.as_tensor(o),
                              torch.as_tensor(d))
     np.testing.assert_allclose(t.numpy(), ref.t.numpy(), rtol=1e-6, atol=1e-6)
     assert (t.numpy()[1000:] < BIG_T).all()
@@ -244,7 +258,7 @@ def _random_soup(t, seed):
 
 def test_plain_sweeps_match_brute_force():
     tri = _random_soup(3000, seed=8)
-    cm = tc.build_clustered(tri)
+    cm = tc.build_clustered(tri, dev='cpu')
     rng = np.random.default_rng(9)
     n = 2 * tc.BLOCK
     o = torch.as_tensor(rng.uniform(-14, 14, (n, 3)).astype(np.float32))
@@ -252,7 +266,7 @@ def test_plain_sweeps_match_brute_force():
     d = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True))
     tmax = torch.full((n,), BIG_T)
     t, tri_id = tc.two_level_hit(cm, o, d, tmax)
-    soup = tc.flat_soup(cm)
+    soup = tc.flat_soup(cm, dev='cpu')
     ref = tt.brute_force_hit(soup, o, d)
     np.testing.assert_allclose(t.numpy(), ref.t.numpy(), rtol=1e-5, atol=1e-5)
     assert (tri_id.numpy() == ref.tri.numpy()).mean() > 0.999

@@ -1,14 +1,19 @@
-"""PyTorch port on a CUDA card: the hand-written sweep kernels against
-their plain PyTorch versions, and a small render through the kernels
-against the CPU plain path.
+"""PyTorch port on a CUDA card: the hand-written kernels (cluster sweeps,
+tree cull, packet BVH) against their plain PyTorch versions, and a small
+render through the kernels against the CPU plain path.
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Without a CUDA device every test skips.  The kernels round every product
-and sum on their own in the plain versions' order, so they must agree
-with the plain versions exactly: same t, same tri, same occlusion.
+and sum on their own in the plain versions' order, so the sweeps and the
+tree cull must agree with their plain versions exactly: same t, same tri,
+same occlusion, same counts and keys (the cull's kept ids may differ only
+among keys equal to the 128th).  The packet kernel walks a BVH where its
+plain version is brute force, so a ray grazing a leaf box may differ:
+tri equal on >= 99.9% of lanes, the rest ties within 2^-16 relative t or
+at most 0.1% hit/miss flips, t within 1e-5 relative where tri agrees.
 """
 
 import numpy as np
@@ -16,7 +21,10 @@ import pytest
 import torch
 
 import pathtracer_tpu_torch as pt
+from pathtracer_tpu_torch.ops import bvh as tb
 from pathtracer_tpu_torch.ops import cluster as tc
+from pathtracer_tpu_torch.ops import packet_bvh as tp
+from pathtracer_tpu_torch.ops import traverse as tt
 from pathtracer_tpu_torch.render import renderer as rnd
 from pathtracer_tpu_torch.scene import scene as scn
 from pathtracer_tpu_torch.utils import procgen
@@ -129,3 +137,90 @@ def test_render_matches_cpu_plain_path(cuda):
     assert flipped.mean() < 0.05
     assert rel[~flipped].max() < 1e-3
     assert abs(out['cuda'].mean() - out['cpu'].mean()) / scale < 0.02
+
+
+def _sphere(lat):
+    md = procgen.sphere_mesh(lat, lat, radius=12.0, displace_amp=0.25)
+    return md.vertices[md.vtx_idx]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('with_tmin', [False, True])
+def test_packet_hit_matches_plain(cuda, with_tmin):
+    tri = _sphere(32)
+    fb = tb.build_bvh(tri)
+    packed = tp.pack_bvh(fb, device=cuda)
+    soup = tt.make_soup(tri[fb.order], device=cuda)
+    o, d = (x.to(cuda) for x in _rays(8 * tc.BLOCK, seed=11))
+    n = o.shape[0]
+    tmax = torch.full((n,), BIG_T, device=cuda)
+    tmin = None
+    if with_tmin:
+        # exclude each lane's first hit, with a margin past it
+        tmin = tp.packet_hit_plain(soup, o, d, tmax)[0]
+        tmin = torch.where(tmin < BIG_T, tmin + 1e-3, torch.zeros_like(tmin))
+    before = tp.packet_hit.launches
+    t_k, tri_k, al_k, be_k = tp.packet_hit(packed, soup, o, d, tmax, tmin)
+    assert tp.packet_hit.launches == before + 1
+    t_p, tri_p, al_p, be_p = tp.packet_hit_plain(soup, o, d, tmax, tmin)
+    assert (tri_p >= 0).float().mean().item() > 0.1
+    same = tri_k == tri_p
+    assert same.float().mean().item() >= 0.999
+    flips = ((tri_k < 0) != (tri_p < 0)) & ~same
+    assert flips.sum().item() <= max(1, n // 1000)
+    tie = ~same & ~flips
+    assert bool(((t_k[tie] - t_p[tie]).abs()
+                 <= 2.0 ** -16 * t_p[tie].abs()).all())
+    h = same & (tri_p >= 0)
+    assert bool(((t_k[h] - t_p[h]).abs() <= 1e-5 * t_p[h].abs()).all())
+    assert bool(((al_k[h] - al_p[h]).abs() <= 1e-5).all())
+    assert bool(((be_k[h] - be_p[h]).abs() <= 1e-5).all())
+
+
+def _assert_cull_match(out_k, out_p):
+    """Equal counts and keys; equal kept ids except among keys equal to a
+    packet's 128th key."""
+    ids_k, cnt_k, keys_k = (x.cpu().numpy() for x in out_k)
+    ids_p, cnt_p, keys_p = (x.cpu().numpy() for x in out_p)
+    np.testing.assert_array_equal(cnt_k, cnt_p)
+    np.testing.assert_array_equal(keys_k, keys_p)
+    for b in range(ids_k.shape[0]):
+        m = min(int(cnt_p[b, 0]), tc.MAXC)
+        if m == 0:
+            continue
+        below = keys_p[b, :m] < keys_p[b, m - 1]
+        if cnt_p[b, 0] <= tc.MAXC:
+            below[:] = True
+        assert set(ids_k[b, :m][below]) == set(ids_p[b, :m][below])
+        assert (ids_k[b, m:] == -1).all()
+
+
+@pytest.mark.gpu
+def test_cull_tree_matches_plain(cuda):
+    cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=cuda)
+    o, d = (x.to(cuda) for x in _rays(8 * tc.BLOCK, seed=12))
+    tmax = torch.full((o.shape[0],), BIG_T, device=cuda)
+    tmax[::97] = -1.0                                   # dead lanes
+    before = tc.cull_tree.launches
+    out_k = tc.cull_tree(cm, o, d, tmax)
+    assert tc.cull_tree.launches == before + 1
+    out_p = tc.cull_tree_plain(cm, o, d, tmax)
+    assert (out_p[1] > tc.MAXC).any()                  # overflow exercised
+    _assert_cull_match(out_k, out_p)
+
+
+@pytest.mark.gpu
+def test_tree_tier_matches_cpu_plain_path(cuda, monkeypatch):
+    """two_level_hit on the tree tier through the kernels (cull and sweep,
+    refine round) equals the CPU plain path, residual mask included."""
+    tri = _sphere(200)
+    o, d = _rays(4 * tc.BLOCK, seed=13)
+    tmax = torch.full((o.shape[0],), BIG_T)
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        cm = tc.build_clustered(tri, tris_c=tc.SUBT, dev=dev)
+        monkeypatch.setattr(tc, 'DENSE_CULL_MAX', cm.n_clusters - 1)
+        out[dev.type] = [x.cpu() for x in tc.two_level_hit(
+            cm, o.to(dev), d.to(dev), tmax.to(dev), return_residual=True)]
+    for a, b in zip(out['cuda'], out['cpu']):
+        assert torch.equal(a, b)

@@ -28,6 +28,8 @@ from pathtracer_tpu_torch import convert
 from pathtracer_tpu_torch.render import renderer as trnd
 from pathtracer_tpu_torch.scene import scene as tscn
 
+from test_torch_cluster import one_torch_thread  # noqa: F401 (autouse)
+
 W, H, SPP, BOUNCES = 32, 24, 2, 3
 CAM = ((0, 0, 50), (0, 0, -1), (0, 1, 0))
 
@@ -46,10 +48,11 @@ def mesh_scene():
     m = jmesh.upload_mesh(md, obj_row=sc.meshes[0].obj_row, use_cluster=True)
     assert m.backface_cull
     sc = sc.replace(meshes=(m,))
-    return sc, convert.scene_from_numpy(convert.numpy_fields(sc))
+    return sc, convert.scene_from_numpy(convert.numpy_fields(sc),
+                                        device='cpu')
 
 
-def _flagship(mod):
+def _flagship(mod, **kw):
     """bench.py's analytic flagship: Phong, mirror and glass spheres."""
     objs = mod.default_objects()
     objs.append(mod.sphere((0.0, -17.0, 0.0), 10.0, kd=(0.7, 0.3, 0.2),
@@ -57,7 +60,7 @@ def _flagship(mod):
     objs.append(mod.sphere((-16.0, -20.0, -10.0), 7.0, miroir=True))
     objs.append(mod.sphere((17.0, -19.0, -5.0), 8.0, transp=True,
                            refr_index=1.4))
-    return mod.build_scene(objs, mod.default_light_intensity())
+    return mod.build_scene(objs, mod.default_light_intensity(), **kw)
 
 
 def _compare_samples(jsc, tsc):
@@ -87,7 +90,7 @@ def test_mesh_scene_samples_match_jax(mesh_scene):
 
 
 def test_flagship_samples_match_jax():
-    _compare_samples(_flagship(jscn), _flagship(tscn))
+    _compare_samples(_flagship(jscn), _flagship(tscn, device='cpu'))
 
 
 def test_renderer_step_matches_jax(mesh_scene):
@@ -115,7 +118,8 @@ def test_build_scene_equals_conversion(mesh_scene):
     _, conv = mesh_scene
     objs = tscn.default_objects()
     objs.append(tscn.mesh_object(_mesh_data(), translation=(0.0, -15.0, 0.0)))
-    own = tscn.build_scene(objs, tscn.default_light_intensity())
+    own = tscn.build_scene(objs, tscn.default_light_intensity(),
+                           device='cpu')
     for name, a in _tensor_fields(own).items():
         b = getattr(conv, name)
         if isinstance(a, torch.Tensor):
@@ -127,18 +131,24 @@ def test_build_scene_equals_conversion(mesh_scene):
         b = getattr(mc, name)
         if isinstance(a, torch.Tensor):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+        elif isinstance(a, tuple) and a and isinstance(a[0], torch.Tensor):
+            for x, y in zip(a, b):              # soup, bvh
+                np.testing.assert_array_equal(x.numpy(), y.numpy(),
+                                              err_msg=name)
         elif name != 'clustered':
             assert a == b, name
-    for name in ('ctab', 'starts', 'sub_bounds', 'planes', 'nrm'):
+    for name in ('ctab', 'starts', 'sub_bounds', 'planes', 'nrm', 'top_box',
+                 'top_a', 'top_b', 'top_leaf', 'top_order'):
         np.testing.assert_array_equal(getattr(mo.clustered, name).numpy(),
                                       getattr(mc.clustered, name).numpy())
+    assert mo.clustered.top_max_leaf == mc.clustered.top_max_leaf
 
 
 def test_unported_features_raise():
     objs = tscn.default_objects()
     objs.append(tscn.sphere((0.0, 0.0, 0.0), 1.0, ghost=True))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tscn.build_scene(objs, tscn.default_light_intensity())
+        tscn.build_scene(objs, tscn.default_light_intensity(), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tscn.build_scene(tscn.default_objects(), 1.0,
-                         fog={'density': 0.1})
+                         fog={'density': 0.1}, device='cpu')
