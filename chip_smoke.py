@@ -39,6 +39,19 @@
    whose image must agree with the same scene on the cluster tier (< 1%
    of pixels beyond 1e-3 relative, means within 1%).  The packet kernel
    must launch.
+8. Probe phase: the sweep's cost probes at their full shapes.  The three
+   entry points (pathtracer_tpu_torch.scripts.prof_sweep, proto_mxu,
+   ablate_sweep; the last on its 1,002,528-triangle terrain, built once)
+   are each driven with the launch counts set to 0 just before and read
+   just after, and each must launch its kernels.  Then every probe kernel
+   against its plain version: the fp32 product, the epilogue, the
+   edge-matrix test and every ablation variant bit-equal, the TF32
+   product within sweep_micro.TF32_TOL of the absolute-value bound; the
+   ablation's `full` against the production cluster_sweep on the same
+   clamped inputs by check_hits (and timed there); and the fp32 product
+   must take at least twice as long at 1536 columns as at 384, so the
+   whole product is computed.  Times are the entry points' CUDA-event times; torch.matmul
+   of one product is the library yardstick of the products.
 
 Every failure raises.  The last three lines are the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
@@ -62,11 +75,14 @@ BIG_T = float(np.float32(1e30))
 # cores, HBM3 bandwidth
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 494.7e12    # dense TF32 on the tensor cores
 # fp32 operations (products, sums, divides, min / max) per unit of work,
 # counted in the kernel sources
 SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
 SLAB_OPS = 23           # one ray x box slab test
 TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
+EPI_PAIR_OPS = 20       # one lane x triangle of the probe epilogue
+EDGE_PAIR_OPS = 41      # one probe edge-matrix test (sweep_micro.cu)
 
 
 def log(*a):
@@ -80,17 +96,17 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(ops, nbytes):
-    """Least time (ms) for `ops` fp32 operations and `nbytes` bytes on the
-    card, and which of the two bounds it."""
-    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops, nbytes, peak=PEAK_FLOPS):
+    """Least time (ms) for `ops` operations at `peak` per second and
+    `nbytes` bytes on the card, and which of the two bounds it."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def entry(name, source, replaces, err, agree, ms, plain_ms, ops, nbytes,
-          **extra):
+          peak=PEAK_FLOPS, **extra):
     """One kernel's record of the kernel JSON line."""
-    bound_ms, bound_by = bound(ops, nbytes)
+    bound_ms, bound_by = bound(ops, nbytes, peak)
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 launches=0, max_abs_err=err, agree=agree, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -573,14 +589,213 @@ def packet_phase(dev, cam, card):
     return rec
 
 
+def drive(fn, needs):
+    """Run one probe entry point with every probe count set to 0 just
+    before; returns (its result, the counts read just after) and raises
+    if a kernel in `needs` never launched."""
+    from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    wrappers = {f.__name__: f for f in (sm.dot_fp32, sm.dot_tf32,
+                                        sm.epilogue, sm.edgemat,
+                                        sa.sweep_ablate)}
+    for f in wrappers.values():
+        f.launches = 0
+    out = fn()
+    counts = {k: f.launches for k, f in wrappers.items()}
+    for k in needs:
+        if counts[k] <= 0:
+            raise AssertionError(f'{k} never launched on its probe path')
+    return out, counts
+
+
+def check_dot(kern, tf32, x, w, reps, eps, out_cols):
+    """A product kernel against its plain version: fp32 bit-equal, TF32
+    within TF32_TOL of the absolute-value bound.  Returns (max |diff|,
+    largest diff over its bound)."""
+    import torch
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    out_k = kern(x, w, reps, eps, out_cols)
+    out_p = sm.dot_plain(x, w, reps, eps, out_cols, tf32)
+    if not tf32:
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            raise AssertionError('fp32 product differs from its plain '
+                                 'version')
+        return 0.0, 0.0
+    b = sm.dot_plain(x.abs(), w.abs(), reps, eps, w.shape[1])[0]
+    pairs = []
+    for k, p, bb in zip(out_k, out_p, (b[:, :out_cols], b[:, 0::2]
+                                       + b[:, 1::2])):
+        d = (k - p).abs()
+        pairs.append((float(d.max()), float((d / bb).max())))
+    err, ratio = max(e for e, _ in pairs), max(r for _, r in pairs)
+    if not ratio <= sm.TF32_TOL:
+        raise AssertionError(f'TF32 product off its plain version by '
+                             f'{ratio:.3g} of the bound (> {sm.TF32_TOL})')
+    return err, ratio
+
+
+def probe_phase(dev):
+    """The sweep's cost probes: the entry points at their full shapes,
+    then every probe kernel against its plain version.  Returns the
+    kernels' records."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    from pathtracer_tpu_torch.scripts import ablate_sweep, prof_sweep, \
+        proto_mxu, time_us
+    prof, n_prof = drive(lambda: prof_sweep.run(dev, log=log),
+                         ('dot_fp32', 'dot_tf32', 'epilogue', 'edgemat'))
+    mxu, n_mxu = drive(lambda: proto_mxu.run(dev, log=log),
+                       ('dot_fp32', 'dot_tf32'))
+    w = ablate_sweep.workload(dev, log=log)
+    log(f'{w.ids.shape[0]} packets, {w.slots} slots swept')
+    abl, n_abl = drive(lambda: ablate_sweep.run(w, log=log),
+                       ('sweep_ablate',))
+    log(f'probe launches: prof_sweep {n_prof}, proto_mxu {n_mxu}, '
+        f'ablate_sweep {n_abl}')
+    recs = []
+    src = 'pathtracer_tpu_torch/csrc/sweep_micro.cu'
+
+    # ---- the products, at both scripts' shapes ----
+    x = prof_sweep.inputs(dev)
+    shapes = (
+        ('prof_sweep', prof, n_prof, (x['r'], x['a']), prof_sweep.REPS,
+         prof_sweep.EPS, prof_sweep.OUT_COLS,
+         {'tf32': 'scripts/tpu_prof_sweep.py:45',
+          'fp32': 'scripts/tpu_prof_sweep.py:45'}),
+        ('proto_mxu', mxu, n_mxu, proto_mxu.inputs(dev), proto_mxu.REPS,
+         proto_mxu.EPS, proto_mxu.NS,
+         {'tf32': 'scripts/tpu_proto_mxu.py:24',
+          'fp32': 'scripts/tpu_proto_mxu.py:34'}))
+    for script, res, counts, (xx, ww), reps, eps, cols, replaces in shapes:
+        m, n = xx.shape[0], ww.shape[1]
+        for route in ('fp32', 'tf32'):
+            kern = sm.dot_tf32 if route == 'tf32' else sm.dot_fp32
+            err, ratio = check_dot(kern, route == 'tf32', xx, ww, reps, eps,
+                                   cols)
+            ms_p = cuda_ms(lambda: sm.dot_plain(xx, ww, reps, eps, cols,
+                                                route == 'tf32'), reps=1)
+            rec = entry(
+                f'dot_{route}[{script}]', src, replaces[route], err, 1.0,
+                res[route] * reps / 1e3, ms_p, reps * 2 * m * 8 * n,
+                4 * (m * 8 + 8 * n + m * cols + m * n // 2),
+                peak=PEAK_TF32 if route == 'tf32' else PEAK_FLOPS,
+                us_per_rep=res[route], reps=reps, shape=f'({m}x8)x(8x{n})',
+                err_over_bound=ratio,
+                library_ms_per_rep=res[f'torch.matmul {route}'] / 1e3)
+            rec['launches'] = counts[f'dot_{route}']
+            rec['library_ms'] = res[f'torch.matmul {route}'] * reps / 1e3
+            recs.append(rec)
+            log(f'dot_{route} at {script} shape: {res[route]:.3f} us/rep, '
+                f'bound {rec["bound_ms"] * 1e3 / reps:.4f} us/rep, '
+                f'torch.matmul {res["torch.matmul " + route]:.3f} us, plain '
+                f'{ms_p:.3f} ms per launch; max |diff| {err:.3g} '
+                f'({ratio:.3g} of the bound)')
+    narrow = x['a'][:, :prof_sweep.NS // 4].contiguous()
+    t_narrow = time_us(lambda: sm.dot_fp32(x['r'], narrow, prof_sweep.REPS,
+                                           prof_sweep.EPS, 128), 20, dev)
+    scale = prof['fp32'] * prof_sweep.REPS / t_narrow
+    log(f'fp32 product time, N = {prof_sweep.NS} over N = '
+        f'{prof_sweep.NS // 4}: {scale:.3f}')
+    if scale < 2.0:
+        raise AssertionError('the fp32 product does not grow with N: the '
+                             'kernel may skip columns')
+
+    # ---- epilogue and edge-matrix test ----
+    reps, eps = prof_sweep.REPS, prof_sweep.EPS
+    m, s = prof_sweep.BLOCK, prof_sweep.SUBT
+    for name, fn, plain, args, ops, nbytes, line in (
+            ('epilogue', sm.epilogue, sm.epilogue_plain, (x['p'], x['tn']),
+             reps * m * s * EPI_PAIR_OPS, 4 * (m * 6 * s + m + 2 * m), 57),
+            ('edgemat', sm.edgemat, sm.edgemat_plain,
+             (x['ov'], x['dv'], x['tr']),
+             reps * (m * s * EDGE_PAIR_OPS + 12 * s),
+             4 * (6 * m + 12 * s + m), 89)):
+        out_k, out_p = fn(*args, reps, eps), plain(*args, reps, eps)
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f'{name} differs from its plain version')
+        ms_p = cuda_ms(lambda: plain(*args, reps, eps), reps=1)
+        rec = entry(name, src, f'scripts/tpu_prof_sweep.py:{line}', 0.0, 1.0,
+                    prof[name] * reps / 1e3, ms_p, ops, nbytes,
+                    us_per_rep=prof[name], reps=reps,
+                    hit_share=float((out_k[0] < BIG_T).float().mean()))
+        rec['launches'] = n_prof[name]
+        recs.append(rec)
+        log(f'{name}: {prof[name]:.3f} us/rep, bound '
+            f'{rec["bound_ms"] * 1e3 / reps:.4f} us/rep, plain {ms_p:.3f} '
+            f'ms per launch; equal to its plain version')
+
+    # ---- the ablation ----
+    args = w.args()
+    variants = {}
+    for v in sa.VARIANTS:
+        out_k = sa.sweep_ablate(*args, v)
+        out_p = sa.sweep_ablate_plain(*args, v)
+        equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+        if not equal:
+            if v in ('no-epi', 'tonly', 'acc-only'):
+                raise AssertionError(f'ablation {v} differs from its plain '
+                                     f'version')
+            check_hits(out_p[0], out_p[1], out_k[0], out_k[1])
+        variants[v] = dict(ms=abl[v], equal=equal)
+    full = sa.sweep_ablate(*args, 'full')
+    t_s, tri_s = cl.cluster_sweep(
+        w.cm, w.ids, w.counts, torch.zeros(w.ids.shape, device=dev), w.org,
+        w.dirn, w.tmax, w.tmin)
+    frac, err = check_hits(t_s, tri_s, full[0], full[1])
+    keys0 = torch.zeros(w.ids.shape, device=dev)
+    ms_sweep = time_us(lambda: cl.cluster_sweep(
+        w.cm, w.ids, w.counts, keys0, w.org, w.dirn, w.tmax, w.tmin), 4,
+        dev) / 1e3
+    st = {}
+    cl.cluster_sweep_plain(w.cm, w.ids, w.counts, keys0, w.org, w.dirn,
+                           w.tmax, w.tmin, stats=st)
+    ms_p = cuda_ms(lambda: sa.sweep_ablate_plain(*args, 'full'), reps=1,
+                   warm=False)
+    nb = w.ids.shape[0]
+    live = torch.arange(cl.MAXC, device=dev)[None] < w.counts
+    distinct = int(torch.unique(w.ids[live].clamp_min(0)).numel())
+    pairs = w.slots * w.cm.n_sub * cl.BLOCK * cl.SUBT
+    rec = entry(
+        'sweep_ablate', 'pathtracer_tpu_torch/csrc/sweep_ablate.cu',
+        'scripts/tpu_ablate_sweep.py:67', 0.0,
+        sum(v['equal'] for v in variants.values()) / len(variants),
+        abl['full'], ms_p, pairs * SWEEP_PAIR_OPS,
+        nb * cl.BLOCK * (32 + 16) + nb * (4 * cl.MAXC + 4)
+        + distinct * w.cm.n_sub * cl.PLANE_ROWS * cl.SUBT * 4,
+        variants=variants, packets=nb, slots=w.slots,
+        full_vs_cluster_sweep=frac, cluster_sweep_ms=ms_sweep,
+        cluster_sweep_subtiles=st['subtiles'])
+    rec['launches'] = n_abl['sweep_ablate']
+    recs.append(rec)
+    log(f'ablation: {nb} packets, {w.slots} slots, {distinct} distinct '
+        f'clusters; every variant equal to its plain version: '
+        f'{all(v["equal"] for v in variants.values())}; full vs '
+        f'cluster_sweep tri agreement {frac:.6f} (max |dt| {err:.3g}); '
+        f'full {abl["full"]:.3f} ms (bound {rec["bound_ms"]:.4f} ms), plain '
+        f'{ms_p:.3f} ms, {abl["full"] * 1e3 / (w.slots * w.cm.n_sub):.3f} us '
+        f'per swept subtile; the production cluster_sweep on the same inputs '
+        f'{ms_sweep:.3f} ms for the {st["subtiles"]} subtiles its slab tests '
+        f'keep, {ms_sweep * 1e3 / max(st["subtiles"], 1):.3f} us each')
+    split = {v: abl['full'] - abl[v] for v in sa.VARIANTS if v != 'full'}
+    log('ablation, full minus variant (ms): '
+        + ', '.join(f'{k} {d:.3f}' for k, d in split.items()))
+    return recs
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
     logs = {}
     loaders = {'cluster_sweep': cl.load_kernels,
                'cluster_cull': cl.load_cull_kernel,
-               'packet_bvh': pb.load_kernels}
+               'packet_bvh': pb.load_kernels,
+               'sweep_micro': sm.load_kernels,
+               'sweep_ablate': sa.load_kernels}
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         futs = [ex.submit(fn, log=lambda m, k=k: logs.setdefault(k, m))
                 for k, fn in loaders.items()]
@@ -624,6 +839,9 @@ def main():
     t0 = time.perf_counter()
     kernels.append(packet_phase(dev, cam, card))
     log(f'packet phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    kernels.extend(probe_phase(dev))
+    log(f'probe phase {time.perf_counter() - t0:.1f} s')
     log(card)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -21,6 +21,7 @@ a module is imported.
 
 from __future__ import annotations
 
+import glob
 import os
 import shutil
 import subprocess
@@ -57,8 +58,9 @@ def build_dir() -> str:
 
 
 def build_shared(src: str, name: str, cmd_prefix: list, timeout: float = 600,
-                 log=None) -> str:
-    """Compile `src` into ``_build/<name>`` unless an up-to-date copy exists.
+                 log=None, deps=()) -> str:
+    """Compile `src` into ``_build/<name>`` unless an up-to-date copy exists
+    (one newer than `src` and every header in `deps`).
 
     cmd_prefix is the compiler command without the output and source
     arguments.  The library is written to a temporary name and renamed,
@@ -66,7 +68,8 @@ def build_shared(src: str, name: str, cmd_prefix: list, timeout: float = 600,
     RuntimeError with the compiler's output when the build fails.
     Returns the library path."""
     out = os.path.join(build_dir(), name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+    newest = max(os.path.getmtime(f) for f in (src, *deps))
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     tmp = f'{out}.{os.getpid()}.tmp'
     proc = subprocess.run(cmd_prefix + ['-o', tmp, src], capture_output=True,
@@ -91,8 +94,11 @@ def nvcc_path() -> str:
 
 def build_cuda(name: str, log=None) -> str:
     """Compile ``csrc/<name>.cu`` with nvcc for sm_90a into
-    ``_build/lib<name>.so`` (once; kept while newer than the source).
-    `log` receives the compiler's output (the ptxas register and
-    shared-memory report).  Returns the library path."""
-    return build_shared(os.path.join(PKG_DIR, 'csrc', name + '.cu'),
-                        f'lib{name}.so', [nvcc_path()] + NVCC_FLAGS, log=log)
+    ``_build/lib<name>.so`` (once; kept while newer than the source and
+    every ``csrc/*.cuh`` header).  `log` receives the compiler's output
+    (the ptxas register and shared-memory report).  Returns the library
+    path."""
+    csrc = os.path.join(PKG_DIR, 'csrc')
+    return build_shared(os.path.join(csrc, name + '.cu'), f'lib{name}.so',
+                        [nvcc_path()] + NVCC_FLAGS, log=log,
+                        deps=sorted(glob.glob(os.path.join(csrc, '*.cuh'))))

@@ -1,0 +1,260 @@
+"""The cluster sweep's cost probes: a dense ray x plane product, the
+sweep's epilogue and the old edge-matrix test, each repeated REPS times on
+one subtile's worth of data.
+
+Counterpart of the TPU probes scripts/tpu_prof_sweep.py (`matmul_kernel`,
+`epilogue_kernel`, `edgemat_kernel`) and scripts/tpu_proto_mxu.py
+(`mxu_kernel`, `vpu_kernel`); the entry points that time them are
+pathtracer_tpu_torch/scripts/prof_sweep.py and proto_mxu.py.
+
+Each function has a plain PyTorch version (`*_plain`), which serves CPU
+tensors, and a wrapper that launches a hand-written CUDA kernel
+(csrc/sweep_micro.cu) on CUDA tensors or raises:
+  * `dot_fp32` / `dot_tf32`: out = sum_{i < reps} (x + i*eps) @ w with x
+    (M, 8) and w (8, N), on the CUDA cores in strict fp32 (the
+    counterpart of Precision.HIGHEST and of the VPU kernel; bit-equal to
+    `dot_plain`) or on the tensor cores in TF32 (Precision.DEFAULT and the
+    MXU kernel; `dot_plain(tf32=True)` rounds the operands to TF32 the same
+    way and sums in fp32, so the two agree within TF32_TOL of the
+    absolute-value bound, not bit for bit: the tensor core adds in its own
+    order).  Both return (out (M, out_cols), pairs (M, N / 2)): out is the
+    TPU kernel's output, its first out_cols columns; pairs holds the sums
+    of adjacent column pairs of the whole accumulator, which keeps every
+    column of the product live in the kernel.
+  * `epilogue`: per rep the sweep's six-way split, t, beta, gamma,
+    acceptance, first-index argmin and best-t update; (2, M) f32
+    [tbest, tri].  Bit-equal to `epilogue_plain`.
+  * `edgemat`: per rep the edge-matrix ray x triangle test and a min of
+    t; (1, M) f32.  Bit-equal to `edgemat_plain`.
+
+The products are never handed to cuBLAS or torch.matmul: the probes ask
+what a hand-written product costs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import device
+
+BIG_T = float(np.float32(1e30))
+AR = 8            # depth of the ray matrix
+SUBT = 256        # triangles per subtile
+TF32_TOL = 2.0 ** -14   # |dot_tf32 - dot_plain(tf32=True)| <= TF32_TOL * bound
+
+
+def _steps(reps: int, eps: float, dev) -> torch.Tensor:
+    """f32(i) * f32(eps) for i < reps, rounded in fp32 as the TPU kernels'
+    `i.astype(f32) * eps` and the CUDA kernels' __fmul_rn."""
+    return (torch.arange(reps, dtype=torch.float32, device=dev)
+            * torch.tensor(np.float32(eps), device=dev))
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as `cvt.rna.tf32.f32`: add half of the dropped 13 bits to the
+    magnitude bits, then clear them."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def dot_plain(x, w, reps: int, eps: float, out_cols: int, tf32=False):
+    """sum_{i < reps} (x + i*eps) @ w, each product summed over k in order
+    with every product and sum rounded on its own; with tf32, both
+    operands rounded to TF32 first.  Returns (out (M, out_cols), pairs
+    (M, N / 2))."""
+    steps = _steps(reps, eps, x.device)
+    if tf32:
+        w = round_tf32(w)
+    acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
+    for i in range(reps):
+        r = x + steps[i]
+        if tf32:
+            r = round_tf32(r)
+        s = r[:, 0:1] * w[0]
+        for k in range(1, AR):
+            s = s + r[:, k:k + 1] * w[k]
+        acc = acc + s
+    return acc[:, :out_cols].contiguous(), acc[:, 0::2] + acc[:, 1::2]
+
+
+def epilogue_plain(p, tn, reps: int, eps: float):
+    """The sweep epilogue of tpu_prof_sweep.epilogue_kernel: p (M, 6*SUBT),
+    tn (1, M); per rep prod = p + i*eps split into on, oU, oV, dn, dU, dV,
+    t = -(on / dn), acceptance, the lowest index j with t <= min t, and
+    (tbest, tri) updated where that min beats tbest.  (2, M) f32."""
+    m = p.shape[0]
+    steps = _steps(reps, eps, p.device)
+    tnr = tn[0][:, None]
+    lane = torch.arange(SUBT, dtype=torch.int32, device=p.device)
+    tbest = torch.full((m,), BIG_T, device=p.device)
+    tri = torch.zeros((m,), dtype=torch.int32, device=p.device)
+    for i in range(reps):
+        on, ou, ov, dn, du, dv = (p + steps[i]).split(SUBT, dim=1)
+        t = -(on / dn)
+        beta = ou + t * du
+        gamma = ov + t * dv
+        ok = ((t >= 0.0) & (t > tnr) & (beta >= 0.0) & (gamma >= 0.0)
+              & (beta + gamma <= 1.0))
+        t = torch.where(ok, t, torch.full_like(t, BIG_T))
+        tj = t.amin(dim=-1)
+        j = torch.where(t <= tj[:, None], lane, SUBT).amin(dim=-1)
+        win = tj < tbest
+        tbest = torch.where(win, tj, tbest)
+        tri = torch.where(win, j, tri)
+    return torch.stack([tbest, tri.to(torch.float32)])
+
+
+def edgemat_plain(o, d, tr, reps: int, eps: float):
+    """The edge-matrix test of tpu_prof_sweep.edgemat_kernel: o, d (3, M),
+    tr (12, SUBT) = [a | n | u | v] x xyz rows; per rep tr + i*eps, t, the
+    barycentric acceptance, and the min accepted t.  (1, M) f32."""
+    steps = _steps(reps, eps, o.device)
+    ox, oy, oz = (o[k][:, None] for k in range(3))
+    dx, dy, dz = (d[k][:, None] for k in range(3))
+    tbest = torch.full((o.shape[1],), BIG_T, device=o.device)
+    for i in range(reps):
+        ax, ay, az, nx, ny, nz, ux, uy, uz, vx, vy, vz = tr + steps[i]
+        dn = dx * nx + dy * ny + dz * nz
+        on = (ox - ax) * nx + (oy - ay) * ny + (oz - az) * nz
+        t = -(on / dn)
+        px = ox + t * dx - ax
+        py = oy + t * dy - ay
+        pz = oz + t * dz - az
+        beta = px * ux + py * uy + pz * uz
+        gamma = px * vx + py * vy + pz * vz
+        ok = ((t >= 0.0) & (beta >= 0.0) & (gamma >= 0.0)
+              & (beta + gamma <= 1.0))
+        t = torch.where(ok, t, torch.full_like(t, BIG_T))
+        tbest = torch.minimum(tbest, t.amin(dim=-1))
+    return tbest[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Hand-written CUDA kernels (csrc/sweep_micro.cu)
+# ---------------------------------------------------------------------------
+
+_libs = {}
+
+
+def load_kernels(log=None) -> ctypes.CDLL:
+    """Build csrc/sweep_micro.cu with nvcc for sm_90a (once, into the build
+    directory) and load it.  `log` receives the compiler's output."""
+    if 'micro' not in _libs:
+        lib = ctypes.CDLL(device.build_cuda('sweep_micro', log=log))
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sweep_dot.argtypes = [ptr, ptr, i32, i32, i32, f32, i32, i32,
+                                  ptr, ptr, ptr]
+        lib.sweep_epilogue.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr]
+        lib.sweep_edgemat.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
+        for fn in (lib.sweep_dot, lib.sweep_epilogue, lib.sweep_edgemat):
+            fn.restype = i32
+        _libs['micro'] = lib
+    return _libs['micro']
+
+
+def _takes_plain(name, tensors, shapes):
+    """True for CPU tensors (they take the plain version); for CUDA
+    tensors check device, type, shape and layout and return False; raise
+    on any other device or on a mix of devices."""
+    dev = tensors[0].device
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name} takes CUDA or CPU tensors, got {dev}')
+    for x, shape in zip(tensors, shapes):
+        if x.device != dev:
+            raise ValueError(f'{name} inputs must lie on one device')
+        if dev.type == 'cuda' and (x.dtype != torch.float32
+                                   or not x.is_contiguous()
+                                   or tuple(x.shape) != shape):
+            raise ValueError(f'{name} takes contiguous float32 tensors of '
+                             f'shapes {shapes}')
+    return dev.type == 'cpu'
+
+
+def _check(name, rc):
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+
+
+def _dot(x, w, reps, eps, out_cols, tf32):
+    name = 'dot_tf32' if tf32 else 'dot_fp32'
+    m, n = x.shape[0], w.shape[1]
+    if _takes_plain(name, (x, w), ((m, AR), (AR, n))):
+        return dot_plain(x, w, reps, eps, out_cols, tf32)
+    if m % 16 or n % 64 or not 0 < out_cols <= n:
+        raise ValueError(f'{name} needs M % 16 == 0, N % 64 == 0 and '
+                         f'0 < out_cols <= N')
+    out = torch.empty((m, out_cols), device=x.device)
+    pairs = torch.empty((m, n // 2), device=x.device)
+    _check(name, load_kernels().sweep_dot(
+        x.data_ptr(), w.data_ptr(), m, n, reps, eps, out_cols, int(tf32), out.data_ptr(), pairs.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream))
+    return out, pairs
+
+
+def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
+    """sum_{i < reps} (x + i*eps) @ w in strict fp32.  CPU tensors take
+    dot_plain; CUDA tensors launch the hand-written kernel (replaces the
+    TPU kernels tpu_prof_sweep.matmul_kernel(HIGHEST) and
+    tpu_proto_mxu.vpu_kernel) or raise."""
+    out = _dot(x, w, reps, eps, out_cols, False)
+    if x.device.type == 'cuda':
+        dot_fp32.launches += 1
+    return out
+
+
+dot_fp32.launches = 0
+
+
+def dot_tf32(x, w, reps: int, eps: float, out_cols: int):
+    """sum_{i < reps} (x + i*eps) @ w in TF32 on the tensor cores
+    (mma.sync m16n8k8).  CPU tensors take dot_plain(tf32=True); CUDA
+    tensors launch the hand-written kernel (replaces the TPU kernels
+    tpu_prof_sweep.matmul_kernel(DEFAULT) and tpu_proto_mxu.mxu_kernel) or
+    raise."""
+    out = _dot(x, w, reps, eps, out_cols, True)
+    if x.device.type == 'cuda':
+        dot_tf32.launches += 1
+    return out
+
+
+dot_tf32.launches = 0
+
+
+def epilogue(p, tn, reps: int, eps: float):
+    """The sweep epilogue, (2, M) f32 [tbest, tri].  CPU tensors take
+    epilogue_plain; CUDA tensors launch the hand-written kernel (replaces
+    the TPU kernel tpu_prof_sweep.epilogue_kernel) or raise."""
+    m = p.shape[0]
+    if _takes_plain('epilogue', (p, tn), ((m, 6 * SUBT), (1, m))):
+        return epilogue_plain(p, tn, reps, eps)
+    out = torch.empty((2, m), device=p.device)
+    _check('sweep_epilogue', load_kernels().sweep_epilogue(
+        p.data_ptr(), tn.data_ptr(), m, reps, eps, out.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream))
+    epilogue.launches += 1
+    return out
+
+
+epilogue.launches = 0
+
+
+def edgemat(o, d, tr, reps: int, eps: float):
+    """The edge-matrix test, (1, M) f32 min accepted t.  CPU tensors take
+    edgemat_plain; CUDA tensors launch the hand-written kernel (replaces
+    the TPU kernel tpu_prof_sweep.edgemat_kernel) or raise."""
+    m = o.shape[1]
+    if _takes_plain('edgemat', (o, d, tr), ((3, m), (3, m), (12, SUBT))):
+        return edgemat_plain(o, d, tr, reps, eps)
+    out = torch.empty((1, m), device=o.device)
+    _check('sweep_edgemat', load_kernels().sweep_edgemat(
+        o.data_ptr(), d.data_ptr(), tr.data_ptr(), m, reps, eps,
+        out.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream))
+    edgemat.launches += 1
+    return out
+
+
+edgemat.launches = 0

@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels (cluster sweeps,
-tree cull, packet BVH) against their plain PyTorch versions, and a small
-render through the kernels against the CPU plain path.
+tree cull, packet BVH, the sweep's cost probes and ablation) against
+their plain PyTorch versions, and a small render through the kernels
+against the CPU plain path.
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -14,6 +15,10 @@ among keys equal to the 128th).  The packet kernel walks a BVH where its
 plain version is brute force, so a ray grazing a leaf box may differ:
 tri equal on >= 99.9% of lanes, the rest ties within 2^-16 relative t or
 at most 0.1% hit/miss flips, t within 1e-5 relative where tri agrees.
+The probes' fp32 product, epilogue, edge-matrix test and every ablation
+variant are bit-equal to their plain versions; the TF32 product agrees
+with its TF32-rounded plain version within sweep_micro.TF32_TOL of the
+absolute-value bound (the tensor core sums in its own order).
 """
 
 import numpy as np
@@ -24,9 +29,12 @@ import pathtracer_tpu_torch as pt
 from pathtracer_tpu_torch.ops import bvh as tb
 from pathtracer_tpu_torch.ops import cluster as tc
 from pathtracer_tpu_torch.ops import packet_bvh as tp
+from pathtracer_tpu_torch.ops import sweep_ablate as sa
+from pathtracer_tpu_torch.ops import sweep_micro as sm
 from pathtracer_tpu_torch.ops import traverse as tt
 from pathtracer_tpu_torch.render import renderer as rnd
 from pathtracer_tpu_torch.scene import scene as scn
+from pathtracer_tpu_torch.scripts import ablate_sweep as ablate
 from pathtracer_tpu_torch.utils import procgen
 
 BIG_T = float(np.float32(1e30))
@@ -224,3 +232,108 @@ def test_tree_tier_matches_cpu_plain_path(cuda, monkeypatch):
             cm, o.to(dev), d.to(dev), tmax.to(dev), return_residual=True)]
     for a, b in zip(out['cuda'], out['cpu']):
         assert torch.equal(a, b)
+
+
+# ---- the sweep's cost probes (ops/sweep_micro.py, ops/sweep_ablate.py) ----
+
+def _probe_inputs(cuda, m, n, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=cuda)
+
+    return t(m, 8), t(8, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('route', ['fp32', 'tf32'])
+@pytest.mark.parametrize('out_cols', [64, 128])
+def test_dot_matches_plain(cuda, route, out_cols):
+    """fp32: bit-equal; tf32: within TF32_TOL of the absolute-value bound,
+    and measurably off the fp32 result (the operands were rounded)."""
+    x, w = _probe_inputs(cuda, 64, 128, seed=21)
+    kern = sm.dot_fp32 if route == 'fp32' else sm.dot_tf32
+    before = kern.launches
+    out_k, pairs_k = kern(x, w, 8, 1e-3, out_cols)
+    assert kern.launches == before + 1
+    out_p, pairs_p = sm.dot_plain(x, w, 8, 1e-3, out_cols,
+                                  tf32=route == 'tf32')
+    if route == 'fp32':
+        assert torch.equal(out_k, out_p) and torch.equal(pairs_k, pairs_p)
+        return
+    bound = sm.dot_plain(x.abs(), w.abs(), 8, 1e-3, 128)[0]
+    assert bool(((out_k - out_p).abs()
+                 <= sm.TF32_TOL * bound[:, :out_cols]).all())
+    full = sm.dot_plain(x, w, 8, 1e-3, 128)
+    assert bool(((pairs_k - pairs_p).abs()
+                 <= sm.TF32_TOL * (bound[:, 0::2] + bound[:, 1::2])).all())
+    assert float((out_k - full[0][:, :out_cols]).abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+def test_epilogue_and_edgemat_match_plain(cuda):
+    rng = np.random.default_rng(22)
+    m = 96
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=cuda)
+
+    p, tn = t(m, 6 * sm.SUBT), t(1, m).abs() * 0.1
+    before = sm.epilogue.launches
+    out_k = sm.epilogue(p, tn, 16, 1e-3)
+    assert sm.epilogue.launches == before + 1
+    out_p = sm.epilogue_plain(p, tn, 16, 1e-3)
+    assert (out_p[0] < BIG_T).float().mean().item() > 0.5
+    assert torch.equal(out_k, out_p)
+    o, d, tr = t(3, m), t(3, m), t(12, sm.SUBT)
+    before = sm.edgemat.launches
+    e_k = sm.edgemat(o, d, tr, 16, 1e-3)
+    assert sm.edgemat.launches == before + 1
+    e_p = sm.edgemat_plain(o, d, tr, 16, 1e-3)
+    assert (e_p < BIG_T).float().mean().item() > 0.2
+    assert torch.equal(e_k, e_p)
+
+
+@pytest.fixture(scope='module')
+def terrain_workload():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return ablate.workload(torch.device('cuda'), g=80, packets=8,
+                           log=lambda *a: None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('variant', sa.VARIANTS)
+def test_ablate_matches_plain(terrain_workload, variant):
+    w = terrain_workload
+    before = sa.sweep_ablate.launches
+    out_k = sa.sweep_ablate(*w.args(), variant)
+    assert sa.sweep_ablate.launches == before + 1
+    out_p = sa.sweep_ablate_plain(*w.args(), variant)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    if variant == 'full':
+        assert (out_k[1] >= 0).float().mean().item() > 0.5
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_refuse_mixed_devices(cuda):
+    """A CUDA launch whose inputs are not all on the card raises; it does
+    not fall back to the plain version."""
+    x, w = _probe_inputs(cuda, 64, 128, seed=23)
+    counts = (sm.dot_fp32.launches, sm.dot_tf32.launches,
+              sm.epilogue.launches, sm.edgemat.launches)
+    with pytest.raises(ValueError):
+        sm.dot_fp32(x, w.cpu(), 2, 1e-3, 64)
+    with pytest.raises(ValueError):
+        sm.dot_tf32(x, w.cpu(), 2, 1e-3, 64)
+    with pytest.raises(ValueError):
+        sm.epilogue(torch.zeros((64, 6 * sm.SUBT), device=cuda),
+                    torch.zeros((1, 64)), 2, 1e-3)
+    with pytest.raises(ValueError):
+        sm.edgemat(x[:, :3].T.contiguous(), torch.zeros((3, 64)),
+                   torch.zeros((12, sm.SUBT), device=cuda), 2, 1e-3)
+    assert counts == (sm.dot_fp32.launches, sm.dot_tf32.launches,
+                      sm.epilogue.launches, sm.edgemat.launches)
