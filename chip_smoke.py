@@ -8,19 +8,26 @@
    source, all started together) and prints the build time and the ptxas
    reports.
 3. Kernel phase: the bench's 2.4M-triangle displaced sphere, 1080p primary
-   rays and one batch of shadow rays from their hits to the light.  Each
-   sweep kernel runs on the whole first-round cull output at those shapes
-   and is held against its plain PyTorch version: tri equal on >= 99.9%
-   of lanes, every other lane a tie within 2^-16 relative t, t within
-   1e-5 relative on equal lanes; occlusion equal on >= 99.9% of lanes.
-   Both are timed with CUDA events.
+   rays and one batch of shadow rays from their hits to the light, culled
+   as the first round of the main path (4,050 packets).  Prints each sweep
+   kernel's registers, resident blocks per SM and shared bytes at every
+   lane group size G in cluster.GROUPS.  At each G both sweeps run in one
+   launch over every packet and must equal their plain versions bit for
+   bit (t, tri, occlusion) and in every group's counters (slots visited,
+   clusters entered, subtile slab tests, subtiles swept); each is timed
+   with CUDA events heaviest first, in packet order and as CHUNK_PACKETS
+   launches, and its counters are summarized (cycles per group mean, p99,
+   max; the heaviest 1% of groups' share; slots and subtiles per group).
+   The kernel records are at cluster.SWEEP_GROUP, their bound from the
+   lane x subtile rows that G tests (and, beside it, from G = 512's).
 4. Reference phase: a 64x48 render of the 2k-triangle mesh scene through
    the kernels on the card against the plain versions on the CPU, per
    sample with the boundary-flip allowance of the CPU tests.
 5. Main path: Renderer on the 2.4M-triangle scene at 1920x1080, 3
    bounces, one sample per wave, compaction on; one warm-up wave, two
-   timed waves.  Both sweep kernels' launch counters must rise; the image
-   must be finite and lit.
+   timed waves (launch counts read here), two more timed waves, and one
+   wave under torch.profiler for the sweeps' device time.  Both sweep
+   kernels' launch counters must rise; the image must be finite and lit.
 6. Tree-cull phase: a 3.4M-triangle displaced sphere cut into 256-triangle
    clusters (more than DENSE_CULL_MAX), 1080p primaries.  The tree cull
    kernel against its plain version on >= 256 packets and every packet
@@ -50,8 +57,9 @@
    ablation's `full` against the production cluster_sweep on the same
    clamped inputs by check_hits (and timed there); and the fp32 product
    must take at least twice as long at 1536 columns as at 384, so the
-   whole product is computed.  Times are the entry points' CUDA-event times; torch.matmul
-   of one product is the library yardstick of the products.
+   whole product is computed.  Times are the entry points' CUDA-event
+   times; torch.matmul of one product is the library yardstick of the
+   products.
 
 Every failure raises.  The last three lines are the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
@@ -169,7 +177,37 @@ def primary_rays(cam, dev):
     return org, dirn
 
 
+def unit_report(st, group):
+    """One line on a sweep's per-unit counters (kernel stats, (units,
+    STATS) int64): cycles mean / p99 / max, the heaviest 1% of units'
+    share of cycles and of swept subtiles, and the means per unit."""
+    import torch
+    st = st.double()
+    cyc, swept = st[:, 4], st[:, 3]
+    n1 = max(1, cyc.numel() // 100)
+
+    def top_share(x):
+        return float(torch.sort(x, descending=True).values[:n1].sum()
+                     / max(float(x.sum()), 1.0))
+
+    mean = st.mean(dim=0).tolist()
+    return (f'G={group}: {st.shape[0]} units; cycles per unit mean '
+            f'{mean[4]:.0f}, p99 {float(torch.quantile(cyc.cpu(), 0.99)):.0f},'
+            f' max {float(cyc.max()):.0f}; heaviest 1% of units '
+            f'{top_share(cyc):.3f} of cycles, {top_share(swept):.3f} of swept '
+            f'subtiles; per unit means: slots visited {mean[0]:.2f} (max '
+            f'{float(st[:, 0].max()):.0f}), clusters entered {mean[1]:.2f}, '
+            f'subtile slab tests {mean[2]:.2f}, subtiles swept {mean[3]:.2f} '
+            f'(max {float(swept.max()):.0f}); units that sweep nothing '
+            f'{float((swept == 0).double().mean()):.3f}')
+
+
 def kernel_phase(sc, cam, dev):
+    """Both sweeps on the main path's first round at 1080p: one launch over
+    every packet, kernel against plain version at every lane group size
+    (outputs and counters equal), timed with CUDA events at every group
+    size and as the 16 CHUNK_PACKETS launches of the earlier host loop.
+    Returns the two kernel records, at cluster.SWEEP_GROUP."""
     import torch
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.scene import scene as scn
@@ -181,59 +219,94 @@ def kernel_phase(sc, cam, dev):
     t_all = scn._candidate_ts(sc, org, dirn)[0]
     tmax0 = t_all.amin(dim=-1)
     org_l, dir_l = scn._local_ray_row(sc, mesh.obj_row, org, dirn)
+    info = cl.kernel_info()
+    log('sweep kernels (registers per thread, resident blocks per SM, '
+        'static shared bytes): ' + '; '.join(
+            f'{name} G={g}: {r} regs, {b} blocks, {sm} B'
+            for (name, g), (r, b, sm) in info.items()))
 
     def first_round(o, d, tmax):
         o, d, tmax, tmin = cl._prepare(cm, o, d, tmax, None)
         tx = cl.root_exit_clamp(cm.bounds, o, d, tmax)
-        chunks = []
+        ids, counts, keys, _ = cl._cull_all(
+            cm, o, d, tx, cm.nrm if mesh.backface_cull else None)
+        return (ids, counts, keys, o, d, tx, tmin)
+
+    def chunked(fn, args, group):
+        """The earlier host loop: one launch per CHUNK_PACKETS packets."""
+        ids, counts, keys, o, d, tx, tn = args
         for sl in cl._chunks(o.shape[0]):
-            ids, counts, keys, _ = cl._cull(
-                cm, o[sl], d[sl], tx[sl],
-                cm.nrm if mesh.backface_cull else None)
-            chunks.append((ids, counts, keys, o[sl], d[sl], tx[sl], tmin[sl]))
-        return chunks
+            ps = slice(sl.start // cl.BLOCK, sl.stop // cl.BLOCK)
+            fn(cm, ids[ps], counts[ps], keys[ps], o[sl], d[sl], tx[sl],
+               tn[sl], group=group)
 
-    results = []
-    # ---- closest hit ----
-    chunks = first_round(org_l, dir_l, tmax0)
-    n_packets = sum(c[0].shape[0] for c in chunks)
-
-    def run(fn, stats=None):
-        if stats is None:
-            return [fn(cm, *c) for c in chunks]
-        out = []
-        for c in chunks:
-            st = {}
-            out.append(fn(cm, *c, stats=st))
-            for k_, v in st.items():
-                stats[k_] = stats.get(k_, 0) + v
-        return out
-
-    def sweep_bytes(stats, out_bytes):
+    def sweep_bytes(n_packets, distinct, out_bytes):
         """Rays in (org, dir, tmax, tmin), the cull tables, the planes of
         every distinct subtile swept, and the outputs."""
-        n_rays = n_packets * cl.BLOCK
-        return (n_rays * (32 + out_bytes) + n_packets * (8 * cl.MAXC + 4)
-                + stats['distinct'] * cl.PLANE_ROWS * cl.SUBT * 4)
+        return (n_packets * cl.BLOCK * (32 + out_bytes)
+                + n_packets * (8 * cl.MAXC + 4)
+                + distinct * cl.PLANE_ROWS * cl.SUBT * 4)
 
-    out_k = run(cl.cluster_sweep)
-    st_c = {}
-    out_p = run(cl.cluster_sweep_plain, st_c)
-    torch.cuda.synchronize()
-    t_k = torch.cat([o[0] for o in out_k])
-    tri_k = torch.cat([o[1] for o in out_k])
-    t_p = torch.cat([o[0] for o in out_p])
-    tri_p = torch.cat([o[1] for o in out_p])
-    frac, err = check_hits(t_p, tri_p, t_k, tri_k)
-    ms_k = cuda_ms(lambda: run(cl.cluster_sweep), reps=3)
-    ms_p = cuda_ms(lambda: run(cl.cluster_sweep_plain), reps=1)
-    log(f'closest sweep: {n_packets} packets, tri agreement {frac:.6f}, '
-        f'max |dt| {err:.3g}, kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms')
-    results.append(entry(
-        'cluster_sweep_closest', 'pathtracer_tpu_torch/csrc/cluster_sweep.cu',
-        'pathtracer_tpu/ops/pallas_cluster.py:668', err, frac, ms_k, ms_p,
-        st_c['subtiles'] * cl.BLOCK * cl.SUBT * SWEEP_PAIR_OPS,
-        sweep_bytes(st_c, 8), packets=n_packets))
+    def one_sweep(name, kern, plain, args, line, out_bytes):
+        n_packets = args[0].shape[0]
+        per_g = {}
+        for g in cl.GROUPS:
+            nu = n_packets * (cl.BLOCK // g)
+            in_order = torch.arange(nu, dtype=torch.int32, device=dev)
+            st_k = torch.zeros((nu, cl.STATS), dtype=torch.int64, device=dev)
+            st_p = torch.zeros_like(st_k)
+            seen = torch.zeros((cm.n_clusters, cm.n_sub), dtype=torch.bool,
+                               device=dev)
+            out_k = kern(cm, *args, group=g, stats=st_k)
+            out_p = plain(cm, *args, group=g, stats=st_p, seen=seen)
+            torch.cuda.synchronize()
+            out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+                raise AssertionError(f'{name} G={g} differs from its plain '
+                                     f'version')
+            if not torch.equal(st_k[:, :4], st_p[:, :4]):
+                raise AssertionError(f'{name} G={g}: counters differ from '
+                                     f'the plain version')
+            ms = cuda_ms(lambda: kern(cm, *args, group=g), reps=3)
+            ms_order = cuda_ms(lambda: kern(cm, *args, group=g,
+                                            order=in_order), reps=3)
+            ms_chunk = cuda_ms(lambda: chunked(kern, args, g), reps=3)
+            swept = int(st_k[:, 3].sum())
+            per_g[g] = dict(ms=ms, ms_packet_order=ms_order,
+                            ms_chunked=ms_chunk, swept=swept,
+                            distinct=int(seen.sum()), out=out_k)
+            log(f'{name} G={g}: equal to its plain version (outputs and '
+                f'counters); one launch heaviest first {ms:.3f} ms, in '
+                f'packet order {ms_order:.3f} ms, {cl.CHUNK_PACKETS}-packet '
+                f'chunks {ms_chunk:.3f} ms; {swept} unit subtiles swept = '
+                f'{swept * g} lane x subtile rows')
+            log('  ' + unit_report(st_k, g))
+        g = cl.SWEEP_GROUP
+        r = per_g[g]
+        ms_p = cuda_ms(lambda: plain(cm, *args, group=g), reps=1)
+        rows, rows_512 = r['swept'] * g, per_g[512]['swept'] * 512
+        rec = entry(
+            name, 'pathtracer_tpu_torch/csrc/cluster_sweep.cu', line, 0.0,
+            1.0, r['ms'], ms_p, rows * cl.SUBT * SWEEP_PAIR_OPS,
+            sweep_bytes(n_packets, r['distinct'], out_bytes),
+            packets=n_packets, group=g, rows=rows, rows_512=rows_512,
+            bound_ms_512=bound(rows_512 * cl.SUBT * SWEEP_PAIR_OPS, 0)[0],
+            ms_chunked=r['ms_chunked'], ms_packet_order=r['ms_packet_order'],
+            ms_by_group={k: v['ms'] for k, v in per_g.items()})
+        log(f'{name}: G={g} kernel {r["ms"]:.3f} ms, bound '
+            f'{rec["bound_ms"]:.4f} ms ({rows} lane x subtile rows; '
+            f'{rec["bound_ms_512"]:.4f} ms for the {rows_512} rows of '
+            f'G=512), plain {ms_p:.3f} ms')
+        return rec, r['out']
+
+    # ---- closest hit ----
+    args = first_round(org_l, dir_l, tmax0)
+    rec_c, (t_k, tri_k) = one_sweep(
+        'cluster_sweep_closest', cl.cluster_sweep, cl.cluster_sweep_plain,
+        args, 'pathtracer_tpu/ops/pallas_cluster.py:668', 8)
+    log(f'closest sweep: {args[0].shape[0]} packets, hit share '
+        f'{float((tri_k >= 0).float().mean()):.4f}')
 
     # ---- shadow rays from the primary hits to the light ----
     n0 = org_l.shape[0]
@@ -249,30 +322,13 @@ def kernel_phase(sc, cam, dev):
     wi = to_l / dist[:, None]
     s_org = p + 0.01 * wi
     limit = torch.where(hit, (dist - 0.01) * 0.999, torch.zeros_like(dist))
-    chunks = first_round(s_org, wi, limit)
-    occ_k = torch.cat(run(cl.cluster_sweep_any))
-    st_a = {}
-    occ_p = torch.cat(run(cl.cluster_sweep_any_plain, st_a))
-    torch.cuda.synchronize()
-    agree = float((occ_k == occ_p).float().mean())
-    if agree < 0.999:
-        raise AssertionError(f'occlusion agrees on only {agree:.5f}')
-    live = occ_p[:n0][hit]
-    ms_k = cuda_ms(lambda: run(cl.cluster_sweep_any), reps=3)
-    ms_p = cuda_ms(lambda: run(cl.cluster_sweep_any_plain), reps=1)
-    log(f'shadow sweep: occlusion agreement {agree:.6f}, occluded share of '
-        f'hit lanes {float(live.float().mean()):.3f}, kernel {ms_k:.3f} ms, '
-        f'plain {ms_p:.3f} ms')
-    results.append(entry(
-        'cluster_sweep_any', 'pathtracer_tpu_torch/csrc/cluster_sweep.cu',
-        'pathtracer_tpu/ops/pallas_cluster.py:885',
-        float((occ_k != occ_p).float().max()), agree, ms_k, ms_p,
-        st_a['subtiles'] * cl.BLOCK * cl.SUBT * SWEEP_PAIR_OPS,
-        sweep_bytes(st_a, 1)))
-    log(f'sweep work: closest {st_c["subtiles"]} subtiles swept '
-        f'({st_c["distinct"]} distinct), any-hit {st_a["subtiles"]} '
-        f'({st_a["distinct"]} distinct)')
-    return results
+    args = first_round(s_org, wi, limit)
+    rec_a, (occ_k,) = one_sweep(
+        'cluster_sweep_any', cl.cluster_sweep_any, cl.cluster_sweep_any_plain,
+        args, 'pathtracer_tpu/ops/pallas_cluster.py:885', 1)
+    log(f'shadow sweep: occluded share of hit lanes '
+        f'{float(occ_k[:n0][hit].float().mean()):.3f}')
+    return [rec_c, rec_a]
 
 
 def reference_phase():
@@ -312,6 +368,34 @@ def reference_phase():
         raise AssertionError('card render disagrees with the CPU reference')
 
 
+def profile_wave(r):
+    """One Renderer wave under torch.profiler: device time of each sweep
+    kernel (summed over its launches), the sum over all kernels, and the
+    number of kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    sweeps = {'cluster_sweep_closest': 0.0, 'cluster_sweep_any': 0.0}
+    busy, n = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total', None)
+        if us is None:
+            us = e.self_cuda_time_total
+        busy += us
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+        if 'sweep_kernel<false' in e.key:
+            sweeps['cluster_sweep_closest'] += us
+        elif 'sweep_kernel<true' in e.key:
+            sweeps['cluster_sweep_any'] += us
+    if busy == 0.0:
+        raise AssertionError('torch.profiler recorded no device time')
+    return {k: v / 1e3 for k, v in sweeps.items()}, busy / 1e3, n
+
+
 def main_path(sc, cam, card):
     import torch
     import pathtracer_tpu_torch as pt
@@ -333,8 +417,15 @@ def main_path(sc, cam, card):
     torch.cuda.synchronize()
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
                 'cluster_sweep_any': cl.cluster_sweep_any.launches}
-    ms_wave = start.elapsed_time(stop) / 2
+    ms_wave = [start.elapsed_time(stop) / 2]
     live = r.rays_traced - rays0
+    for _ in range(2):                          # two more calls, one wave each
+        start.record()
+        r.step()
+        stop.record()
+        torch.cuda.synchronize()
+        ms_wave.append(start.elapsed_time(stop))
+    sweeps_ms, busy_ms, n_kern = profile_wave(r)
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('image not finite / wrong shape')
@@ -347,9 +438,14 @@ def main_path(sc, cam, card):
         if n <= 0:
             raise AssertionError(f'{name} never launched on the main path')
     log(f'main path 1080p x 2.4M tris, 3 bounces, compaction: '
-        f'{ms_wave:.1f} ms/wave, {live / (2 * ms_wave / 1e3):.4g} live '
-        f'rays/s ({card}); launches {launches}; mesh region mean '
+        f'{ms_wave[0]:.1f} ms/wave over two waves, then '
+        f'{", ".join(f"{x:.1f}" for x in ms_wave[1:])} ms; '
+        f'{live / (2 * ms_wave[0] / 1e3):.4g} live rays/s ({card}); launches '
+        f'in the warm-up and two timed waves {launches}; mesh region mean '
         f'{region.mean():.3f} std {region.std():.3f}')
+    log(f'profiled wave (torch.profiler): sweep kernels device time '
+        + ', '.join(f'{k} {v:.1f} ms' for k, v in sweeps_ms.items())
+        + f'; all {n_kern} kernels {busy_ms:.1f} ms (sum of kernel times)')
     return launches
 
 
@@ -745,15 +841,17 @@ def probe_phase(dev):
         w.dirn, w.tmax, w.tmin)
     frac, err = check_hits(t_s, tri_s, full[0], full[1])
     keys0 = torch.zeros(w.ids.shape, device=dev)
+    nb = w.ids.shape[0]
     ms_sweep = time_us(lambda: cl.cluster_sweep(
         w.cm, w.ids, w.counts, keys0, w.org, w.dirn, w.tmax, w.tmin), 4,
         dev) / 1e3
-    st = {}
-    cl.cluster_sweep_plain(w.cm, w.ids, w.counts, keys0, w.org, w.dirn,
-                           w.tmax, w.tmin, stats=st)
+    st = torch.zeros((nb * (cl.BLOCK // cl.SWEEP_GROUP), cl.STATS),
+                     dtype=torch.int64, device=dev)
+    cl.cluster_sweep(w.cm, w.ids, w.counts, keys0, w.org, w.dirn, w.tmax,
+                     w.tmin, stats=st)
+    swept = int(st[:, 3].sum())
     ms_p = cuda_ms(lambda: sa.sweep_ablate_plain(*args, 'full'), reps=1,
                    warm=False)
-    nb = w.ids.shape[0]
     live = torch.arange(cl.MAXC, device=dev)[None] < w.counts
     distinct = int(torch.unique(w.ids[live].clamp_min(0)).numel())
     pairs = w.slots * w.cm.n_sub * cl.BLOCK * cl.SUBT
@@ -766,7 +864,7 @@ def probe_phase(dev):
         + distinct * w.cm.n_sub * cl.PLANE_ROWS * cl.SUBT * 4,
         variants=variants, packets=nb, slots=w.slots,
         full_vs_cluster_sweep=frac, cluster_sweep_ms=ms_sweep,
-        cluster_sweep_subtiles=st['subtiles'])
+        cluster_sweep_rows=swept * cl.SWEEP_GROUP)
     rec['launches'] = n_abl['sweep_ablate']
     recs.append(rec)
     log(f'ablation: {nb} packets, {w.slots} slots, {distinct} distinct '
@@ -776,8 +874,10 @@ def probe_phase(dev):
         f'full {abl["full"]:.3f} ms (bound {rec["bound_ms"]:.4f} ms), plain '
         f'{ms_p:.3f} ms, {abl["full"] * 1e3 / (w.slots * w.cm.n_sub):.3f} us '
         f'per swept subtile; the production cluster_sweep on the same inputs '
-        f'{ms_sweep:.3f} ms for the {st["subtiles"]} subtiles its slab tests '
-        f'keep, {ms_sweep * 1e3 / max(st["subtiles"], 1):.3f} us each')
+        f'{ms_sweep:.3f} ms for the {swept} G={cl.SWEEP_GROUP} lane-group '
+        f'subtiles its slab tests keep, '
+        f'{ms_sweep * 1e3 * cl.BLOCK / max(swept * cl.SWEEP_GROUP, 1):.3f} '
+        f'us per 512 lane x subtile rows')
     split = {v: abl['full'] - abl[v] for v in sa.VARIANTS if v != 'full'}
     log('ablation, full minus variant (ms): '
         + ', '.join(f'{k} {d:.3f}' for k, d in split.items()))

@@ -30,16 +30,22 @@ the same; the layouts are the port's own.
   function as an exact rectangle for CPU tensors.
 
   Phase 2, a hand-written CUDA kernel per query (`cluster_sweep`,
-  `cluster_sweep_any`; csrc/cluster_sweep.cu): one block per packet walks
-  its emitted slots in key order.  The plain PyTorch versions
-  (`cluster_sweep_plain`, `cluster_sweep_any_plain`) compute the same
-  thing and serve CPU tensors.
+  `cluster_sweep_any`; csrc/cluster_sweep.cu): one launch per round over
+  every packet; one block per lane group of SWEEP_GROUP rays walks its
+  packet's emitted slots in key order, deciding its skips and early break
+  from its own lanes, the groups of the packets with the most slots
+  first.  The plain PyTorch versions (`cluster_sweep_plain`,
+  `cluster_sweep_any_plain`) make the same decisions for the same groups
+  and serve CPU tensors.  Both fill the same per-group counters (STATS:
+  slots visited, clusters entered, subtile slab tests, subtiles swept;
+  the kernel adds its cycles) when given a `stats` tensor.
 
   Exhaustive windowed rounds (`two_level_hit` / `two_level_any`, up to
   DENSE_CULL_MAX clusters): a packet that overflowed re-culls with its
   merged per-lane best t and an exclusion mask of the clusters already
   swept, MAXC at a time, until no lane is residual — at most
-  ceil(C / MAXC) rounds, and no hit is dropped.
+  ceil(C / MAXC) rounds, and no hit is dropped.  Each round culls in
+  CHUNK_PACKETS chunks and sweeps all its packets in one launch.
 
   Tree tier (`two_level_hit` above DENSE_CULL_MAX, or exhaustive=False):
   one cull + sweep round, then `refine_rounds` re-culls of the packets
@@ -66,7 +72,8 @@ from . import bvh as bvh_mod
 from .traverse import TriSoup, make_soup
 
 BIG_T = float(np.float32(1e30))
-BLOCK = 512             # rays per packet (one CUDA block, one thread a ray)
+BLOCK = 512             # rays per packet (the cull's unit; the sweeps split it
+                        # into lane groups of SWEEP_GROUP rays)
 TRIS_C = 512            # default triangles per cluster below 1.5M tris
 SUBT = 256              # triangles per subtile (one shared-memory stage)
 PLANE_ROWS = 12         # [n | U' | V'] x [x, y, z, offset] per triangle
@@ -75,9 +82,16 @@ DENSE_CULL_MAX = 16384  # clusters; above it the top-BVH tree cull kernel
 STACK_DEPTH = 64        # the tree cull kernel's traversal stack
 HIER_MIN_CLUSTERS = 256  # the exact dense rectangle below, two-stage above
 CAND_FACTOR = 4         # hier stage B exact-tests CAND_FACTOR * MAXC
-CHUNK_PACKETS = 256     # packets per cull/sweep chunk: bounds the cull's
+CHUNK_PACKETS = 256     # packets per cull chunk: bounds the cull's
                         # (packets, BLOCK, K) rectangles at any ray count
 CULL_BATCH = 32         # packets per exact-rectangle batch inside a chunk
+GROUPS = (32, 64, 128, 256, 512)   # lane group sizes the sweeps take
+SWEEP_GROUP = 64        # rays per sweep decision unit (lane group), the
+                        # fastest of GROUPS for both sweeps on an H100
+                        # (chip_smoke.py kernel phase; PERF.md)
+STATS = 5               # sweep counters per unit: slots visited, clusters
+                        # entered, subtile slab tests, subtiles swept,
+                        # cycles (kernel only)
 
 # the JAX package's packed layout (pallas_cluster.py:141-156), read by
 # `from_tpu_arrays`
@@ -653,9 +667,7 @@ def cluster_cull(cm: ClusteredMesh, org, dirn, tmax):
     CHUNK_PACKETS chunks; above it the tree cull."""
     if cm.n_clusters > DENSE_CULL_MAX:
         return cull_tree(cm, org, dirn, tmax)
-    outs = [_cull(cm, org[sl], dirn[sl], tmax[sl])[:3]
-            for sl in _chunks(org.shape[0])]
-    return tuple(torch.cat(x) for x in zip(*outs))
+    return _cull_all(cm, org, dirn, tmax, None)[:3]
 
 
 def _mark_swept(swept, ids):
@@ -767,30 +779,37 @@ def _subtile_hits(planes, oc, d, tn):
 
 
 def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit,
-                 stats=None):
-    """Shared slot walk of the plain sweeps, vectorized over packets.
+                 group=BLOCK, stats=None, seen=None):
+    """Shared slot walk of the plain sweeps, vectorized over units.
 
-    Slot k of every still-active packet is processed together: cluster
-    slab skip, then per subtile the subtile slab skip and the plane test
-    on (packets, BLOCK, SUBT) tensors.  A packet stops after slot k when
-    k + 1 >= count or the next key is >= every lane's best t (closest) or
-    live cap (any-hit).  `stats` (dict), optional, receives the work the
-    kernel does on these inputs: 'subtiles' swept (each BLOCK x SUBT ray-
-    triangle tests) and 'distinct' subtiles whose planes were read."""
-    if stats is not None:
-        stats['subtiles'] = 0
-        seen = torch.zeros((cm.n_clusters, cm.n_sub), dtype=torch.bool,
-                           device=org.device)
+    A unit is a lane group of `group` rays of one packet (BLOCK // group
+    units per packet, unit u = rays [u * group, (u + 1) * group)); it
+    walks its packet's slots and makes every decision from its own lanes.
+    Slot k of every still-active unit is processed together: cluster slab
+    skip, then per subtile the subtile slab skip and the plane test on
+    (units, group, SUBT) tensors; an any-hit unit stops as soon as all
+    its lanes are occluded.  A unit stops after slot k when k + 1 >= count
+    or the next key is >= every lane's best t (closest) or live cap
+    (any-hit).
+
+    `stats` ((units, STATS) int64), optional, receives each unit's slots
+    visited, clusters entered, subtile slab tests and subtiles swept
+    (columns 0-3; column 4, the kernel's cycles, is left as it is);
+    `seen` ((C, n_sub) bool), optional, marks every subtile swept."""
     nb = ids.shape[0]
-    o = org.view(nb, BLOCK, 3)
-    d = dirn.view(nb, BLOCK, 3)
+    gpp = BLOCK // group
+    nu = nb * gpp
+    dev = org.device
+    o = org.view(nu, group, 3)
+    d = dirn.view(nu, group, 3)
     inv = 1.0 / d
-    tn = torch.clamp_min(tmin, 0.0).view(nb, BLOCK)
-    tx = tmax.view(nb, BLOCK)
+    tn = torch.clamp_min(tmin, 0.0).view(nu, group)
+    tx = tmax.view(nu, group)
     best = tx.clone()
-    btri = torch.full((nb, BLOCK), -1, dtype=torch.int32, device=org.device)
-    occ = torch.zeros((nb, BLOCK), dtype=torch.bool, device=org.device)
-    cnt = counts[:, 0].clamp(max=MAXC)
+    btri = torch.full((nu, group), -1, dtype=torch.int32, device=dev)
+    occ = torch.zeros((nu, group), dtype=torch.bool, device=dev)
+    pk = torch.arange(nu, device=dev) // gpp          # packet of each unit
+    cnt = counts[:, 0].clamp(max=MAXC)[pk]
     active = cnt > 0
 
     def cap(p):
@@ -798,26 +817,38 @@ def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit,
             return torch.where(occ[p], torch.full_like(tx[p], -1.0), tx[p])
         return best[p]
 
+    def count(col, p):
+        if stats is not None:
+            stats[p, col] += 1
+
     for k in range(MAXC):
         p = active.nonzero()[:, 0]
         if p.numel() == 0:
             break
-        cid = ids[p, k].clamp_min(0).long()
+        count(0, p)
+        cid = ids[pk[p], k].clamp_min(0).long()
         live = _slab_live(cm.ctab[cid, 0:6], o[p], inv[p], cap(p)).any(dim=1)
         p, cid = p[live], cid[live]
+        count(1, p)
         for s in range(cm.n_sub):
+            if p.numel() == 0:
+                break
+            count(2, p)
             ls = _slab_live(cm.sub_bounds[cid, s], o[p], inv[p],
                             cap(p)).any(dim=1)
             ps, cs = p[ls], cid[ls]
             if ps.numel() == 0:
                 continue
-            if stats is not None:
-                stats['subtiles'] += ps.numel()
+            count(3, ps)
+            if seen is not None:
                 seen[cs, s] = True
             oc = o[ps] - cm.ctab[cs, None, 6:9]
             t, ok = _subtile_hits(cm.planes[cs, s], oc, d[ps], tn[ps])
             if any_hit:
                 occ[ps] |= (ok & (t < cap(ps)[:, :, None])).any(dim=-1)
+                # a unit whose lanes are all occluded leaves the walk
+                left = occ[p].all(dim=1)
+                p, cid = p[~left], cid[~left]
                 continue
             t = torch.where(ok, t, torch.full_like(t, BIG_T))
             tj, j = t.min(dim=-1)
@@ -828,29 +859,38 @@ def _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, any_hit,
             btri[ps] = torch.where(win, trj, tp)
         p = active.nonzero()[:, 0]
         kn = min(k + 1, MAXC - 1)
-        active[p] = (k + 1 < cnt[p]) & (keys[p, kn] < cap(p).amax(dim=1))
-    if stats is not None:
-        stats['distinct'] = int(seen.sum())
+        active[p] = (k + 1 < cnt[p]) & (keys[pk[p], kn]
+                                        < cap(p).amax(dim=1))
     if any_hit:
         return occ.view(-1)
     return best.view(-1), btri.view(-1)
 
 
 def cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin,
-                        stats=None):
+                        group=None, stats=None, seen=None):
     """Closest hit over the emitted slots: (t (N,) — tmax where nothing
     beat it, tri (N,) int32 global BVH position or -1).  Exact argmin;
-    equal t goes to the lower triangle index."""
+    equal t goes to the lower triangle index.  Lane groups of `group`
+    rays (None: SWEEP_GROUP); `stats` and `seen` as in _sweep_plain."""
     return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, False,
-                        stats)
+                        _group(group), stats, seen)
 
 
 def cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn, tmax, tmin,
-                            stats=None):
+                            group=None, stats=None, seen=None):
     """Occlusion over the emitted slots: (N,) bool, True iff a triangle is
-    hit with tmin < t < tmax."""
+    hit with tmin < t < tmax.  `group`, `stats`, `seen` as
+    cluster_sweep_plain."""
     return _sweep_plain(cm, ids, counts, keys, org, dirn, tmax, tmin, True,
-                        stats)
+                        _group(group), stats, seen)
+
+
+def _group(group):
+    """The lane group size of a sweep call: SWEEP_GROUP when None."""
+    g = SWEEP_GROUP if group is None else int(group)
+    if g not in GROUPS:
+        raise ValueError(f'sweep group {g} is not one of {GROUPS}')
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -868,13 +908,34 @@ def load_kernels(log=None) -> ctypes.CDLL:
     if 'sweep' not in _libs:
         lib = ctypes.CDLL(device.build_cuda('cluster_sweep', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        common = [ptr] * 7 + [i32] + [ptr] * 4
-        lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, i32, ptr]
-        lib.cluster_sweep_any.argtypes = common + [ptr, i32, ptr]
+        common = [ptr] * 7 + [i32] + [ptr] * 5
+        lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, ptr, i32,
+                                                       i32, ptr]
+        lib.cluster_sweep_any.argtypes = common + [ptr, ptr, i32, i32, ptr]
+        lib.cluster_sweep_info.argtypes = [i32, i32, ptr]
         lib.cluster_sweep_closest.restype = i32
         lib.cluster_sweep_any.restype = i32
+        lib.cluster_sweep_info.restype = i32
         _libs['sweep'] = lib
     return _libs['sweep']
+
+
+def kernel_info() -> dict:
+    """{(wrapper name, group): (registers per thread, resident blocks per
+    SM, static shared bytes)} of both sweep kernels, from the CUDA
+    runtime."""
+    lib = load_kernels()
+    out = {}
+    for name, any_hit in (('cluster_sweep_closest', 0),
+                          ('cluster_sweep_any', 1)):
+        for g in GROUPS:
+            buf = (ctypes.c_int * 3)()
+            rc = lib.cluster_sweep_info(any_hit, g, buf)
+            if rc != 0:
+                raise RuntimeError(f'cluster_sweep_info failed: CUDA error '
+                                   f'{rc}')
+            out[(name, g)] = tuple(buf)
+    return out
 
 
 def load_cull_kernel(log=None) -> ctypes.CDLL:
@@ -937,21 +998,38 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
 cull_tree.launches = 0
 
 
-def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin):
+def heaviest_first(counts, group):
+    """(units,) int32 unit order of a sweep launch: the lane groups of the
+    packets with the most emitted slots first (one argsort on the
+    device), so that the launch's last wave holds light groups."""
+    gpp = BLOCK // group
+    perm = torch.argsort(counts[:, 0], descending=True, stable=True)
+    return (perm[:, None] * gpp + torch.arange(gpp, device=counts.device)
+            ).reshape(-1).to(torch.int32)
+
+
+def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group, order,
+                 stats):
     """Validate the launch inputs; returns the tensors in argument order
     (kept alive by the caller for the launch)."""
     nb = ids.shape[0]
     n = nb * BLOCK
+    nu = nb * (BLOCK // group)
     dev = org.device
     if dev.type != 'cuda':
         raise ValueError(f'the cluster sweep kernels take CUDA tensors, got '
                          f'{dev}')
+    if order is None:
+        order = heaviest_first(counts, group)
+    elif order.numel() and not (0 <= int(order.min())
+                                and int(order.max()) < nu):
+        raise ValueError(f'cluster sweep order must index the {nu} units')
     tensors = [ids, counts, keys, cm.planes, cm.ctab, cm.starts,
-               cm.sub_bounds, org, dirn, tmax, tmin]
+               cm.sub_bounds, org, dirn, tmax, tmin, order]
     names = ('ids', 'counts', 'keys', 'planes', 'ctab', 'starts',
-             'sub_bounds', 'org', 'dirn', 'tmax', 'tmin')
+             'sub_bounds', 'org', 'dirn', 'tmax', 'tmin', 'order')
     i32, f32 = torch.int32, torch.float32
-    dtypes = (i32, i32, f32, f32, f32, i32, f32, f32, f32, f32, f32)
+    dtypes = (i32, i32, f32, f32, f32, i32, f32, f32, f32, f32, f32, i32)
     for x, name, dt in zip(tensors, names, dtypes):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f'cluster sweep input {name} must be a '
@@ -959,8 +1037,16 @@ def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin):
     if (ids.shape != (nb, MAXC) or keys.shape != (nb, MAXC)
             or counts.shape != (nb, 1) or org.shape != (n, 3)
             or dirn.shape != (n, 3) or tmax.shape != (n,)
-            or tmin.shape != (n,)):
+            or tmin.shape != (n,) or order.shape != (nu,)):
         raise ValueError('cluster sweep shapes do not match the packets')
+    if cm.planes.data_ptr() % 16:
+        raise ValueError('cluster sweep planes must be 16-byte aligned (the '
+                         'bulk copy)')
+    if stats is not None and (
+            stats.device != dev or stats.dtype != torch.int64
+            or not stats.is_contiguous() or tuple(stats.shape) != (nu, STATS)):
+        raise ValueError(f'cluster sweep stats must be a contiguous '
+                         f'(units, {STATS}) int64 tensor on {dev}')
     return tensors
 
 
@@ -968,19 +1054,27 @@ def _ptrs(tensors):
     return [x.data_ptr() for x in tensors]
 
 
-def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin):
-    """Phase-2 closest hit.  CPU tensors take cluster_sweep_plain; CUDA
-    tensors launch the hand-written kernel (replaces the TPU kernel
-    pallas_cluster._sweep_kernel) or raise."""
+def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
+                  order=None, stats=None):
+    """Phase-2 closest hit in lane groups of `group` rays (None:
+    SWEEP_GROUP), one launch over every packet.  CPU tensors take
+    cluster_sweep_plain; CUDA tensors launch the hand-written kernel
+    (replaces the TPU kernel pallas_cluster._sweep_kernel) or raise.
+    `order` ((units,) int32), optional: the unit each block takes (None:
+    heaviest_first).  `stats` ((units, STATS) int64), optional: the kernel
+    writes each unit's counters there."""
+    group = _group(group)
     if org.device.type == 'cpu':
         return cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax,
-                                   tmin)
-    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin)
+                                   tmin, group, stats)
+    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
+                        order, stats)
     t = torch.empty_like(tmax)
     tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
     rc = load_kernels().cluster_sweep_closest(
         *_ptrs(args[:7]), cm.n_sub, *_ptrs(args[7:]), t.data_ptr(),
-        tri.data_ptr(), ids.shape[0],
+        tri.data_ptr(), 0 if stats is None else stats.data_ptr(),
+        args[-1].shape[0], group,
         torch.cuda.current_stream(org.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'cluster_sweep_closest launch failed: CUDA '
@@ -992,18 +1086,24 @@ def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin):
 cluster_sweep.launches = 0
 
 
-def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin):
-    """Phase-2 occlusion.  CPU tensors take cluster_sweep_any_plain; CUDA
-    tensors launch the hand-written kernel (replaces the TPU kernel
-    pallas_cluster._sweep_any_kernel) or raise."""
+def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin,
+                      group=None, order=None, stats=None):
+    """Phase-2 occlusion in lane groups, one launch over every packet.
+    CPU tensors take cluster_sweep_any_plain; CUDA tensors launch the
+    hand-written kernel (replaces the TPU kernel
+    pallas_cluster._sweep_any_kernel) or raise.  `group`, `order` and
+    `stats` as cluster_sweep."""
+    group = _group(group)
     if org.device.type == 'cpu':
         return cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn,
-                                       tmax, tmin)
-    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin)
+                                       tmax, tmin, group, stats)
+    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
+                        order, stats)
     occ = torch.empty(tmax.shape, dtype=torch.bool, device=org.device)
     rc = load_kernels().cluster_sweep_any(
         *_ptrs(args[:7]), cm.n_sub, *_ptrs(args[7:]), occ.data_ptr(),
-        ids.shape[0], torch.cuda.current_stream(org.device).cuda_stream)
+        0 if stats is None else stats.data_ptr(), args[-1].shape[0], group,
+        torch.cuda.current_stream(org.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'cluster_sweep_any launch failed: CUDA error {rc}')
     cluster_sweep_any.launches += 1
@@ -1053,12 +1153,27 @@ def _packet_rows(x, p):
     return x.view(nb, BLOCK, *x.shape[1:])[p].reshape(-1, *x.shape[1:])
 
 
-def _closest_chunk(cm, o, d, tx, tn, nrm):
+def _cull_all(cm, o, d, tm, nrm, exclude=None):
+    """_cull over CHUNK_PACKETS chunks (each chunk bounds the cull's
+    rectangles), concatenated into one table over every packet, so that
+    a round sweeps all its packets in one launch."""
+    outs = []
+    for sl in _chunks(o.shape[0]):
+        ex = None if exclude is None else \
+            exclude[sl.start // BLOCK:sl.stop // BLOCK]
+        outs.append(_cull(cm, o[sl], d[sl], tm[sl], nrm, exclude=ex))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _closest_rounds(cm, o, d, tx, tn, nrm):
     """Cull + sweep, then exhaustive windowed rounds over the packets that
     still hold residual lanes (pallas_cluster._two_level_exec dense_chunk;
-    rounds on packets without residual lanes cannot change any lane)."""
+    rounds on packets without residual lanes cannot change any lane).
+    Each round culls in CHUNK_PACKETS chunks and sweeps all its packets in
+    one launch; packets are independent, so results equal chunk-by-chunk
+    sweeping."""
     nb = o.shape[0] // BLOCK
-    ids, counts, keys, cand = _cull(cm, o, d, tx, nrm)
+    ids, counts, keys, cand = _cull_all(cm, o, d, tx, nrm)
     t, tri = cluster_sweep(cm, ids, counts, keys, o, d, tx, tn)
     res = _residual_lanes(counts, keys, t)
     swept = _mark_swept(torch.zeros((nb, cm.n_clusters + 1), dtype=torch.bool,
@@ -1070,8 +1185,8 @@ def _closest_chunk(cm, o, d, tx, tn, nrm):
         op, dp, tnp = _packet_rows(o, p), _packet_rows(d, p), \
             _packet_rows(tn, p)
         tp, trp = _packet_rows(t, p), _packet_rows(tri, p)
-        ids, counts, keys, cand = _cull(cm, op, dp, tp, nrm,
-                                        exclude=swept[p, :-1])
+        ids, counts, keys, cand = _cull_all(cm, op, dp, tp, nrm,
+                                            exclude=swept[p, :-1])
         t2, tri2 = cluster_sweep(cm, ids, counts, keys, op, dp, tp, tnp)
         win = t2 < tp
         t.view(nb, BLOCK)[p] = torch.where(win, t2, tp).view(-1, BLOCK)
@@ -1128,12 +1243,8 @@ def two_level_hit(cm: ClusteredMesh, org, dirn, tmax, tmin=None,
     org, dirn, tmax, tmin = _prepare(cm, org, dirn, tmax, tmin)
     tx = root_exit_clamp(cm.bounds, org, dirn, tmax)
     if exhaustive and cm.n_clusters <= DENSE_CULL_MAX:
-        nrm = cm.nrm if backface_cull else None
-        t = torch.empty_like(tmax)
-        tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
-        for sl in _chunks(org.shape[0]):
-            t[sl], tri[sl] = _closest_chunk(cm, org[sl], dirn[sl], tx[sl],
-                                            tmin[sl], nrm)
+        t, tri = _closest_rounds(cm, org, dirn, tx, tmin,
+                                 cm.nrm if backface_cull else None)
         res = torch.zeros(tmax.shape, dtype=torch.bool, device=org.device)
     else:
         t, tri, res = _refined(cm, org, dirn, tx, tmin, refine_rounds)
@@ -1143,11 +1254,12 @@ def two_level_hit(cm: ClusteredMesh, org, dirn, tmax, tmin=None,
     return t[:n0], tri[:n0]
 
 
-def _any_chunk(cm, o, d, tx, tn, nrm):
+def _any_rounds(cm, o, d, tx, tn, nrm):
     """Occlusion cull + sweep with exhaustive windowed rounds
-    (pallas_cluster._two_level_any_exec); occluded lanes drop out."""
+    (pallas_cluster._two_level_any_exec), one sweep launch per round as
+    _closest_rounds; occluded lanes drop out."""
     nb = o.shape[0] // BLOCK
-    ids, counts, keys, cand = _cull(cm, o, d, tx, nrm)
+    ids, counts, keys, cand = _cull_all(cm, o, d, tx, nrm)
     occ = cluster_sweep_any(cm, ids, counts, keys, o, d, tx, tn)
     res = _occ_residual(counts, keys, occ, tx)
     swept = _mark_swept(torch.zeros((nb, cm.n_clusters + 1), dtype=torch.bool,
@@ -1161,8 +1273,8 @@ def _any_chunk(cm, o, d, tx, tn, nrm):
         occ_p = _packet_rows(occ, p)
         live_tx = torch.where(occ_p, torch.full_like(tnp, -1.0),
                               _packet_rows(tx, p))
-        ids, counts, keys, cand = _cull(cm, op, dp, live_tx, nrm,
-                                        exclude=swept[p, :-1])
+        ids, counts, keys, cand = _cull_all(cm, op, dp, live_tx, nrm,
+                                            exclude=swept[p, :-1])
         occ_p |= cluster_sweep_any(cm, ids, counts, keys, op, dp, live_tx,
                                    tnp)
         occ.view(nb, BLOCK)[p] = occ_p.view(-1, BLOCK)
@@ -1189,8 +1301,6 @@ def two_level_any(cm: ClusteredMesh, org, dirn, tmax, tmin=None,
     n0 = org.shape[0]
     org, dirn, tmax, tmin = _prepare(cm, org, dirn, tmax, tmin)
     tx = root_exit_clamp(cm.bounds, org, dirn, tmax)
-    nrm = cm.nrm if backface_cull else None
-    occ = torch.empty(tmax.shape, dtype=torch.bool, device=org.device)
-    for sl in _chunks(org.shape[0]):
-        occ[sl] = _any_chunk(cm, org[sl], dirn[sl], tx[sl], tmin[sl], nrm)
+    occ = _any_rounds(cm, org, dirn, tx, tmin,
+                      cm.nrm if backface_cull else None)
     return occ[:n0]

@@ -10,7 +10,8 @@ Imports no JAX, so it runs on a machine with only PyTorch:
 Without a CUDA device every test skips.  The kernels round every product
 and sum on their own in the plain versions' order, so the sweeps and the
 tree cull must agree with their plain versions exactly: same t, same tri,
-same occlusion, same counts and keys (the cull's kept ids may differ only
+same occlusion, the same per-unit sweep counters at each lane group
+size, same counts and keys (the cull's kept ids may differ only
 among keys equal to the 128th).  The packet kernel walks a BVH where its
 plain version is brute force, so a ray grazing a leaf box may differ:
 tri equal on >= 99.9% of lanes, the rest ties within 2^-16 relative t or
@@ -88,6 +89,128 @@ def test_kernels_match_plain(cuda, lat, tris_c):
                                        tmin)
     assert torch.equal(occ_k, occ_p)
     assert 0.0 < occ_k.float().mean().item() < 1.0
+
+
+def _group_workload(dev):
+    """Packets for the grouped sweeps on the 80k-tri sphere in 256-tri
+    clusters: packet 0 all aimed at the sphere's centre (every lane
+    occluded), then coherent and incoherent packets (some overflow);
+    packet 1's count is set to exactly MAXC."""
+    cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=dev)
+    rng = np.random.default_rng(31)
+    d0 = np.stack([rng.uniform(-0.05, 0.05, tc.BLOCK),
+                   rng.uniform(-0.05, 0.05, tc.BLOCK),
+                   -np.ones(tc.BLOCK)], -1)
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    o0 = np.tile([0.0, 0.0, 40.0], (tc.BLOCK, 1))
+    o, d = _rays(6 * tc.BLOCK, seed=32)
+    o = torch.cat([torch.as_tensor(o0.astype(np.float32)), o]).to(dev)
+    d = torch.cat([torch.as_tensor(d0.astype(np.float32)), d]).to(dev)
+    n = o.shape[0]
+    tmin = torch.full((n,), -1.0, device=dev)
+    tx = tc.root_exit_clamp(cm.bounds, o, d, torch.full((n,), BIG_T,
+                                                        device=dev))
+    ids, counts, keys, _ = tc._cull_all(cm, o, d, tx, None)
+    over = (counts[:, 0] > tc.MAXC).nonzero()[:, 0]
+    assert over.numel() > 1
+    counts[over[0]] = tc.MAXC                # every slot emitted, no overflow
+    return cm, (ids, counts, keys, o, d, tx, tmin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('group', sorted({tc.SWEEP_GROUP, tc.BLOCK}))
+def test_grouped_sweeps_match_plain(cuda, group):
+    """Both sweeps at the chosen lane group and at 512: outputs equal to
+    the plain version's, and every unit's counters (slots visited,
+    clusters entered, subtile slab tests, subtiles swept) too."""
+    cm, args = _group_workload(cuda)
+    ids, counts, keys, o, d, tx, tmin = args
+    nu = ids.shape[0] * (tc.BLOCK // group)
+    lim = torch.where(tx > 0, tx * 0.5, tx)
+    lim[:tc.BLOCK] = tx[:tc.BLOCK]
+    for kern, plain, lanes in (
+            (tc.cluster_sweep, tc.cluster_sweep_plain, tx),
+            (tc.cluster_sweep_any, tc.cluster_sweep_any_plain, lim)):
+        st_k = torch.zeros((nu, tc.STATS), dtype=torch.int64, device=cuda)
+        st_p = torch.zeros_like(st_k)
+        before = kern.launches
+        out_k = kern(cm, ids, counts, keys, o, d, lanes, tmin, group=group,
+                     stats=st_k)
+        assert kern.launches == before + 1
+        out_p = plain(cm, ids, counts, keys, o, d, lanes, tmin, group=group,
+                      stats=st_p)
+        for a, b in zip(out_k if isinstance(out_k, tuple) else (out_k,),
+                        out_p if isinstance(out_p, tuple) else (out_p,)):
+            assert torch.equal(a, b)
+        assert torch.equal(st_k[:, :4], st_p[:, :4])
+        assert bool((st_k[:, 4] > 0).all())           # cycles
+        assert int(st_k[:, 3].sum()) > 0
+        if kern is tc.cluster_sweep_any:
+            assert bool(out_k[:tc.BLOCK].all())       # packet 0 all occluded
+            assert 0.0 < out_k.float().mean().item() < 1.0
+
+
+@pytest.mark.gpu
+def test_sweep_order_does_not_change_results(cuda):
+    """Heaviest first and packet order give the same outputs."""
+    cm, (ids, counts, keys, o, d, tx, tmin) = _group_workload(cuda)
+    g = tc.SWEEP_GROUP
+    nu = ids.shape[0] * (tc.BLOCK // g)
+    order = tc.heaviest_first(counts, g)
+    assert sorted(order.tolist()) == list(range(nu))
+    ident = torch.arange(nu, dtype=torch.int32, device=cuda)
+    a = tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin)
+    b = tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, order=ident)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_one_launch_per_round_matches_chunked(cuda, monkeypatch):
+    """two_level_hit / two_level_any over a query that spans several cull
+    chunks sweep each round in one launch and give the chunk-by-chunk
+    results (each chunk queried alone)."""
+    monkeypatch.setattr(tc, 'CHUNK_PACKETS', 2)
+    cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=cuda)
+    o, d = (x.to(cuda) for x in _rays(7 * tc.BLOCK, seed=33))
+    n = o.shape[0]
+    tmax = torch.full((n,), BIG_T, device=cuda)
+    lim = torch.as_tensor(np.random.default_rng(34).uniform(2.0, 40.0, n)
+                          .astype(np.float32), device=cuda)
+    before = tc.cluster_sweep.launches
+    t, tri = tc.two_level_hit(cm, o, d, tmax)
+    rounds = tc.cluster_sweep.launches - before
+    occ = tc.two_level_any(cm, o, d, lim)
+    step = tc.CHUNK_PACKETS * tc.BLOCK
+    parts, part_rounds = [], []
+    for i in range(0, n, step):
+        before = tc.cluster_sweep.launches
+        parts.append(tc.two_level_hit(cm, o[i:i + step], d[i:i + step],
+                                      tmax[i:i + step]))
+        part_rounds.append(tc.cluster_sweep.launches - before)
+    # one launch per round: the query's rounds are its slowest chunk's
+    assert len(parts) == 4 and rounds == max(part_rounds)
+    assert torch.equal(t, torch.cat([p[0] for p in parts]))
+    assert torch.equal(tri, torch.cat([p[1] for p in parts]))
+    occ_parts = [tc.two_level_any(cm, o[i:i + step], d[i:i + step],
+                                  lim[i:i + step]) for i in range(0, n, step)]
+    assert torch.equal(occ, torch.cat(occ_parts))
+
+
+@pytest.mark.gpu
+def test_sweep_wrappers_refuse_bad_arguments(cuda):
+    cm, (ids, counts, keys, o, d, tx, tmin) = _group_workload(cuda)
+    bad = torch.zeros((3, tc.STATS), dtype=torch.int64, device=cuda)
+    before = tc.cluster_sweep.launches
+    with pytest.raises(ValueError):
+        tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, stats=bad)
+    with pytest.raises(ValueError):
+        tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, group=48)
+    nu = ids.shape[0] * (tc.BLOCK // tc.SWEEP_GROUP)
+    with pytest.raises(ValueError):
+        tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin,
+                         order=torch.full((nu,), nu, dtype=torch.int32,
+                                          device=cuda))
+    assert tc.cluster_sweep.launches == before
 
 
 @pytest.mark.gpu
