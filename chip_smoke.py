@@ -449,21 +449,21 @@ def main_path(sc, cam, card):
     return launches
 
 
-def check_cull(out_k, out_p):
-    """Tree cull kernel (k) against its plain version (p): counts equal,
-    keys within 1e-6 relative, kept ids equal except among keys equal to
-    a packet's 128th key.  Returns (max |dkey|, agreeing packet share)."""
+def check_cull(out_k, out_p, work_k, work_p):
+    """Tree cull kernel (k) against its plain version (p): counts, keys
+    and the inner-node, leaf and emission counters equal; kept ids equal
+    except among keys equal to a packet's 128th key.  Returns the share
+    of packets with identical slots."""
     from pathtracer_tpu_torch.ops import cluster as cl
     ids_k, cnt_k, keys_k = (x.cpu().numpy() for x in out_k)
     ids_p, cnt_p, keys_p = (x.cpu().numpy() for x in out_p)
     if not (cnt_k == cnt_p).all():
         raise AssertionError(f'cull counts differ on '
                              f'{int((cnt_k != cnt_p).sum())} packets')
-    live = keys_p < BIG_T
-    err = np.abs(keys_k - keys_p)
-    if (err[live] > 1e-6 * np.abs(keys_p[live])).any() \
-            or ((keys_k < BIG_T) != live).any():
-        raise AssertionError('cull keys differ beyond 1e-6 relative')
+    if not (keys_k == keys_p).all():
+        raise AssertionError('cull keys differ from the plain version')
+    if not torch_equal(work_k[:, :3], work_p[:, :3]):
+        raise AssertionError('cull counters differ from the plain version')
     same = 0
     for b in range(ids_p.shape[0]):
         m = min(int(cnt_p[b, 0]), cl.MAXC)
@@ -473,14 +473,126 @@ def check_cull(out_k, out_p):
         if set(ids_k[b, :m][below]) != set(ids_p[b, :m][below]):
             raise AssertionError(f'packet {b}: kept clusters differ')
         same += bool((ids_k[b] == ids_p[b]).all())
-    return float(err[live].max()) if live.any() else 0.0, \
-        same / ids_p.shape[0]
+    return same / ids_p.shape[0]
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def share_report(x):
+    """mean / p99 / max of a per-unit cost and the heaviest 1%'s share."""
+    import torch
+    x = x.double().cpu()
+    n1 = max(1, x.numel() // 100)
+    top = float(torch.sort(x, descending=True).values[:n1].sum()
+                / max(float(x.sum()), 1.0))
+    return dict(mean=float(x.mean()), p99=float(torch.quantile(x, 0.99)),
+                max=float(x.max()), top1_share=top)
+
+
+def bounce_rays(org, dirn, t, tri, soup, seed, eps=1e-3):
+    """One bounce of the hit lanes, in hit order: origins at the hits
+    offset by eps along the face normal (turned to the incoming ray's
+    side), directions cosine-weighted about that normal from a seeded
+    torch.Generator on the card."""
+    import torch
+    hit = tri >= 0
+    d = dirn[hit] / dirn[hit].norm(dim=1, keepdim=True)
+    p = org[hit] + t[hit, None] * dirn[hit]
+    j = tri[hit].long()
+    nrm = torch.stack([soup.nx[j], soup.ny[j], soup.nz[j]], 1)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    nrm = torch.where(((nrm * d).sum(1) > 0)[:, None], -nrm, nrm)
+    g = torch.Generator(device=org.device)
+    g.manual_seed(seed)
+    u = torch.rand((nrm.shape[0], 2), generator=g, device=org.device)
+    r, phi = u[:, 0].sqrt(), 2.0 * np.pi * u[:, 1]
+    ax = torch.zeros_like(nrm)
+    ax[:, 0] = 1.0
+    ax[nrm[:, 0].abs() > 0.9] = torch.tensor([0.0, 1.0, 0.0],
+                                             device=org.device)
+    t1 = torch.linalg.cross(ax, nrm)
+    t1 = t1 / t1.norm(dim=1, keepdim=True)
+    t2 = torch.linalg.cross(nrm, t1)
+    wi = (r * phi.cos())[:, None] * t1 + (r * phi.sin())[:, None] * t2 \
+        + (1.0 - u[:, 0]).clamp_min(0.0).sqrt()[:, None] * nrm
+    wi = wi / wi.norm(dim=1, keepdim=True)
+    return (p + eps * nrm).contiguous(), wi.contiguous()
+
+
+def cull_set(cm, org, dirn, tmax, name):
+    """The tree cull on one ray set's first round (every packet): kernel
+    against plain version (>= 256 packets and every overflowed one), the
+    kernel's counters, its time and the plain version's.  Returns a dict
+    of the numbers."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    dev = org.device
+    o, d, tm, _ = cl._prepare(cm, org, dirn, tmax, None)
+    tx = cl.root_exit_clamp(cm.bounds, o, d, tm)
+    nb = o.shape[0] // cl.BLOCK
+    work = torch.zeros((nb, cl.CULL_WORK), dtype=torch.int64, device=dev)
+    out_k = cl.cull_tree(cm, o, d, tx, work=work)
+    torch.cuda.synchronize()
+    counts = out_k[1][:, 0]
+    over = (counts > cl.MAXC).nonzero()[:, 0]
+    pick = torch.unique(torch.cat([torch.arange(min(256, nb), device=dev),
+                                   over]))
+    rows = (pick[:, None] * cl.BLOCK
+            + torch.arange(cl.BLOCK, device=dev)[None]).reshape(-1)
+    work_p = torch.zeros((pick.numel(), cl.CULL_WORK), dtype=torch.int64,
+                         device=dev)
+    out_p = cl.cull_tree_plain(cm, o[rows], d[rows], tx[rows], work=work_p)
+    agree = check_cull([x[pick] for x in out_k], out_p, work[pick], work_p)
+    ms_k = cuda_ms(lambda: cl.cull_tree(cm, o, d, tx), reps=5)
+    ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
+                   warm=False)
+    inner = int(work[:, 0].sum())
+    m_nodes = cm.top_box.shape[0]
+    ops = inner * 2 * cl.BLOCK * SLAB_OPS
+    nbytes = (m_nodes * 36 + cm.n_clusters * 4 + nb * cl.BLOCK * 28
+              + nb * (8 * cl.MAXC + 4))
+    b_ms, b_by = bound(ops, nbytes)
+    rep = dict(packets=nb, overflowed=int(over.numel()), checked=pick.numel(),
+               ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, ops=ops,
+               bytes=nbytes,
+               identical_slots=agree,
+               cycles=share_report(work[:, 3]),
+               inner=share_report(work[:, 0]),
+               leaves_mean=float(work[:, 1].double().mean()),
+               count=share_report(work[:, 2]))
+    log(f'tree cull, {name}: {nb} packets, {over.numel()} overflowed, '
+        f'{pick.numel()} checked against the plain version (counts, keys '
+        f'and counters equal; identical slot order on {agree:.4f}); kernel '
+        f'{ms_k:.4f} ms, plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})')
+    log(f'  per packet: cycles mean {rep["cycles"]["mean"]:.0f} p99 '
+        f'{rep["cycles"]["p99"]:.0f} max {rep["cycles"]["max"]:.0f}, '
+        f'heaviest 1% {rep["cycles"]["top1_share"]:.3f} of cycles; inner '
+        f'nodes mean {rep["inner"]["mean"]:.2f} p99 {rep["inner"]["p99"]:.0f}'
+        f' max {rep["inner"]["max"]:.0f}; leaves reached mean '
+        f'{rep["leaves_mean"]:.2f}; clusters emitted mean '
+        f'{rep["count"]["mean"]:.2f} max {rep["count"]["max"]:.0f}; cycles '
+        f'of the heaviest 1% of packets by emitted count: '
+        f'{heavy_cycles(work[:, 2], work[:, 3]):.3f} of all')
+    return rep
+
+
+def heavy_cycles(key, cyc):
+    """Share of all cycles spent by the 1% of units with the largest
+    `key`."""
+    import torch
+    n1 = max(1, key.numel() // 100)
+    top = torch.argsort(key, descending=True)[:n1]
+    return float(cyc[top].double().sum() / max(float(cyc.double().sum()), 1))
 
 
 def tree_phase(dev, cam):
     """The tree-cull tier on a mesh of more than DENSE_CULL_MAX clusters:
-    kernel against plain version, then the tier end to end against the
-    dense tier.  Returns the cull kernel's record."""
+    kernel against plain version on the 1080p primaries and on one bounce
+    of them, then the tier end to end against the dense tier.  Returns
+    the cull kernel's record."""
     import torch
     from pathtracer_tpu_torch.ops import bvh as bvh_mod
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -494,10 +606,14 @@ def tree_phase(dev, cam):
     cm_dense = cl.build_clustered(tri, fb=fb, dev=dev)
     soup = tt.make_soup(tri[fb.order], device=dev)
     bvh = tt.upload_bvh(fb, device=dev)
+    info = cl.cull_kernel_info()
     log(f'tree phase build {time.perf_counter() - t0:.1f} s: '
         f'{tri.shape[0]} tris, {cm.n_clusters} clusters of <= 256 tris '
-        f'(top depth < {cl.STACK_DEPTH}, max leaf {cm.top_max_leaf}); dense '
-        f'build {cm_dense.n_clusters} clusters')
+        f'(top depth < {cl.STACK_DEPTH}, max leaf {cm.top_max_leaf}, '
+        f'{cm.top_pairs.shape[0]} inner nodes); dense build '
+        f'{cm_dense.n_clusters} clusters; cull kernel {info[0]} registers, '
+        f'{info[1]} resident blocks of {info[3]} threads per SM, {info[2]} '
+        f'B static shared')
     if not cm.n_clusters > cl.DENSE_CULL_MAX >= cm_dense.n_clusters:
         raise AssertionError('the tree phase needs a tree-tier and a '
                              'dense-tier build of one mesh')
@@ -507,36 +623,7 @@ def tree_phase(dev, cam):
     tmax = torch.full((n,), BIG_T, device=dev)
 
     # ---- kernel against plain version: the first round's cull ----
-    o, d, tm, _ = cl._prepare(cm, org, dirn, tmax, None)
-    tx = cl.root_exit_clamp(cm.bounds, o, d, tm)
-    nb = o.shape[0] // cl.BLOCK
-    work = torch.zeros(nb, dtype=torch.int32, device=dev)
-    out_k = cl.cull_tree(cm, o, d, tx, work=work)
-    torch.cuda.synchronize()
-    counts = out_k[1][:, 0]
-    over = (counts > cl.MAXC).nonzero()[:, 0]
-    pick = torch.unique(torch.cat([torch.arange(min(256, nb), device=dev),
-                                   over]))
-    rows = (pick[:, None] * cl.BLOCK
-            + torch.arange(cl.BLOCK, device=dev)[None]).reshape(-1)
-    out_p = cl.cull_tree_plain(cm, o[rows], d[rows], tx[rows])
-    err, agree = check_cull([x[pick] for x in out_k], out_p)
-    ms_k = cuda_ms(lambda: cl.cull_tree(cm, o, d, tx), reps=3)
-    ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
-                   warm=False)
-    inner = int(work.sum())
-    m_nodes = cm.top_box.shape[0]
-    rec = entry(
-        'cull_tree', 'pathtracer_tpu_torch/csrc/cluster_cull.cu',
-        'pathtracer_tpu/ops/pallas_cluster.py:538', err, agree, ms_k, ms_p,
-        inner * 2 * cl.BLOCK * SLAB_OPS,
-        m_nodes * 36 + cm.n_clusters * 4 + nb * cl.BLOCK * 28
-        + nb * (8 * cl.MAXC + 4), packets=nb, overflowed=int(over.numel()))
-    log(f'tree cull: {nb} packets, {over.numel()} overflowed, '
-        f'{pick.numel()} checked against the plain version (identical '
-        f'slot order on {agree:.4f}), max |dkey| {err:.3g}, mean '
-        f'{inner / nb:.1f} inner nodes per packet; kernel {ms_k:.3f} ms, '
-        f'plain {ms_p:.3f} ms')
+    prim = cull_set(cm, org, dirn, tmax, '1080p primaries')
 
     # ---- the tier end to end, against the dense tier ----
     cl.cull_tree.launches = 0
@@ -546,6 +633,7 @@ def tree_phase(dev, cam):
                                       return_residual=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    launches = cl.cull_tree.launches
     n_res = int(res.sum())
     t, tri_id, _, _ = tt.bvh_hit_sparse(bvh, soup, org, dirn, res,
                                         fb.max_leaf, t, tri_id,
@@ -553,7 +641,6 @@ def tree_phase(dev, cam):
                                         torch.zeros_like(t))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    rec['launches'] = cl.cull_tree.launches
     t_d, tri_d = cl.two_level_hit(cm_dense, org, dirn, tmax)
     same = tri_id == tri_d
     frac = float(same.float().mean())
@@ -565,22 +652,111 @@ def tree_phase(dev, cam):
         f'{1e3 * (t2 - t1):.1f} ms (host clock); vs dense tier tri '
         f'agreement {frac:.6f}, {one} lanes hit in one build only, hit '
         f'share {float((tri_d >= 0).float().mean()):.3f}; cull launches '
-        f'{rec["launches"]}')
+        f'{launches}')
     if frac < 0.999:
         raise AssertionError(f'tree tier tri agrees on only {frac:.5f}')
     if one > 0.0005 * n:
         raise AssertionError(f'{one} lanes hit in one build only')
     if bool((terr > 1e-5 * t_d[hit].abs()).any()):
         raise AssertionError('tree tier t differs beyond 1e-5 relative')
-    if rec['launches'] <= 0:
+    if launches <= 0:
         raise AssertionError('cull_tree never launched on the tree tier')
+
+    # ---- one bounce of the primaries that hit ----
+    b_org, b_dir = bounce_rays(org, dirn, t, tri_id, soup, seed=5)
+    bnc = cull_set(cm, b_org, b_dir,
+                   torch.full((b_org.shape[0],), BIG_T, device=dev),
+                   f'one bounce ({b_org.shape[0]} rays)')
+    rec = entry(
+        'cull_tree', 'pathtracer_tpu_torch/csrc/cluster_cull.cu',
+        'pathtracer_tpu/ops/pallas_cluster.py:538', 0.0,
+        prim['identical_slots'], prim['ms'], prim['plain_ms'], prim['ops'],
+        prim['bytes'], primaries=prim, bounce=bnc, ms_bounce=bnc['ms'],
+        plain_ms_bounce=bnc['plain_ms'], bound_ms_bounce=bnc['bound_ms'],
+        registers=info[0], blocks_per_sm=info[1], threads=info[3])
+    rec['launches'] = launches
     return rec
 
 
+def walk_set(mesh, org, dirn, tmax, name):
+    """The packet kernel on one ray set: bit-equal to packet_walk_plain
+    (t, tri, alpha, beta, per-ray counters) on every lane, against the
+    brute-force plain version within its tolerance, counters, times."""
+    import torch
+    from pathtracer_tpu_torch.ops import packet_bvh as pb
+    n = org.shape[0]
+    work = torch.zeros((n, pb.WORK), dtype=torch.int32, device=org.device)
+    out_k = pb.packet_hit(mesh.packed, mesh.soup, org, dirn, tmax, work=work)
+    out_w = pb.packet_walk_plain(mesh.packed, mesh.soup, org, dirn, tmax)
+    torch.cuda.synchronize()
+    for a, b, what in zip(out_k + (work[:, :2],), out_w,
+                          ('t', 'tri', 'alpha', 'beta', 'counters')):
+        if not torch.equal(a, b):
+            bad = int((a != b).view(n, -1).any(dim=1).sum())
+            raise AssertionError(f'packet kernel, {name}: {what} differs '
+                                 f'from packet_walk_plain on {bad} lanes')
+    t_k, tri_k = out_k[0], out_k[1]
+    t_p, tri_p, _, _ = pb.packet_hit_plain(mesh.soup, org, dirn, tmax)
+    same = tri_k == tri_p
+    frac = float(same.float().mean())
+    flips = ~same & ((tri_k < 0) != (tri_p < 0))
+    n_flip = int(flips.sum())
+    tie = ~same & ~flips
+    hit = same & (tri_p >= 0)
+    err = (t_k[hit] - t_p[hit]).abs()
+    if frac < 0.999:
+        raise AssertionError(f'packet tri agrees on only {frac:.5f}')
+    if n_flip > 1e-4 * n:
+        raise AssertionError(f'{n_flip} lanes hit in one version only')
+    if bool(((t_k[tie] - t_p[tie]).abs() > TIE * t_p[tie].abs()).any()):
+        raise AssertionError('packet ties beyond 2^-16 relative t')
+    if bool((err > 1e-5 * t_p[hit].abs()).any()):
+        raise AssertionError('packet t differs beyond 1e-5 relative')
+    ms_k = cuda_ms(lambda: pb.packet_hit(mesh.packed, mesh.soup, org, dirn,
+                                         tmax), reps=10)
+    ms_p = cuda_ms(lambda: pb.packet_hit_plain(mesh.soup, org, dirn, tmax),
+                   reps=1, warm=False)
+    ms_w = cuda_ms(lambda: pb.packet_walk_plain(mesh.packed, mesh.soup, org,
+                                                dirn, tmax), reps=1,
+                   warm=False)
+    inner, tests = (int(x) for x in work[:, :2].long().sum(dim=0))
+    ops = inner * 2 * SLAB_OPS + tests * TRI_TEST_OPS
+    nbytes = n * 48 + mesh.packed.box.shape[0] * 36 + mesh.n_tris * 64
+    b_ms, b_by = bound(ops, nbytes)
+    w32 = work[:n // 32 * 32].view(-1, 32, pb.WORK).double()
+    warp_cyc = w32[:, :, 2].amax(dim=1)
+    steps = w32[:, :, 0] + w32[:, :, 1]
+    simd = float((steps.mean(dim=1) / steps.amax(dim=1).clamp_min(1)).mean())
+    rep = dict(rays=n, ms=ms_k, plain_ms=ms_p, walk_plain_ms=ms_w,
+               bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+               tri_agree_brute=frac,
+               flips_brute=n_flip,
+               max_abs_err=float(err.max()) if err.numel() else 0.0,
+               hit_share=float((tri_k >= 0).float().mean()),
+               inner_per_ray=inner / n, tests_per_ray=tests / n,
+               inner_max=int(work[:, 0].max()), tests_max=int(work[:, 1].max()),
+               warp_cycles=share_report(warp_cyc), lane_utilization=simd)
+    log(f'packet kernel, {name}: {n} rays, equal to packet_walk_plain bit '
+        f'for bit (t, tri, alpha, beta, counters); vs brute force tri '
+        f'{frac:.6f}, {n_flip} hit/miss flips, {int(tie.sum())} ties; hit '
+        f'share {rep["hit_share"]:.3f}; kernel {ms_k:.4f} ms, brute force '
+        f'{ms_p:.3f} ms, walk plain {ms_w:.3f} ms, bound {b_ms:.4f} ms '
+        f'({b_by})')
+    log(f'  per ray {inner / n:.2f} inner nodes (max {rep["inner_max"]}), '
+        f'{tests / n:.2f} triangle tests (max {rep["tests_max"]}); per warp '
+        f'of 32 rays: cycles mean {rep["warp_cycles"]["mean"]:.0f} p99 '
+        f'{rep["warp_cycles"]["p99"]:.0f} max '
+        f'{rep["warp_cycles"]["max"]:.0f}, heaviest 1% '
+        f'{rep["warp_cycles"]["top1_share"]:.3f} of cycles; lane '
+        f'utilization (mean steps / max steps per warp) {simd:.3f}')
+    return rep
+
+
 def packet_phase(dev, cam, card):
-    """The packet tier: kernel against plain version at 1080p primaries,
-    then Renderer waves through it, against the cluster tier's image.
-    Returns the packet kernel's record."""
+    """The packet tier: kernel against packet_walk_plain and the brute
+    force at 1080p primaries and on one bounce of them, then Renderer
+    waves through it, against the cluster tier's image.  Returns the
+    packet kernel's record."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import packet_bvh as pb
@@ -596,50 +772,33 @@ def packet_phase(dev, cam, card):
     if not (mesh.use_packet and not mesh.use_cluster):
         raise AssertionError('the mesh did not take the packet tier')
     sc_p = dataclasses.replace(sc_c, meshes=(mesh,))
+    info = pb.kernel_info()
+    log(f'packet tier: {mesh.n_tris} tris, {mesh.packed.pairs.shape[0]} '
+        f'inner nodes, depth {mesh.packed.depth}, max leaf '
+        f'{mesh.packed.max_leaf}; packet kernel {info[0]} registers, '
+        f'{info[1]} resident blocks of {info[3]} threads per SM, {info[2]} B '
+        f'static shared')
 
-    # ---- kernel against plain version: the main path's mesh query ----
+    # ---- kernel against plain versions: the main path's mesh query ----
     org, dirn = primary_rays(cam, dev)
-    n = org.shape[0]
     tmax = scn._candidate_ts(sc_p, org, dirn)[0].amin(dim=-1)
     org_l, dir_l = scn._local_ray_row(sc_p, row, org, dirn)
-    work = torch.zeros((n, 2), dtype=torch.int32, device=dev)
-    t_k, tri_k, al_k, be_k = pb.packet_hit(mesh.packed, mesh.soup, org_l,
-                                           dir_l, tmax, work=work)
-    t_p, tri_p, al_p, be_p = pb.packet_hit_plain(mesh.soup, org_l, dir_l,
-                                                 tmax)
-    torch.cuda.synchronize()
-    same = tri_k == tri_p
-    frac = float(same.float().mean())
-    flips = ~same & ((tri_k < 0) != (tri_p < 0))
-    n_flip = int(flips.sum())
-    tie = ~same & ~flips
-    hit = same & (tri_p >= 0)
-    err = (t_k[hit] - t_p[hit]).abs()
-    log(f'packet kernel: tri agreement {frac:.6f}, {n_flip} hit/miss '
-        f'flips, {int(tie.sum())} ties, max |dt| '
-        f'{float(err.max()) if err.numel() else 0.0:.3g}, max |dalpha| '
-        f'{float((al_k[hit] - al_p[hit]).abs().max()):.3g}')
-    if frac < 0.999:
-        raise AssertionError(f'packet tri agrees on only {frac:.5f}')
-    if n_flip > 1e-4 * n:
-        raise AssertionError(f'{n_flip} lanes hit in one version only')
-    if bool(((t_k[tie] - t_p[tie]).abs() > TIE * t_p[tie].abs()).any()):
-        raise AssertionError('packet ties beyond 2^-16 relative t')
-    if bool((err > 1e-5 * t_p[hit].abs()).any()):
-        raise AssertionError('packet t differs beyond 1e-5 relative')
-    ms_k = cuda_ms(lambda: pb.packet_hit(mesh.packed, mesh.soup, org_l, dir_l,
-                                         tmax), reps=5)
-    ms_p = cuda_ms(lambda: pb.packet_hit_plain(mesh.soup, org_l, dir_l,
-                                               tmax), reps=1, warm=False)
-    inner, tests = (int(x) for x in work.sum(dim=0))
+    org_l, dir_l = org_l.contiguous(), dir_l.contiguous()
+    prim = walk_set(mesh, org_l, dir_l, tmax, '1080p primaries')
+    t_k, tri_k, _, _ = pb.packet_hit(mesh.packed, mesh.soup, org_l, dir_l,
+                                     tmax)
+    b_org, b_dir = bounce_rays(org_l, dir_l, t_k, tri_k, mesh.soup, seed=7)
+    bnc = walk_set(mesh, b_org, b_dir,
+                   torch.full((b_org.shape[0],), BIG_T, device=dev),
+                   f'one bounce ({b_org.shape[0]} rays)')
     rec = entry(
         'packet_hit', 'pathtracer_tpu_torch/csrc/packet_bvh.cu',
-        'pathtracer_tpu/ops/pallas_bvh.py:41',
-        float(err.max()) if err.numel() else 0.0, frac, ms_k, ms_p,
-        inner * 2 * SLAB_OPS + tests * TRI_TEST_OPS,
-        n * 48 + mesh.packed.box.shape[0] * 36 + mesh.n_tris * 64)
-    log(f'packet kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms; per ray '
-        f'{inner / n:.1f} inner nodes, {tests / n:.1f} triangle tests')
+        'pathtracer_tpu/ops/pallas_bvh.py:41', prim['max_abs_err'], 1.0,
+        prim['ms'], prim['plain_ms'], prim['ops'], prim['bytes'],
+        primaries=prim, bounce=bnc,
+        ms_bounce=bnc['ms'], plain_ms_bounce=bnc['plain_ms'],
+        bound_ms_bounce=bnc['bound_ms'], registers=info[0],
+        blocks_per_sm=info[1], threads=info[3])
 
     # ---- Renderer through the packet tier, against the cluster tier ----
     cfg = pt.RenderConfig(width=W, height=H, nrays=8, nb_bounces=BOUNCES,
@@ -905,8 +1064,19 @@ def build_kernels():
         log(f'[{k}] {m.strip()}')
 
 
+PHASES = ('kernel', 'reference', 'main', 'tree', 'packet', 'probe')
+
+
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--phases', default=','.join(PHASES),
+                    help='comma-separated subset of ' + ','.join(PHASES)
+                    + ' (default: all; the contract run takes all)')
+    phases = ap.parse_args().phases.split(',')
+    if set(phases) - set(PHASES):
+        raise SystemExit(f'unknown phases {set(phases) - set(PHASES)}')
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device; none found')
     log(f'python {sys.version.split()[0]} torch {torch.__version__} '
@@ -920,28 +1090,32 @@ def main():
     build_kernels()
     log(f'kernel build {time.perf_counter() - t0:.1f} s')
 
-    t0 = time.perf_counter()
-    sc, n_tris = big_scene(dev)
-    log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
-        f'{sc.meshes[0].n_clusters} clusters, backface cull '
-        f'{sc.meshes[0].backface_cull}')
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
-
-    kernels = kernel_phase(sc, cam, dev)
-    reference_phase()
-    launches = main_path(sc, cam, card)
-    for k in kernels:
-        k['launches'] = launches[k['name']]
-    del sc
-    t0 = time.perf_counter()
-    kernels.append(tree_phase(dev, cam))
-    log(f'tree phase {time.perf_counter() - t0:.1f} s')
-    t0 = time.perf_counter()
-    kernels.append(packet_phase(dev, cam, card))
-    log(f'packet phase {time.perf_counter() - t0:.1f} s')
-    t0 = time.perf_counter()
-    kernels.extend(probe_phase(dev))
-    log(f'probe phase {time.perf_counter() - t0:.1f} s')
+    kernels = []
+    if {'kernel', 'main'} & set(phases):
+        t0 = time.perf_counter()
+        sc, n_tris = big_scene(dev)
+        log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
+            f'{sc.meshes[0].n_clusters} clusters, backface cull '
+            f'{sc.meshes[0].backface_cull}')
+        if 'kernel' in phases:
+            kernels = kernel_phase(sc, cam, dev)
+        if 'reference' in phases:
+            reference_phase()
+        if 'main' in phases:
+            launches = main_path(sc, cam, card)
+            for k in kernels:
+                k['launches'] = launches[k['name']]
+        del sc
+    elif 'reference' in phases:
+        reference_phase()
+    for name, fn in (('tree', lambda: [tree_phase(dev, cam)]),
+                     ('packet', lambda: [packet_phase(dev, cam, card)]),
+                     ('probe', lambda: probe_phase(dev))):
+        if name in phases:
+            t0 = time.perf_counter()
+            kernels.extend(fn())
+            log(f'{name} phase {time.perf_counter() - t0:.1f} s')
     log(card)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

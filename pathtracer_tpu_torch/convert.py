@@ -68,9 +68,9 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
     if m['use_packet'] and m['packed']:
         lox, loy, loz, hix, hiy, hiz, na, nb, nleaf = m['packed']
         box = np.stack([lox, loy, loz, hix, hiy, hiz], axis=1)
-        packed = packet_bvh.PackedBVH(
-            *tensors([box.astype(np.float32), na, nb, nleaf]),
-            max_leaf=int(m['max_leaf']))
+        packed = packet_bvh.packed_from_arrays(
+            *(np.asarray(x) for x in (box, na, nb, nleaf)),
+            int(m['max_leaf']), dev)
     g = np.asarray(m['g_kd']).shape[0]
     n_tris = int(m['n_tris'])
     if n_tris < 0:

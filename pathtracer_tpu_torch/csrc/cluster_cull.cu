@@ -136,7 +136,7 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
             const int* __restrict__ order, const float* __restrict__ org,
             const float* __restrict__ dir, const float* __restrict__ tmax,
             int* __restrict__ ids_out, int* __restrict__ count_out,
-            float* __restrict__ keys_out, int* __restrict__ work) {
+            float* __restrict__ keys_out, long long* __restrict__ work) {
   __shared__ int s_stack[STACK_DEPTH];
   __shared__ float s_stack_key[STACK_DEPTH];
   __shared__ int s_ids[MAXC];
@@ -144,6 +144,7 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
   __shared__ float s_red_key[2][2][WARPS];
   __shared__ unsigned s_red_live[2][WARPS];
 
+  const long long t_start = clock64();
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -162,7 +163,7 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
   }
   __syncthreads();
 
-  int count = 0, sp = 0, par = 0, n_inner = 0;
+  int count = 0, sp = 0, par = 0, n_inner = 0, n_leaves = 0;
   int node = 0;
   bool have = true;   // `node` is an inner node still to expand
 
@@ -198,6 +199,7 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
 
   auto emit_leaf = [&](int leaf_node, float key) {
     const int start = na[leaf_node], cnt = nb[leaf_node];
+    ++n_leaves;
     for (int k = 0; k < cnt; ++k) {
       if (warp == 0) emit(order[start + k], key, count, s_ids, s_keys);
       ++count;
@@ -276,7 +278,12 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
   }
   if (tid == 0) {
     count_out[p] = count;
-    if (work) work[p] = n_inner;
+    if (work) {
+      work[4 * p] = n_inner;
+      work[4 * p + 1] = n_leaves;
+      work[4 * p + 2] = count;
+      work[4 * p + 3] = clock64() - t_start;
+    }
   }
 }
 
@@ -286,17 +293,35 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
 // start in `order` / cluster count), order (C,) int32 leaf position ->
 // cluster id; org, dir (nb*512, 3) f32, tmax (nb*512,) f32.  Outputs ids
 // (nb, 128) int32 (-1 padded), count (nb,) int32, keys (nb, 128) f32
-// (1e30 padded) and, when work is not null, (nb,) int32 inner nodes
-// expanded per packet.  Returns cudaGetLastError() after the launch.
+// (1e30 padded) and, when work is not null, (nb, 4) int64 counters per
+// packet: inner nodes expanded, leaves reached, clusters emitted, clock64
+// cycles.  Returns cudaGetLastError() after the launch.
 extern "C" int cluster_cull_tree(const float* box, const int* na,
                                  const int* nb_, const int* nleaf,
                                  const int* order, const float* org,
                                  const float* dir, const float* tmax,
                                  int n_packets, int* ids_out, int* count_out,
-                                 float* keys_out, int* work, void* stream) {
+                                 float* keys_out, long long* work,
+                                 void* stream) {
   if (n_packets > 0)
     cull_kernel<<<n_packets, BLOCK, 0, (cudaStream_t)stream>>>(
         box, na, nb_, nleaf, order, org, dir, tmax, ids_out, count_out,
         keys_out, work);
   return (int)cudaGetLastError();
+}
+
+// out[4]: registers per thread, resident blocks per SM, static shared
+// bytes, threads per block.  Returns the first CUDA error, else 0.
+extern "C" int cluster_cull_info(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, cull_kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cull_kernel,
+                                                      BLOCK, 0);
+  out[0] = fa.numRegs;
+  out[1] = blocks;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = BLOCK;
+  return (int)e;
 }

@@ -120,6 +120,7 @@ packet_kernel(const float* __restrict__ box, const int* __restrict__ na,
               float* __restrict__ t_out, int* __restrict__ tri_out,
               float* __restrict__ al_out, float* __restrict__ be_out,
               int* __restrict__ work) {
+  const long long t_start = clock64();
   const int r = blockIdx.x * THREADS + threadIdx.x;
   if (r >= n) return;
   Ray ray;
@@ -176,8 +177,9 @@ packet_kernel(const float* __restrict__ box, const int* __restrict__ na,
   al_out[r] = bal;
   be_out[r] = bbe;
   if (work) {
-    work[2 * r] = n_nodes;
-    work[2 * r + 1] = n_tris;
+    work[3 * r] = n_nodes;
+    work[3 * r + 1] = n_tris;
+    work[3 * r + 2] = (int)(clock64() - t_start);
   }
 }
 
@@ -186,8 +188,9 @@ packet_kernel(const float* __restrict__ box, const int* __restrict__ na,
 // box (M, 6) f32 [lo xyz | hi xyz], na / nb / nleaf (M,) int32 (leaf: tri
 // start / count), soup (T, 16) f32 rows in TriSoup field order, org and
 // dir (n, 3), tmax and tmin (n,).  Outputs t, tri, alpha, beta (n,) and,
-// when work is not null, (n, 2) int32 counts of inner nodes expanded (two
-// slab tests each) and of triangle tests.
+// when work is not null, (n, 3) int32 counts of inner nodes expanded (two
+// slab tests each) and of triangle tests, and the clock64 cycles of the
+// ray's thread.
 // Returns cudaGetLastError() after the launch.
 extern "C" int packet_bvh_hit(const float* box, const int* na, const int* nb,
                               const int* nleaf, const float* soup,
@@ -201,4 +204,20 @@ extern "C" int packet_bvh_hit(const float* box, const int* na, const int* nb,
                                             dir, tmax, tmin, n, t_out,
                                             tri_out, al_out, be_out, work);
   return (int)cudaGetLastError();
+}
+
+// out[4]: registers per thread, resident blocks per SM, static shared
+// bytes, threads per block.  Returns the first CUDA error, else 0.
+extern "C" int packet_bvh_info(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, packet_kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, packet_kernel,
+                                                      THREADS, 0);
+  out[0] = fa.numRegs;
+  out[1] = blocks;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = THREADS;
+  return (int)e;
 }

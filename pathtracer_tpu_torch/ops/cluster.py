@@ -69,6 +69,7 @@ import torch
 
 from .. import device
 from . import bvh as bvh_mod
+from .packet_bvh import pair_records
 from .traverse import TriSoup, make_soup
 
 BIG_T = float(np.float32(1e30))
@@ -92,6 +93,9 @@ SWEEP_GROUP = 64        # rays per sweep decision unit (lane group), the
 STATS = 5               # sweep counters per unit: slots visited, clusters
                         # entered, subtile slab tests, subtiles swept,
                         # cycles (kernel only)
+CULL_WORK = 4           # tree cull counters per packet: inner nodes
+                        # expanded, leaves reached, clusters emitted (the
+                        # count), cycles (kernel only)
 
 # the JAX package's packed layout (pallas_cluster.py:141-156), read by
 # `from_tpu_arrays`
@@ -118,6 +122,8 @@ class ClusteredMesh:
     top_leaf: torch.Tensor    # (M,) int32 (1 = leaf)
     top_order: torch.Tensor   # (C,) int32 leaf position -> cluster id
     top_max_leaf: int
+    top_pairs: torch.Tensor   # (R, 16) child-pair records of the top tree's
+                              # inner nodes (packet_bvh.pair_records)
     host_tris: Optional[np.ndarray] = None   # (T,3,3) BVH order (oracles)
 
     @property
@@ -332,7 +338,9 @@ def _top_fields(box, a, b, leaf, order, dev) -> dict:
                                         device=dev),
                 top_a=i32(a), top_b=i32(b), top_leaf=i32(leaf),
                 top_order=i32(order),
-                top_max_leaf=int(b[leaf != 0].max()))
+                top_max_leaf=int(b[leaf != 0].max()),
+                top_pairs=torch.as_tensor(pair_records(box, a, b, leaf),
+                                          device=dev))
 
 
 def from_tpu_arrays(arrays, dev=None) -> ClusteredMesh:
@@ -634,29 +642,52 @@ def _cull(cm: ClusteredMesh, org, dirn, tmax, nrm=None, exclude=None):
     return ids, counts, keys, ids
 
 
-def _leaf_boxes(cm: ClusteredMesh) -> torch.Tensor:
-    """(C, 6): each cluster's top-tree leaf box, which is the cluster's own
-    AABB when its leaf holds one cluster (top_max_leaf == 1)."""
+def _leaf_nodes(cm: ClusteredMesh) -> torch.Tensor:
+    """(C,) int64: the top-tree leaf that holds each cluster."""
     leaf = cm.top_leaf.nonzero()[:, 0]
     cnt = cm.top_b[leaf].long()
     first = cnt.cumsum(0) - cnt
     k = torch.arange(int(cnt.sum()), device=cnt.device) \
         - first.repeat_interleave(cnt)
     pos = cm.top_a[leaf].long().repeat_interleave(cnt) + k
-    out = torch.empty((cm.n_clusters, 6), device=cm.top_box.device)
-    out[cm.top_order.long()[pos]] = cm.top_box[leaf].repeat_interleave(cnt,
-                                                                        0)
+    out = torch.empty(cm.n_clusters, dtype=torch.int64, device=cnt.device)
+    out[cm.top_order.long()[pos]] = leaf.repeat_interleave(cnt)
     return out
 
 
-def cull_tree_plain(cm: ClusteredMesh, org, dirn, tmax):
+def cull_tree_plain(cm: ClusteredMesh, org, dirn, tmax, work=None):
     """The tree cull's function computed directly: per packet, the exact
     slab rectangle over every cluster's leaf box; count = the live
-    clusters, the MAXC nearest by packet-min entry key, sorted (ties in
-    cluster order).  A leaf is reached by the walk iff some lane is live
-    for it: its ancestors' boxes contain it, and slab intervals only widen
-    with the box under rounding."""
-    return _dense_cull(_leaf_boxes(cm), org, dirn, tmax)
+    clusters, the MAXC nearest by (packet-min entry key, cluster id),
+    sorted so.  A leaf is reached by the walk iff some lane is live for
+    it: its ancestors' boxes contain it, and slab intervals only widen
+    with the box under rounding.  By the same argument the walk expands
+    the root and every inner node some lane is live for, whatever its
+    order, so `work` ((nb, CULL_WORK) int64, optional) gets the kernel's
+    first three counters from the inner nodes' rectangle too."""
+    nb = org.shape[0] // BLOCK
+    leaf = cm.top_leaf != 0
+    nodes = torch.arange(leaf.shape[0], device=leaf.device)
+    if work is None:
+        nodes = nodes[leaf]                   # the leaves are enough
+    keys_n, live_n = _batched_slab_keys(
+        org.view(nb, BLOCK, 3), dirn.view(nb, BLOCK, 3),
+        tmax.view(nb, BLOCK), cm.top_box[nodes][None])
+    col = torch.full_like(leaf, -1, dtype=torch.int64)
+    col[nodes] = torch.arange(nodes.shape[0], device=leaf.device)
+    c = col[_leaf_nodes(cm)]
+    live_c = live_n[:, c]
+    keys_c = torch.where(live_c, keys_n[:, c], torch.full_like(keys_n[:, c],
+                                                               BIG_T))
+    ids, count, keys = _emit_from_keys(keys_c, live_c, MAXC)
+    if work is not None:
+        inner = live_n[:, ~leaf].sum(dim=1)
+        if not bool(leaf[0]):                 # the root is expanded untested
+            inner += 1 - live_n[:, 0].long()
+        work[:, 0] = inner
+        work[:, 1] = live_n[:, leaf].sum(dim=1)
+        work[:, 2] = count[:, 0]
+    return ids, count, keys
 
 
 def cluster_cull(cm: ClusteredMesh, org, dirn, tmax):
@@ -945,19 +976,31 @@ def load_cull_kernel(log=None) -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.cluster_cull_tree.argtypes = [ptr] * 8 + [i32] + [ptr] * 5
         lib.cluster_cull_tree.restype = i32
+        lib.cluster_cull_info.argtypes = [ptr]
+        lib.cluster_cull_info.restype = i32
         _libs['cull'] = lib
     return _libs['cull']
+
+
+def cull_kernel_info() -> tuple:
+    """(registers per thread, resident blocks per SM, static shared bytes,
+    threads per block) of the tree cull kernel, from the CUDA runtime."""
+    buf = (ctypes.c_int * 4)()
+    rc = load_cull_kernel().cluster_cull_info(buf)
+    if rc != 0:
+        raise RuntimeError(f'cluster_cull_info failed: CUDA error {rc}')
+    return tuple(buf)
 
 
 def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     """Tree cull of nb = N / BLOCK packets: (ids, count, keys) as
     cluster_cull.  CPU tensors take cull_tree_plain; CUDA tensors launch
     the hand-written kernel (replaces the TPU kernel
-    pallas_cluster._cull_kernel) or raise.  `work` (nb,) int32, optional:
-    the kernel writes each packet's count of expanded inner nodes there
-    (for the roofline bound)."""
+    pallas_cluster._cull_kernel) or raise.  `work` ((nb, CULL_WORK) int64),
+    optional: each packet's counters (inner nodes expanded, leaves
+    reached, clusters emitted, and the kernel's clock64 cycles)."""
     if org.device.type == 'cpu':
-        return cull_tree_plain(cm, org, dirn, tmax)
+        return cull_tree_plain(cm, org, dirn, tmax, work)
     dev = org.device
     n = org.shape[0]
     nb = n // BLOCK
@@ -974,9 +1017,10 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     if n % BLOCK or org.shape != (n, 3) or dirn.shape != (n, 3) \
             or tmax.shape != (n,):
         raise ValueError('cull_tree takes whole packets of rays')
-    if work is not None and (work.device != dev or work.dtype != i32
-                             or tuple(work.shape) != (nb,)):
-        raise ValueError('cull_tree work must be an (nb,) int32 tensor')
+    if work is not None and (work.device != dev or work.dtype != torch.int64
+                             or tuple(work.shape) != (nb, CULL_WORK)):
+        raise ValueError(f'cull_tree work must be an (nb, {CULL_WORK}) '
+                         f'int64 tensor')
     ids = torch.empty((nb, MAXC), dtype=i32, device=dev)
     count = torch.empty((nb, 1), dtype=i32, device=dev)
     keys = torch.empty((nb, MAXC), dtype=f32, device=dev)
