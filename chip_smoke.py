@@ -450,35 +450,16 @@ def main_path(sc, cam, card):
 
 
 def check_cull(out_k, out_p, work_k, work_p):
-    """Tree cull kernel (k) against its plain version (p): counts, keys
-    and the inner-node, leaf and emission counters equal; kept ids equal
-    except among keys equal to a packet's 128th key.  Returns the share
-    of packets with identical slots."""
-    from pathtracer_tpu_torch.ops import cluster as cl
-    ids_k, cnt_k, keys_k = (x.cpu().numpy() for x in out_k)
-    ids_p, cnt_p, keys_p = (x.cpu().numpy() for x in out_p)
-    if not (cnt_k == cnt_p).all():
-        raise AssertionError(f'cull counts differ on '
-                             f'{int((cnt_k != cnt_p).sum())} packets')
-    if not (keys_k == keys_p).all():
-        raise AssertionError('cull keys differ from the plain version')
-    if not torch_equal(work_k[:, :3], work_p[:, :3]):
-        raise AssertionError('cull counters differ from the plain version')
-    same = 0
-    for b in range(ids_p.shape[0]):
-        m = min(int(cnt_p[b, 0]), cl.MAXC)
-        below = np.ones(m, bool)
-        if cnt_p[b, 0] > cl.MAXC:
-            below = keys_p[b, :m] < keys_p[b, m - 1]
-        if set(ids_k[b, :m][below]) != set(ids_p[b, :m][below]):
-            raise AssertionError(f'packet {b}: kept clusters differ')
-        same += bool((ids_k[b] == ids_p[b]).all())
-    return same / ids_p.shape[0]
-
-
-def torch_equal(a, b):
+    """Tree cull kernel (k) against its plain version (p), exactly: ids,
+    counts, keys and the inner-node, leaf and emission counters."""
     import torch
-    return bool(torch.equal(a, b))
+    for a, b, what in zip(tuple(out_k) + (work_k[:, :3],),
+                          tuple(out_p) + (work_p[:, :3],),
+                          ('ids', 'counts', 'keys', 'counters')):
+        if not torch.equal(a, b):
+            bad = int((a != b).view(a.shape[0], -1).any(dim=1).sum())
+            raise AssertionError(f'cull {what} differ from the plain '
+                                 f'version on {bad} packets')
 
 
 def share_report(x):
@@ -545,7 +526,7 @@ def cull_set(cm, org, dirn, tmax, name):
     work_p = torch.zeros((pick.numel(), cl.CULL_WORK), dtype=torch.int64,
                          device=dev)
     out_p = cl.cull_tree_plain(cm, o[rows], d[rows], tx[rows], work=work_p)
-    agree = check_cull([x[pick] for x in out_k], out_p, work[pick], work_p)
+    check_cull([x[pick] for x in out_k], out_p, work[pick], work_p)
     ms_k = cuda_ms(lambda: cl.cull_tree(cm, o, d, tx), reps=5)
     ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
                    warm=False)
@@ -558,15 +539,14 @@ def cull_set(cm, org, dirn, tmax, name):
     rep = dict(packets=nb, overflowed=int(over.numel()), checked=pick.numel(),
                ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, ops=ops,
                bytes=nbytes,
-               identical_slots=agree,
                cycles=share_report(work[:, 3]),
                inner=share_report(work[:, 0]),
                leaves_mean=float(work[:, 1].double().mean()),
                count=share_report(work[:, 2]))
     log(f'tree cull, {name}: {nb} packets, {over.numel()} overflowed, '
-        f'{pick.numel()} checked against the plain version (counts, keys '
-        f'and counters equal; identical slot order on {agree:.4f}); kernel '
-        f'{ms_k:.4f} ms, plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})')
+        f'{pick.numel()} equal to the plain version (ids, counts, keys, '
+        f'counters); kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound '
+        f'{b_ms:.4f} ms ({b_by})')
     log(f'  per packet: cycles mean {rep["cycles"]["mean"]:.0f} p99 '
         f'{rep["cycles"]["p99"]:.0f} max {rep["cycles"]["max"]:.0f}, '
         f'heaviest 1% {rep["cycles"]["top1_share"]:.3f} of cycles; inner '
@@ -669,8 +649,8 @@ def tree_phase(dev, cam):
                    f'one bounce ({b_org.shape[0]} rays)')
     rec = entry(
         'cull_tree', 'pathtracer_tpu_torch/csrc/cluster_cull.cu',
-        'pathtracer_tpu/ops/pallas_cluster.py:538', 0.0,
-        prim['identical_slots'], prim['ms'], prim['plain_ms'], prim['ops'],
+        'pathtracer_tpu/ops/pallas_cluster.py:538', 0.0, 1.0, prim['ms'],
+        prim['plain_ms'], prim['ops'],
         prim['bytes'], primaries=prim, bounce=bnc, ms_bounce=bnc['ms'],
         plain_ms_bounce=bnc['plain_ms'], bound_ms_bounce=bnc['bound_ms'],
         registers=info[0], blocks_per_sm=info[1], threads=info[3])
@@ -772,12 +752,12 @@ def packet_phase(dev, cam, card):
     if not (mesh.use_packet and not mesh.use_cluster):
         raise AssertionError('the mesh did not take the packet tier')
     sc_p = dataclasses.replace(sc_c, meshes=(mesh,))
-    info = pb.kernel_info()
+    info = pb.kernel_info(mesh.packed)
     log(f'packet tier: {mesh.n_tris} tris, {mesh.packed.pairs.shape[0]} '
         f'inner nodes, depth {mesh.packed.depth}, max leaf '
         f'{mesh.packed.max_leaf}; packet kernel {info[0]} registers, '
         f'{info[1]} resident blocks of {info[3]} threads per SM, {info[2]} B '
-        f'static shared')
+        f'shared per block')
 
     # ---- kernel against plain versions: the main path's mesh query ----
     org, dirn = primary_rays(cam, dev)

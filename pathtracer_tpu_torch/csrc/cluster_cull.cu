@@ -5,283 +5,351 @@
 // Replaces the TPU kernel
 //   pathtracer_tpu/ops/pallas_cluster.py::_cull_kernel   (via _cull_call)
 // and computes what it computes: per 512-ray packet, walk the top BVH over
-// the cluster AABBs (one cluster per leaf) depth first, left child first,
-// descending into a child where ANY lane's slab is live; emit every
-// reached leaf's clusters with the packet-min slab entry key; keep the
-// MAXC = 128 smallest keys (past 128, the worst kept key is replaced when
-// the new one is smaller, and the count goes on, so count > MAXC flags
-// an incomplete emission); sort the kept slots near-first.  The slab
-// formula is the TPU kernel's: t = (lo - o) * (1/d) per axis, entry =
-// max(tmin, 0), live = (tmax >= entry) & (tmin < tcap), with IEEE 1/d and
-// every operation rounded on its own.
+// the cluster AABBs, descending into a child where ANY lane's slab is
+// live; emit every reached leaf's clusters with the packet-min slab entry
+// key; count them all (count > MAXC = 128 flags an incomplete emission);
+// keep the MAXC smallest and sort them near-first.  The slab formula is
+// the TPU kernel's: t = (lo - o) * (1/d) per axis, entry = max(tmin, 0),
+// live = (tmax >= entry) & (tmin < tcap), with IEEE 1/d and every
+// operation rounded on its own (min / max are min.NaN / max.NaN, NaN in,
+// NaN out, as torch.minimum; an entry of -0 is written +0).  Ties are
+// broken by cluster id: the kept slots are the 128 smallest (key, id)
+// pairs, sorted so, which is the plain version's stable sort in cluster
+// order (ops/cluster.cull_tree_plain), so ids, counts and keys equal it
+// exactly.  (The TPU kernel keeps the first found among keys equal to the
+// 128th.)  Leaves holding several clusters emit each with the leaf's key;
+// a root that is itself a leaf is emitted when some lane is live for it.
 //
-// Design (first, simple version):
-//   * one block per packet, one thread per lane (512 threads);
-//   * the walk is uniform across the block: every thread holds the same
-//     node and stack pointer; the stack (node ids, and the entry keys of
-//     pushed leaves) lives in shared memory and only thread 0 writes it;
-//   * per inner node each thread slab-tests both children; one warp
-//     reduction (ballot for liveness, shuffle min for the entry key) and
-//     ONE __syncthreads per node combine the 16 warps, through
-//     double-buffered shared slots, so every thread knows both children's
-//     any-lane liveness and packet-min keys.  A leaf's key is therefore
-//     known at its parent and costs no further barrier;
-//   * the <= 128 kept ids and keys live in shared memory and only warp 0
-//     touches them during the walk: the worst key for a replacement is a
-//     warp argmax over the 128 slots (ties to the lowest slot, as the TPU
-//     kernel's loop picks);
-//   * the final near-first order is a rank sort (128 threads, each counts
-//     the keys before its own), stable in slot order; it equals the TPU
-//     kernel's selection sort up to the order of equal keys.
-// A top tree with more than one cluster per leaf (failed splits) emits
-// all of a leaf's clusters with the leaf's key, as the TPU kernel does.
-// A root that is itself a leaf (one cluster) is emitted only when some
-// lane is live for it, as the plain version does.
-//
-// What bounds it on an H100: per visited inner node 512 lanes x 2 slab
-// tests (about 25 fp32 operations each), far below the card's fp32 rate,
-// and the inputs are a few hundred kB of nodes plus the packet's rays.
-// Neither bytes nor operations bound it: the walk is serial, one
-// __syncthreads and a dependent node load per visited node, thousands of
-// nodes per packet on incoherent rays.  Making it fast (wider nodes,
-// fewer barriers, several packets per block) is later work.
+// What bounds it on an H100: per expanded inner node 512 lanes x 2 slab
+// tests of about 25 fp32 operations, 0.04 ms for the 1080p primaries of
+// a 19k-cluster tree; the bytes (nodes, rays, slots) are less.  The first
+// version, one 512-thread block per packet walking depth first with one
+// __syncthreads and a 16-warp reduction per node and its dependent node
+// loads, took about 4,300 cycles per inner node at 3 blocks per SM, and
+// its heaviest packets walked hundreds (primaries) to thousands (bounce
+// rays) of nodes alone: 1.18 ms for 4,050 primary packets, 30 times the
+// bound (PERF.md).  The set of nodes a packet reaches does not depend on
+// the order of the walk (a node is reached iff some lane is live for it),
+// so this one spreads the walk over nodes instead of rays:
+//   * one 128-thread block (4 warps) per packet; the packet's rays live in
+//     shared memory (origins, 1/d and tmax, 14 KB), so several packets
+//     share an SM;
+//   * a whole warp tests one node's two children against all 512 rays
+//     (16 per lane), with one ballot and one shuffle-min: no block barrier
+//     per node; an inner child needs only its any-lane liveness, so when
+//     neither child is a leaf the test stops at the first 32-ray chunk
+//     after which both are known live;
+//   * the top levels go breadth first, one barrier per level, the warps
+//     splitting each level's nodes, until the frontier holds FRONTIER
+//     nodes; then each warp walks whole subtrees of that frontier depth
+//     first (its own stack), taking the next subtree from a shared
+//     counter;
+//   * each node is one 64-byte child-pair record (both children's boxes,
+//     records or cluster ranges; ClusteredMesh.top_pairs), four 16-byte
+//     loads that every lane of the warp shares;
+//   * reached clusters go to the warp's own buffer of (key, id) pairs;
+//     when it fills, the warp keeps its 128 smallest and drops later pairs
+//     that are not below the 128th; the end merges the four buffers by
+//     rank and writes the 128 smallest, sorted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BLOCK = 512;
-constexpr int WARPS = BLOCK / 32;
+constexpr int RAYS = 512;            // lanes per packet
+constexpr int NW = 4;                // warps per packet
+constexpr int THREADS = NW * 32;
+constexpr int PER_LANE = RAYS / 32;  // rays a lane tests per node
 constexpr int MAXC = 128;
-constexpr int STACK_DEPTH = 64;
+constexpr int STACK_DEPTH = 64;      // per warp; the top tree is shallower
+constexpr int FRONTIER = 4 * NW;     // breadth first until this many nodes
+constexpr int CB = 256;              // (key, id) pairs buffered per warp
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float BIG_T = 1e30f;
+typedef unsigned long long u64;
 
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
-struct Ray {
-  float ox, oy, oz, ix, iy, iz, tcap;
+struct Shared {
+  float o[3][RAYS];        // origins
+  float inv[3][RAYS];      // IEEE 1/d
+  float tcap[RAYS];
+  u64 buf[NW][CB];         // (key bits << 32 | cluster id), per warp
+  int stack[NW][STACK_DEPTH];
+  int front[2][2 * FRONTIER];
+  int n_front[2];
+  int next_item;
+  int fill[NW];
+  int total[3];            // inner nodes, leaves reached, clusters
 };
 
-// TPU kernel slab (pallas_cluster._cull_kernel `slab`): returns live and
-// writes the entry max(tmin, 0).
-__device__ __forceinline__ bool slab(const float* box, const Ray& r,
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+// TPU kernel slab (pallas_cluster._cull_kernel `slab`) of one box against
+// ray r: live, and the entry max(tmin, 0) with -0 written +0 (a lane that
+// is not live ignores it).
+__device__ __forceinline__ bool slab(const Box& b, const Shared& s, int r,
                                      float* entry) {
-  float t1 = __fmul_rn(__fsub_rn(box[0], r.ox), r.ix);
-  float t2 = __fmul_rn(__fsub_rn(box[3], r.ox), r.ix);
-  float tmin = nmin(t1, t2), tmax = nmax(t1, t2);
-  t1 = __fmul_rn(__fsub_rn(box[1], r.oy), r.iy);
-  t2 = __fmul_rn(__fsub_rn(box[4], r.oy), r.iy);
-  tmin = nmax(tmin, nmin(t1, t2));
-  tmax = nmin(tmax, nmax(t1, t2));
-  t1 = __fmul_rn(__fsub_rn(box[2], r.oz), r.iz);
-  t2 = __fmul_rn(__fsub_rn(box[5], r.oz), r.iz);
-  tmin = nmax(tmin, nmin(t1, t2));
-  tmax = nmin(tmax, nmax(t1, t2));
-  const float e = nmax(tmin, 0.f);
+  const float ox = s.o[0][r], oy = s.o[1][r], oz = s.o[2][r];
+  const float ix = s.inv[0][r], iy = s.inv[1][r], iz = s.inv[2][r];
+  float t1 = __fmul_rn(__fsub_rn(b.lx, ox), ix);
+  float t2 = __fmul_rn(__fsub_rn(b.hx, ox), ix);
+  float tmin = min_nan(t1, t2), tmax = max_nan(t1, t2);
+  t1 = __fmul_rn(__fsub_rn(b.ly, oy), iy);
+  t2 = __fmul_rn(__fsub_rn(b.hy, oy), iy);
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  t1 = __fmul_rn(__fsub_rn(b.lz, oz), iz);
+  t2 = __fmul_rn(__fsub_rn(b.hz, oz), iz);
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  const float e = tmin > 0.f ? tmin : 0.f;
   *entry = e;
-  return (tmax >= e) && (tmin < r.tcap);
+  return (tmax >= e) && (tmin < s.tcap[r]);
 }
 
 __device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-// Warp 0: add cluster `cid` with key `key` to the kept slots.  `count` is
-// the number emitted before this one (uniform).
-__device__ __forceinline__ void emit(int cid, float key, int count,
-                                     int* s_ids, float* s_keys) {
-  const int lane = threadIdx.x;   // called by warp 0 only
-  if (count < MAXC) {
-    if (lane == 0) {
-      s_ids[count] = cid;
-      s_keys[count] = key;
-    }
-  } else {
-    // argmax of the kept keys, ties to the lowest slot
-    float wk = s_keys[lane];
-    int wi = lane;
-    for (int j = lane + 32; j < MAXC; j += 32) {
-      if (s_keys[j] > wk) {
-        wk = s_keys[j];
-        wi = j;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ok = __shfl_xor_sync(0xffffffffu, wk, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, wi, o);
-      if (ok > wk || (ok == wk && oi < wi)) {
-        wk = ok;
-        wi = oi;
-      }
-    }
-    if (lane == 0 && key < wk) {
-      s_ids[wi] = cid;
-      s_keys[wi] = key;
-    }
-  }
-  __syncwarp();
+// Rank of v among the n distinct values of a (shared memory), counted by
+// the calling lane.
+__device__ __forceinline__ int rank_of(u64 v, const u64* a, int n) {
+  int r = 0;
+  for (int j = 0; j < n; ++j) r += a[j] < v ? 1 : 0;
+  return r;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
-            const int* __restrict__ nb, const int* __restrict__ nleaf,
-            const int* __restrict__ order, const float* __restrict__ org,
-            const float* __restrict__ dir, const float* __restrict__ tmax,
-            int* __restrict__ ids_out, int* __restrict__ count_out,
-            float* __restrict__ keys_out, long long* __restrict__ work) {
-  __shared__ int s_stack[STACK_DEPTH];
-  __shared__ float s_stack_key[STACK_DEPTH];
-  __shared__ int s_ids[MAXC];
-  __shared__ float s_keys[MAXC];
-  __shared__ float s_red_key[2][2][WARPS];
-  __shared__ unsigned s_red_live[2][WARPS];
+// One warp, n >= MAXC pairs buffered: keep the MAXC smallest, sorted, and
+// return the largest kept (the bar a later pair must pass).
+__device__ u64 trim(u64* b, int n, int lane) {
+  u64 v[CB / 32];
+  int rk[CB / 32];
+#pragma unroll
+  for (int k = 0; k < CB / 32; ++k) {
+    const int i = lane + 32 * k;
+    v[k] = i < n ? b[i] : 0ull;
+    rk[k] = i < n ? rank_of(v[k], b, n) : MAXC;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < CB / 32; ++k)
+    if (rk[k] < MAXC) b[rk[k]] = v[k];
+  __syncwarp();
+  return b[MAXC - 1];
+}
 
+__global__ void __launch_bounds__(THREADS, 8)
+cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
+            int root_cnt, const int* __restrict__ order,
+            const float* __restrict__ org, const float* __restrict__ dir,
+            const float* __restrict__ tmax, int* __restrict__ ids_out,
+            int* __restrict__ count_out, float* __restrict__ keys_out,
+            long long* __restrict__ work) {
+  __shared__ Shared s;
   const long long t_start = clock64();
   const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int r = p * BLOCK + tid;
-  Ray ray;
-  ray.ox = org[3 * r];
-  ray.oy = org[3 * r + 1];
-  ray.oz = org[3 * r + 2];
-  ray.ix = __fdiv_rn(1.f, dir[3 * r]);
-  ray.iy = __fdiv_rn(1.f, dir[3 * r + 1]);
-  ray.iz = __fdiv_rn(1.f, dir[3 * r + 2]);
-  ray.tcap = tmax[r];
-  if (tid < MAXC) {
-    s_ids[tid] = -1;
-    s_keys[tid] = BIG_T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // ---- the packet's rays into shared memory ----
+  const float* po = org + (size_t)p * RAYS * 3;
+  const float* pd = dir + (size_t)p * RAYS * 3;
+  for (int i = tid; i < RAYS * 3; i += THREADS) {
+    s.o[i % 3][i / 3] = po[i];
+    s.inv[i % 3][i / 3] = __fdiv_rn(1.f, pd[i]);
+  }
+  for (int i = tid; i < RAYS; i += THREADS)
+    s.tcap[i] = tmax[(size_t)p * RAYS + i];
+  if (tid < 3) s.total[tid] = 0;
+  if (tid == 0) {
+    s.n_front[0] = root_cnt ? 0 : 1;
+    s.front[0][0] = 0;
+    s.next_item = 0;
   }
   __syncthreads();
 
-  int count = 0, sp = 0, par = 0, n_inner = 0, n_leaves = 0;
-  int node = 0;
-  bool have = true;   // `node` is an inner node still to expand
+  // per-warp state, the same in every lane of the warp
+  u64* buf = s.buf[warp];
+  int fill = 0, n_inner = 0, n_leaves = 0, count = 0;
+  u64 bar = ~0ull;         // a pair not below it cannot be kept
 
-  // Block-wide any-lane liveness and packet-min keys of two boxes.
-  auto reduce2 = [&](const float* b0, const float* b1, bool* l0, bool* l1,
-                     float* k0, float* k1) {
-    float e0, e1;
-    const bool v0 = slab(b0, ray, &e0);
-    const bool v1 = slab(b1, ray, &e1);
-    const unsigned m0 = __ballot_sync(0xffffffffu, v0);
-    const unsigned m1 = __ballot_sync(0xffffffffu, v1);
-    const float w0 = warp_min(v0 ? e0 : BIG_T);
-    const float w1 = warp_min(v1 ? e1 : BIG_T);
-    if (lane == 0) {
-      s_red_key[par][0][warp] = w0;
-      s_red_key[par][1][warp] = w1;
-      s_red_live[par][warp] = (m0 ? 1u : 0u) | (m1 ? 2u : 0u);
-    }
-    __syncthreads();
-    unsigned live = 0;
-    float a0 = BIG_T, a1 = BIG_T;
-    for (int w = 0; w < WARPS; ++w) {
-      live |= s_red_live[par][w];
-      a0 = fminf(a0, s_red_key[par][0][w]);
-      a1 = fminf(a1, s_red_key[par][1][w]);
-    }
-    par ^= 1;
-    *l0 = live & 1u;
-    *l1 = live & 2u;
-    *k0 = a0;
-    *k1 = a1;
-  };
-
-  auto emit_leaf = [&](int leaf_node, float key) {
-    const int start = na[leaf_node], cnt = nb[leaf_node];
+  // clusters order[start, start + cnt) reached with packet-min key `key`
+  auto emit = [&](float key, int start, int cnt) {
     ++n_leaves;
-    for (int k = 0; k < cnt; ++k) {
-      if (warp == 0) emit(order[start + k], key, count, s_ids, s_keys);
-      ++count;
+    count += cnt;
+    const u64 kb = (u64)__float_as_uint(key) << 32;
+    for (int k0 = 0; k0 < cnt; k0 += 32) {
+      const int k = k0 + lane;
+      const u64 v = k < cnt ? (kb | (unsigned)order[start + k]) : ~0ull;
+      if (!__any_sync(FULL, v < bar)) continue;
+      if (fill + __popc(__ballot_sync(FULL, v < bar)) > CB) {
+        bar = trim(buf, fill, lane);
+        fill = MAXC;
+      }
+      const unsigned m = __ballot_sync(FULL, v < bar);
+      if (v < bar) buf[fill + __popc(m & ((1u << lane) - 1))] = v;
+      fill += __popc(m);
+      __syncwarp();
     }
   };
 
-  if (nleaf[0]) {
+  // one record's two children against the packet: live leaves emitted,
+  // live inner children returned (-1: dead or a leaf)
+  auto expand = [&](int rec, int* inner_a, int* inner_b) {
+    ++n_inner;
+    const float4* q = pairs + 4 * (size_t)rec;
+    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+                 q3 = __ldg(q + 3);
+    const Box ba = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y};
+    const Box bb = {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
+    const int ra = __float_as_int(q3.x), rb = __float_as_int(q3.y);
+    const int ca = __float_as_int(q3.z), cb = __float_as_int(q3.w);
+    const bool need_keys = ca > 0 || cb > 0;
+    bool la = false, lb = false;
+    float ka = BIG_T, kb = BIG_T;
+    for (int k = 0; k < PER_LANE; ++k) {
+      const int r = lane + 32 * k;
+      float ea, eb;
+      if (slab(ba, s, r, &ea)) {
+        la = true;
+        ka = fminf(ka, ea);
+      }
+      if (slab(bb, s, r, &eb)) {
+        lb = true;
+        kb = fminf(kb, eb);
+      }
+      if (!need_keys && __any_sync(FULL, la) && __any_sync(FULL, lb)) break;
+    }
+    la = __any_sync(FULL, la);
+    lb = __any_sync(FULL, lb);
+    *inner_a = -1;
+    *inner_b = -1;
+    if (la) {
+      if (ca > 0)
+        emit(warp_min(ka), ra, ca);
+      else
+        *inner_a = ra;
+    }
+    if (lb) {
+      if (cb > 0)
+        emit(warp_min(kb), rb, cb);
+      else
+        *inner_b = rb;
+    }
+  };
+
+  if (root_cnt) {
     // one-cluster tree: the root is the only leaf
-    bool l0, l1;
-    float k0, k1;
-    reduce2(box, box, &l0, &l1, &k0, &k1);
-    if (l0) emit_leaf(0, k0);
-    have = false;
+    if (warp == 0) {
+      const Box br = {root[0], root[1], root[2], root[3], root[4], root[5]};
+      bool l = false;
+      float key = BIG_T;
+      for (int k = 0; k < PER_LANE; ++k) {
+        float e;
+        if (slab(br, s, lane + 32 * k, &e)) {
+          l = true;
+          key = fminf(key, e);
+        }
+      }
+      if (__any_sync(FULL, l)) emit(warp_min(key), 0, root_cnt);
+    }
+  } else {
+    // ---- breadth first over the top levels ----
+    int cur = 0;
+    for (;;) {
+      const int nf = s.n_front[cur];
+      if (nf == 0 || nf >= FRONTIER) break;
+      if (tid == 0) s.n_front[cur ^ 1] = 0;
+      __syncthreads();
+      for (int i = warp; i < nf; i += NW) {
+        int a, b;
+        expand(s.front[cur][i], &a, &b);
+        if (lane == 0) {
+          if (a >= 0) s.front[cur ^ 1][atomicAdd(&s.n_front[cur ^ 1], 1)] = a;
+          if (b >= 0) s.front[cur ^ 1][atomicAdd(&s.n_front[cur ^ 1], 1)] = b;
+        }
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+    // ---- each warp: whole subtrees of the frontier, depth first ----
+    const int nf = s.n_front[cur];
+    int* stack = s.stack[warp];
+    for (;;) {
+      int item = 0;
+      if (lane == 0) item = atomicAdd(&s.next_item, 1);
+      item = __shfl_sync(FULL, item, 0);
+      if (item >= nf) break;
+      int node = s.front[cur][item], sp = 0;
+      for (;;) {
+        int a, b;
+        expand(node, &a, &b);
+        if (a >= 0 && b >= 0) {
+          if (lane == 0) stack[sp] = b;
+          ++sp;
+          node = a;
+        } else if (a >= 0 || b >= 0) {
+          node = a >= 0 ? a : b;
+        } else {
+          if (sp == 0) break;
+          __syncwarp();
+          node = stack[--sp];
+        }
+        __syncwarp();
+      }
+    }
   }
 
-  while (have) {
-    ++n_inner;
-    const int a = na[node], b = nb[node];
-    bool la, lb;
-    float ka, kb;
-    reduce2(box + (size_t)a * 6, box + (size_t)b * 6, &la, &lb, &ka, &kb);
-    const bool a_leaf = nleaf[a] != 0, b_leaf = nleaf[b] != 0;
-    // the TPU kernel pushes b, then a, and pops a first: a's subtree,
-    // then b, in that order
-    if (la && !a_leaf) {
-      if (lb) {
-        if (tid == 0) {
-          s_stack[sp] = b;
-          s_stack_key[sp] = kb;
-        }
-        ++sp;
-      }
-      node = a;
-      continue;
-    }
-    if (la) emit_leaf(a, ka);
-    if (lb && !b_leaf) {
-      node = b;
-      continue;
-    }
-    if (lb) emit_leaf(b, kb);
-    // pop: leaves pushed earlier are emitted on the way
-    have = false;
-    while (sp > 0) {
-      --sp;
-      const int nd = s_stack[sp];
-      if (nleaf[nd]) {
-        emit_leaf(nd, s_stack_key[sp]);
-      } else {
-        node = nd;
-        have = true;
-        break;
-      }
-    }
+  // ---- merge the warps' buffers: the MAXC smallest pairs, sorted ----
+  if (fill > MAXC) {
+    trim(buf, fill, lane);
+    fill = MAXC;
+  }
+  if (lane == 0) {
+    s.fill[warp] = fill;
+    atomicAdd(&s.total[0], n_inner);
+    atomicAdd(&s.total[1], n_leaves);
+    atomicAdd(&s.total[2], count);
   }
   __syncthreads();
-
-  // near-first rank sort of the kept slots (stable in slot order)
-  const int m = count < MAXC ? count : MAXC;
-  if (tid < MAXC) {
-    int* out_ids = ids_out + (size_t)p * MAXC;
-    float* out_keys = keys_out + (size_t)p * MAXC;
-    if (tid < m) {
-      const float k = s_keys[tid];
-      int rank = 0;
-      for (int j = 0; j < m; ++j) {
-        const float kj = s_keys[j];
-        rank += (kj < k || (kj == k && j < tid)) ? 1 : 0;
+  int* out_ids = ids_out + (size_t)p * MAXC;
+  float* out_keys = keys_out + (size_t)p * MAXC;
+  int n_all = 0;
+  for (int w = 0; w < NW; ++w) n_all += s.fill[w];
+  for (int w = 0; w < NW; ++w) {
+    for (int i = tid; i < s.fill[w]; i += THREADS) {
+      const u64 v = s.buf[w][i];
+      int rk = 0;
+      for (int w2 = 0; w2 < NW; ++w2) rk += rank_of(v, s.buf[w2], s.fill[w2]);
+      if (rk < MAXC) {
+        out_ids[rk] = (int)(unsigned)(v & 0xffffffffu);
+        out_keys[rk] = __uint_as_float((unsigned)(v >> 32));
       }
-      out_ids[rank] = s_ids[tid];
-      out_keys[rank] = k;
-    } else {
-      out_ids[tid] = -1;
-      out_keys[tid] = BIG_T;
     }
+  }
+  for (int i = (n_all < MAXC ? n_all : MAXC) + tid; i < MAXC; i += THREADS) {
+    out_ids[i] = -1;
+    out_keys[i] = BIG_T;
   }
   if (tid == 0) {
-    count_out[p] = count;
+    count_out[p] = s.total[2];
     if (work) {
-      work[4 * p] = n_inner;
-      work[4 * p + 1] = n_leaves;
-      work[4 * p + 2] = count;
+      work[4 * p] = s.total[0];
+      work[4 * p + 1] = s.total[1];
+      work[4 * p + 2] = s.total[2];
       work[4 * p + 3] = clock64() - t_start;
     }
   }
@@ -289,24 +357,26 @@ cull_kernel(const float* __restrict__ box, const int* __restrict__ na,
 
 }  // namespace
 
-// box (M, 6) f32 [lo xyz | hi xyz], na / nb / nleaf (M,) int32 (leaf:
-// start in `order` / cluster count), order (C,) int32 leaf position ->
-// cluster id; org, dir (nb*512, 3) f32, tmax (nb*512,) f32.  Outputs ids
-// (nb, 128) int32 (-1 padded), count (nb,) int32, keys (nb, 128) f32
-// (1e30 padded) and, when work is not null, (nb, 4) int64 counters per
-// packet: inner nodes expanded, leaves reached, clusters emitted, clock64
-// cycles.  Returns cudaGetLastError() after the launch.
-extern "C" int cluster_cull_tree(const float* box, const int* na,
-                                 const int* nb_, const int* nleaf,
-                                 const int* order, const float* org,
-                                 const float* dir, const float* tmax,
-                                 int n_packets, int* ids_out, int* count_out,
+// pairs (R, 16) child-pair records of the top tree's inner nodes
+// (ops/packet_bvh.pair_records, leaf ranges in `order`); when the root is
+// itself a leaf, R = 0, root is its box (6 f32) and root_cnt its cluster
+// count, else root_cnt = 0.  order (C,) int32 leaf position -> cluster id;
+// org, dir (nb*512, 3) f32, tmax (nb*512,) f32.  Outputs ids (nb, 128)
+// int32 (-1 padded), count (nb,) int32, keys (nb, 128) f32 (1e30 padded)
+// and, when work is not null, (nb, 4) int64 counters per packet: inner
+// nodes expanded, leaves reached, clusters emitted, clock64 cycles.
+// Returns cudaGetLastError() after the launch.
+extern "C" int cluster_cull_tree(const float* pairs, const float* root,
+                                 int root_cnt, const int* order,
+                                 const float* org, const float* dir,
+                                 const float* tmax, int n_packets,
+                                 int* ids_out, int* count_out,
                                  float* keys_out, long long* work,
                                  void* stream) {
   if (n_packets > 0)
-    cull_kernel<<<n_packets, BLOCK, 0, (cudaStream_t)stream>>>(
-        box, na, nb_, nleaf, order, org, dir, tmax, ids_out, count_out,
-        keys_out, work);
+    cull_kernel<<<n_packets, THREADS, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(pairs), root, root_cnt, order, org,
+        dir, tmax, ids_out, count_out, keys_out, work);
   return (int)cudaGetLastError();
 }
 
@@ -318,10 +388,10 @@ extern "C" int cluster_cull_info(int* out) {
   int blocks = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cull_kernel,
-                                                      BLOCK, 0);
+                                                      THREADS, 0);
   out[0] = fa.numRegs;
   out[1] = blocks;
   out[2] = (int)fa.sharedSizeBytes;
-  out[3] = BLOCK;
+  out[3] = THREADS;
   return (int)e;
 }

@@ -7,73 +7,96 @@
 // and computes what it computes, not how.  The TPU kernel walks a
 // 1024-ray packet with one stack in SMEM, because Mosaic indexes
 // dynamically only from scalar memory, and descends where ANY lane's slab
-// is live.  On Hopper the native shape is one thread per ray:
-//   * each thread walks the tree with its own depth-64 stack (local
-//     memory, cached in L1): left child first, a child entered where the
-//     ray's own slab is live and its entry is below the ray's best t;
+// is live.  On Hopper the native shape is one thread per ray, each with
+// its own walk, which ops/packet_bvh.packet_walk_plain states in torch:
+//   * left child first, a child entered where the ray's own slab is live
+//     and its entry is below the ray's best t, the right one pushed;
 //   * leaves test their triangles with the edge-matrix formula of
 //     ops/traverse._tri_test_block: accept t >= 0, t > tmin, the three
 //     barycentrics >= 0, NaN rejected, and strict t < best, so the first
-//     triangle found at a given t keeps it; in BVH order that is the
-//     lower index, as in the plain version (brute force, ties to the
-//     lower index);
+//     triangle found at a given t keeps it;
 //   * strict fp32: every product and sum is rounded on its own in the
-//     plain version's order (the _rn intrinsics are never contracted into
-//     FMAs), 1/d and t are IEEE divisions.
-// Where a ray grazes a leaf box, its own slab test can reject a leaf whose
-// triangle the brute-force plain version hits (the TPU packet walk tests
-// every lane against any lane's leaf, so it misses less of them); the
-// comparison allows for that.
+//     plain version's order (the _rn intrinsics, -fmad=false), 1/d and t
+//     are IEEE divisions.  The slab's min / max are min.NaN / max.NaN:
+//     NaN in, NaN out, as torch.minimum; a slab's values only reach
+//     comparisons, so the sign of a zero never shows.
+// So t, tri, alpha, beta and the per-ray counters equal the plain walk's
+// bit for bit.  Where a ray grazes a leaf box, its own slab test can
+// reject a leaf whose triangle the brute-force plain version hits (the
+// TPU packet walk tests every lane against any lane's leaf, so it misses
+// less of them); the comparison with brute force allows for that.
 //
-// What bounds it on an H100: per ray a few dozen slab tests (about 25
-// fp32 operations each) and a few dozen triangle tests (about 45 fp32
-// operations and one IEEE divide each), on node and triangle records
-// that L2 holds (<= 8000 triangles: 0.5 MB of soup, about 0.4 MB of
-// nodes).  The bytes that must move are the rays in and the hits out
-// (about 50 bytes a ray), so the work is bound by fp32 operations, and in
-// practice by the latency of the dependent node loads and by warp
-// divergence on incoherent rays.  This first version does nothing about
-// either (no ray sorting, no shared-memory node cache, no packet
-// ordering); it keeps the code simple and exact.
+// What bounds it on an H100: the bytes that must move are the rays in
+// and the hits out (48 bytes a ray), 0.03 ms for 1080p; the operations
+// (a few dozen slab tests of about 25 fp32 operations and a few triangle
+// tests of about 45 and one IEEE divide per ray) are below that.  The
+// first version (one thread per ray, 128-thread blocks) took 8 to 10
+// times the bound: per inner node four to six dependent loads (nleaf,
+// na, nb, then two unaligned 24-byte boxes), a depth-64 stack in local
+// memory, 12-byte strided ray loads, no balance across rays.  This one:
+//   * one 64-byte child-pair record per inner node (both children's
+//     boxes, their records or leaf ranges; PackedBVH.pairs), read as four
+//     16-byte loads, from shared memory when the table fits (one copy per
+//     block, so the blocks are persistent: one per resident slot, each
+//     loading the table once), else read-only loads through L1;
+//   * each thread's stack in shared memory, as deep as the tree (entry i
+//     of thread j at [i * THREADS + j]: no bank conflicts);
+//   * warps fetch 32 consecutive rays at a time from an atomic counter,
+//     staging their origins and directions through shared memory (three
+//     coalesced 128-byte loads per array), so a warp with cheap rays takes
+//     more of them;
+//   * triangles read as four 16-byte loads of their 64-byte soup row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int STACK_DEPTH = 64;
-constexpr int SOUP = 16;   // floats per triangle row (TriSoup field order)
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int STACK_DEPTH = 64;          // the walk's stack (pack_bvh refuses
+                                         // trees this deep)
+constexpr int NODE_SMEM_MAX = 64 * 1024;  // node table bytes kept in shared
 
-// NaN-propagating min / max, matching jnp / torch minimum and maximum.
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
 
-// Slab test of box = [lo xyz, hi xyz] (pallas_bvh._traverse_kernel
+// A node record's 16 bytes: from shared memory, or read-only through L1.
+template <bool SMEM>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  return SMEM ? *p : __ldg(p);
+}
+
+// Slab test of box [lo xyz, hi xyz] (pallas_bvh._traverse_kernel
 // node_live): live iff the exit is at or past max(entry, 0) and the entry
 // is below the ray's best t.
-__device__ __forceinline__ bool slab_live(const float* box, const Ray& r,
-                                          float best) {
-  float t1 = __fmul_rn(__fsub_rn(box[0], r.ox), r.ix);
-  float t2 = __fmul_rn(__fsub_rn(box[3], r.ox), r.ix);
-  float tmin = nmin(t1, t2), tmax = nmax(t1, t2);
-  t1 = __fmul_rn(__fsub_rn(box[1], r.oy), r.iy);
-  t2 = __fmul_rn(__fsub_rn(box[4], r.oy), r.iy);
-  tmin = nmax(tmin, nmin(t1, t2));
-  tmax = nmin(tmax, nmax(t1, t2));
-  t1 = __fmul_rn(__fsub_rn(box[2], r.oz), r.iz);
-  t2 = __fmul_rn(__fsub_rn(box[5], r.oz), r.iz);
-  tmin = nmax(tmin, nmin(t1, t2));
-  tmax = nmin(tmax, nmax(t1, t2));
-  return (tmax >= nmax(tmin, 0.f)) && (tmin < best);
+__device__ __forceinline__ bool slab_live(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          const Ray& r, float best) {
+  float t1 = __fmul_rn(__fsub_rn(lx, r.ox), r.ix);
+  float t2 = __fmul_rn(__fsub_rn(hx, r.ox), r.ix);
+  float tmin = min_nan(t1, t2), tmax = max_nan(t1, t2);
+  t1 = __fmul_rn(__fsub_rn(ly, r.oy), r.iy);
+  t2 = __fmul_rn(__fsub_rn(hy, r.oy), r.iy);
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  t1 = __fmul_rn(__fsub_rn(lz, r.oz), r.iz);
+  t2 = __fmul_rn(__fsub_rn(hz, r.oz), r.iz);
+  tmin = max_nan(tmin, min_nan(t1, t2));
+  tmax = min_nan(tmax, max_nan(t1, t2));
+  return (tmax >= max_nan(tmin, 0.f)) && (tmin < best);
 }
 
 // (a*x + b*y) + c*z, each product and sum rounded on its own.
@@ -83,26 +106,28 @@ __device__ __forceinline__ float dot3(float a, float b, float c, float x,
                    __fmul_rn(c, z));
 }
 
-// Edge-matrix triangle test of one soup row; returns acceptance (without
-// the best-t and tmin bounds) and t, alpha, beta.
-__device__ __forceinline__ bool tri_test(const float* s, const Ray& r,
-                                         float* t_out, float* al_out,
-                                         float* be_out) {
-  // row: ax ay az ux uy uz vx vy vz nx ny nz m11 m12 m22 invdetm
-  const float ax = s[0], ay = s[1], az = s[2];
-  const float dn = dot3(r.dx, r.dy, r.dz, s[9], s[10], s[11]);
+// Edge-matrix triangle test of one soup row (four float4: ax ay az ux |
+// uy uz vx vy | vz nx ny nz | m11 m12 m22 invdetm); returns acceptance
+// (without the best-t and tmin bounds) and t, alpha, beta.
+__device__ __forceinline__ bool tri_test(const float4* __restrict__ row,
+                                         const Ray& r, float* t_out,
+                                         float* al_out, float* be_out) {
+  const float4 q0 = __ldg(row), q1 = __ldg(row + 1), q2 = __ldg(row + 2),
+               q3 = __ldg(row + 3);
+  const float ax = q0.x, ay = q0.y, az = q0.z;
+  const float dn = dot3(r.dx, r.dy, r.dz, q2.y, q2.z, q2.w);
   const float num = dot3(__fsub_rn(ax, r.ox), __fsub_rn(ay, r.oy),
-                         __fsub_rn(az, r.oz), s[9], s[10], s[11]);
+                         __fsub_rn(az, r.oz), q2.y, q2.z, q2.w);
   const float t = __fdiv_rn(num, dn);
   const float px = __fsub_rn(__fadd_rn(r.ox, __fmul_rn(t, r.dx)), ax);
   const float py = __fsub_rn(__fadd_rn(r.oy, __fmul_rn(t, r.dy)), ay);
   const float pz = __fsub_rn(__fadd_rn(r.oz, __fmul_rn(t, r.dz)), az);
-  const float b11 = dot3(px, py, pz, s[3], s[4], s[5]);
-  const float b21 = dot3(px, py, pz, s[6], s[7], s[8]);
+  const float b11 = dot3(px, py, pz, q0.w, q1.x, q1.y);
+  const float b21 = dot3(px, py, pz, q1.z, q1.w, q2.x);
   const float beta = __fmul_rn(
-      __fsub_rn(__fmul_rn(b11, s[14]), __fmul_rn(b21, s[13])), s[15]);
+      __fsub_rn(__fmul_rn(b11, q3.z), __fmul_rn(b21, q3.y)), q3.w);
   const float gamma = __fmul_rn(
-      __fsub_rn(__fmul_rn(b21, s[12]), __fmul_rn(b11, s[13])), s[15]);
+      __fsub_rn(__fmul_rn(b21, q3.x), __fmul_rn(b11, q3.y)), q3.w);
   const float alpha = __fsub_rn(__fsub_rn(1.f, beta), gamma);
   *t_out = t;
   *al_out = alpha;
@@ -111,113 +136,206 @@ __device__ __forceinline__ bool tri_test(const float* s, const Ray& r,
          (t == t);
 }
 
-__global__ void __launch_bounds__(THREADS)
-packet_kernel(const float* __restrict__ box, const int* __restrict__ na,
-              const int* __restrict__ nb, const int* __restrict__ nleaf,
-              const float* __restrict__ soup, const float* __restrict__ org,
-              const float* __restrict__ dir, const float* __restrict__ tmax,
-              const float* __restrict__ tmin, int n,
-              float* __restrict__ t_out, int* __restrict__ tri_out,
-              float* __restrict__ al_out, float* __restrict__ be_out,
-              int* __restrict__ work) {
-  const long long t_start = clock64();
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= n) return;
-  Ray ray;
-  ray.ox = org[3 * r];
-  ray.oy = org[3 * r + 1];
-  ray.oz = org[3 * r + 2];
-  ray.dx = dir[3 * r];
-  ray.dy = dir[3 * r + 1];
-  ray.dz = dir[3 * r + 2];
-  ray.ix = __fdiv_rn(1.f, ray.dx);
-  ray.iy = __fdiv_rn(1.f, ray.dy);
-  ray.iz = __fdiv_rn(1.f, ray.dz);
-  const float tn = tmin[r];
-  float best = tmax[r], bal = 1.f, bbe = 0.f;
-  int btri = -1, n_nodes = 0, n_tris = 0;
+template <bool SMEM_NODES>
+__global__ void __launch_bounds__(THREADS, 2)
+packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
+              int stack_cap, const float4* __restrict__ soup,
+              const float* __restrict__ org, const float* __restrict__ dir,
+              const float* __restrict__ tmax, const float* __restrict__ tmin,
+              int n, int* __restrict__ next_ray, float* __restrict__ t_out,
+              int* __restrict__ tri_out, float* __restrict__ al_out,
+              float* __restrict__ be_out, int* __restrict__ work) {
+  extern __shared__ float4 smem[];
+  __shared__ float s_ray[WARPS][2][96];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float4* nodes = pairs;
+  int* s_stack;
+  if (SMEM_NODES) {
+    for (int i = tid; i < 4 * n_pairs; i += THREADS) smem[i] = __ldg(pairs + i);
+    nodes = smem;
+    s_stack = reinterpret_cast<int*>(smem + 4 * n_pairs);
+    __syncthreads();
+  } else {
+    s_stack = reinterpret_cast<int*>(smem);
+  }
+  float* so = s_ray[warp][0];
+  float* sd = s_ray[warp][1];
 
-  int stack[STACK_DEPTH];
-  int sp = 0;
-  int node = 0;   // the root is entered without a test, as on the TPU
   for (;;) {
-    if (nleaf[node]) {
-      const int start = na[node], cnt = nb[node];
-      for (int k = 0; k < cnt; ++k) {
-        float t, al, be;
-        ++n_tris;
-        if (tri_test(soup + (size_t)(start + k) * SOUP, ray, &t, &al, &be) &&
-            t < best && t > tn) {
-          best = t;
-          btri = start + k;
-          bal = al;
-          bbe = be;
-        }
-      }
-    } else {
-      ++n_nodes;
-      const int a = na[node], b = nb[node];
-      const bool la = slab_live(box + (size_t)a * 6, ray, best);
-      const bool lb = slab_live(box + (size_t)b * 6, ray, best);
-      if (la) {
-        if (lb && sp < STACK_DEPTH) stack[sp++] = b;
-        node = a;
-        continue;
-      }
-      if (lb) {
-        node = b;
-        continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next_ray, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= n) break;
+    const long long t_start = clock64();
+    // stage the 32 rays' origins and directions: three coalesced loads
+    const int m = min(32, n - base);
+    for (int c = 0; c < 3; ++c) {
+      const int e = c * 32 + lane;
+      if (e < 3 * m) {
+        so[e] = org[3 * (size_t)base + e];
+        sd[e] = dir[3 * (size_t)base + e];
       }
     }
-    if (sp == 0) break;
-    node = stack[--sp];
+    __syncwarp();
+    const int r = base + lane;
+    if (lane < m) {
+      Ray ray;
+      ray.ox = so[3 * lane];
+      ray.oy = so[3 * lane + 1];
+      ray.oz = so[3 * lane + 2];
+      ray.dx = sd[3 * lane];
+      ray.dy = sd[3 * lane + 1];
+      ray.dz = sd[3 * lane + 2];
+      ray.ix = __fdiv_rn(1.f, ray.dx);
+      ray.iy = __fdiv_rn(1.f, ray.dy);
+      ray.iz = __fdiv_rn(1.f, ray.dz);
+      const float tn = tmin[r];
+      float best = tmax[r], bal = 1.f, bbe = 0.f;
+      int btri = -1, n_nodes = 0, n_tris = 0;
+      int sp = 0;
+      // the current node: an inner record (cnt == 0) or a leaf's range;
+      // the root is entered without a test, as on the TPU
+      int ref = 0, cnt = root_cnt;
+      for (;;) {
+        if (cnt == 0) {
+          ++n_nodes;
+          const float4* rec = nodes + 4 * ref;
+          const float4 q0 = ld4<SMEM_NODES>(rec);
+          const float4 q1 = ld4<SMEM_NODES>(rec + 1);
+          const float4 q2 = ld4<SMEM_NODES>(rec + 2);
+          const float4 q3 = ld4<SMEM_NODES>(rec + 3);
+          const bool la =
+              slab_live(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ray, best);
+          const bool lb =
+              slab_live(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ray, best);
+          if (la) {
+            if (lb && sp < stack_cap)
+              s_stack[(sp++) * THREADS + tid] = 2 * ref + 1;
+            ref = __float_as_int(q3.x);
+            cnt = __float_as_int(q3.z);
+            continue;
+          }
+          if (lb) {
+            ref = __float_as_int(q3.y);
+            cnt = __float_as_int(q3.w);
+            continue;
+          }
+        } else {
+          for (int k = 0; k < cnt; ++k) {
+            float t, al, be;
+            ++n_tris;
+            if (tri_test(soup + 4 * (size_t)(ref + k), ray, &t, &al, &be) &&
+                t < best && t > tn) {
+              best = t;
+              btri = ref + k;
+              bal = al;
+              bbe = be;
+            }
+          }
+        }
+        if (sp == 0) break;
+        // a pushed entry names its parent record and side
+        const int e = s_stack[(--sp) * THREADS + tid];
+        const float4 w = ld4<SMEM_NODES>(nodes + 4 * (e >> 1) + 3);
+        ref = __float_as_int((e & 1) ? w.y : w.x);
+        cnt = __float_as_int((e & 1) ? w.w : w.z);
+      }
+      t_out[r] = best;
+      tri_out[r] = btri;
+      al_out[r] = bal;
+      be_out[r] = bbe;
+      if (work) {
+        work[3 * r] = n_nodes;
+        work[3 * r + 1] = n_tris;
+        work[3 * r + 2] = (int)(clock64() - t_start);
+      }
+    }
+    __syncwarp();
   }
-  t_out[r] = best;
-  tri_out[r] = btri;
-  al_out[r] = bal;
-  be_out[r] = bbe;
-  if (work) {
-    work[3 * r] = n_nodes;
-    work[3 * r + 1] = n_tris;
-    work[3 * r + 2] = (int)(clock64() - t_start);
-  }
+}
+
+size_t smem_bytes(bool smem_nodes, int n_pairs, int stack_cap) {
+  return (smem_nodes ? (size_t)n_pairs * 64 : 0) +
+         (size_t)stack_cap * THREADS * 4;
+}
+
+template <bool S>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(
+      packet_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
+                                                      packet_kernel<S>,
+                                                      THREADS, smem);
+  return e;
+}
+
+int stack_cap(int depth) {
+  return depth < 1 ? 1 : (depth < STACK_DEPTH ? depth : STACK_DEPTH);
 }
 
 }  // namespace
 
-// box (M, 6) f32 [lo xyz | hi xyz], na / nb / nleaf (M,) int32 (leaf: tri
-// start / count), soup (T, 16) f32 rows in TriSoup field order, org and
-// dir (n, 3), tmax and tmin (n,).  Outputs t, tri, alpha, beta (n,) and,
-// when work is not null, (n, 3) int32 counts of inner nodes expanded (two
-// slab tests each) and of triangle tests, and the clock64 cycles of the
-// ray's thread.
-// Returns cudaGetLastError() after the launch.
-extern "C" int packet_bvh_hit(const float* box, const int* na, const int* nb,
-                              const int* nleaf, const float* soup,
-                              const float* org, const float* dir,
-                              const float* tmax, const float* tmin, int n,
+// pairs (R, 16) child-pair records (ops/packet_bvh.pair_records; R = 0
+// when the root is a leaf of root_cnt triangles, else root_cnt = 0), depth
+// the tree's deepest node, soup (T, 16) f32 rows in TriSoup field order,
+// org and dir (n, 3), tmax and tmin (n,), next_ray one int32 that is 0.
+// Outputs t, tri, alpha, beta (n,) and, when work is not null, (n, 3)
+// int32 counts of inner nodes expanded (two slab tests each) and of
+// triangle tests, and the clock64 cycles of the ray's walk.  Returns the
+// first CUDA error of the set-up or the launch, else 0.
+extern "C" int packet_bvh_hit(const float* pairs, int n_pairs, int root_cnt,
+                              int depth, const float* soup, const float* org,
+                              const float* dir, const float* tmax,
+                              const float* tmin, int n, int* next_ray,
                               float* t_out, int* tri_out, float* al_out,
                               float* be_out, int* work, void* stream) {
-  if (n > 0)
-    packet_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                    (cudaStream_t)stream>>>(box, na, nb, nleaf, soup, org,
-                                            dir, tmax, tmin, n, t_out,
-                                            tri_out, al_out, be_out, work);
+  if (n <= 0) return 0;
+  const int cap = stack_cap(depth);
+  const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
+  const size_t smem = smem_bytes(in_smem, n_pairs, cap);
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = in_smem ? occupancy<true>(smem, &blocks)
+                : occupancy<false>(smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  int grid = blocks * sms;
+  const int need = (n + THREADS - 1) / THREADS;
+  if (grid > need) grid = need;
+  const float4* p4 = reinterpret_cast<const float4*>(pairs);
+  const float4* s4 = reinterpret_cast<const float4*>(soup);
+  if (in_smem)
+    packet_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        p4, n_pairs, root_cnt, cap, s4, org, dir, tmax, tmin, n, next_ray,
+        t_out, tri_out, al_out, be_out, work);
+  else
+    packet_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        p4, n_pairs, root_cnt, cap, s4, org, dir, tmax, tmin, n, next_ray,
+        t_out, tri_out, al_out, be_out, work);
   return (int)cudaGetLastError();
 }
 
-// out[4]: registers per thread, resident blocks per SM, static shared
-// bytes, threads per block.  Returns the first CUDA error, else 0.
-extern "C" int packet_bvh_info(int* out) {
+// out[4] for a tree of n_pairs records and the given depth: registers per
+// thread, resident blocks per SM, shared bytes per block (static and
+// dynamic), threads per block.  Returns the first CUDA error, else 0.
+extern "C" int packet_bvh_info(int n_pairs, int depth, int* out) {
+  const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
+  const size_t smem = smem_bytes(in_smem, n_pairs, stack_cap(depth));
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, packet_kernel);
   int blocks = 0;
+  cudaError_t e = in_smem ? cudaFuncGetAttributes(&fa, packet_kernel<true>)
+                          : cudaFuncGetAttributes(&fa, packet_kernel<false>);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, packet_kernel,
-                                                      THREADS, 0);
+    e = in_smem ? occupancy<true>(smem, &blocks)
+                : occupancy<false>(smem, &blocks);
   out[0] = fa.numRegs;
   out[1] = blocks;
-  out[2] = (int)fa.sharedSizeBytes;
+  out[2] = (int)(fa.sharedSizeBytes + smem);
   out[3] = THREADS;
   return (int)e;
 }

@@ -974,7 +974,8 @@ def load_cull_kernel(log=None) -> ctypes.CDLL:
     if 'cull' not in _libs:
         lib = ctypes.CDLL(device.build_cuda('cluster_cull', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_cull_tree.argtypes = [ptr] * 8 + [i32] + [ptr] * 5
+        lib.cluster_cull_tree.argtypes = [ptr, ptr, i32] + [ptr] * 4 \
+            + [i32] + [ptr] * 5
         lib.cluster_cull_tree.restype = i32
         lib.cluster_cull_info.argtypes = [ptr]
         lib.cluster_cull_info.restype = i32
@@ -1007,13 +1008,14 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     if dev.type != 'cuda':
         raise ValueError(f'cull_tree takes CUDA or CPU tensors, got {dev}')
     f32, i32 = torch.float32, torch.int32
-    checks = ((cm.top_box, f32), (cm.top_a, i32), (cm.top_b, i32),
-              (cm.top_leaf, i32), (cm.top_order, i32), (org, f32),
-              (dirn, f32), (tmax, f32))
+    checks = ((cm.top_pairs, f32), (cm.top_box, f32), (cm.top_order, i32),
+              (org, f32), (dirn, f32), (tmax, f32))
     for x, dt in checks:
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError('cull_tree inputs must be contiguous tensors of '
                              'the kernel types on one device')
+    if cm.top_pairs.data_ptr() % 16:
+        raise ValueError('cull_tree node records must be 16-byte aligned')
     if n % BLOCK or org.shape != (n, 3) or dirn.shape != (n, 3) \
             or tmax.shape != (n,):
         raise ValueError('cull_tree takes whole packets of rays')
@@ -1026,10 +1028,12 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     keys = torch.empty((nb, MAXC), dtype=f32, device=dev)
     if nb == 0:
         return ids, count, keys
+    # a tree without inner nodes is one leaf holding every cluster
+    root_cnt = cm.n_clusters if cm.top_pairs.shape[0] == 0 else 0
     rc = load_cull_kernel().cluster_cull_tree(
-        cm.top_box.data_ptr(), cm.top_a.data_ptr(), cm.top_b.data_ptr(),
-        cm.top_leaf.data_ptr(), cm.top_order.data_ptr(), org.data_ptr(),
-        dirn.data_ptr(), tmax.data_ptr(), nb, ids.data_ptr(),
+        cm.top_pairs.data_ptr(), cm.top_box.data_ptr(), root_cnt,
+        cm.top_order.data_ptr(), org.data_ptr(), dirn.data_ptr(),
+        tmax.data_ptr(), nb, ids.data_ptr(),
         count.data_ptr(), keys.data_ptr(),
         0 if work is None else work.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -249,20 +249,22 @@ def load_kernels(log=None) -> ctypes.CDLL:
     if _lib_handle is None:
         lib = ctypes.CDLL(device_mod.build_cuda('packet_bvh', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.packet_bvh_hit.argtypes = [ptr] * 4 + [ptr] + [ptr] * 4 \
-            + [i32] + [ptr] * 5 + [ptr]
+        lib.packet_bvh_hit.argtypes = [ptr, i32, i32, i32] + [ptr] * 5 \
+            + [i32] + [ptr] * 7
         lib.packet_bvh_hit.restype = i32
-        lib.packet_bvh_info.argtypes = [ptr]
+        lib.packet_bvh_info.argtypes = [i32, i32, ptr]
         lib.packet_bvh_info.restype = i32
         _lib_handle = lib
     return _lib_handle
 
 
-def kernel_info() -> tuple:
-    """(registers per thread, resident blocks per SM, static shared bytes,
-    threads per block) of the packet kernel, from the CUDA runtime."""
+def kernel_info(packed: PackedBVH) -> tuple:
+    """(registers per thread, resident blocks per SM, shared bytes per
+    block, threads per block) of the packet kernel on this tree, from the
+    CUDA runtime."""
     buf = (ctypes.c_int * 4)()
-    rc = load_kernels().packet_bvh_info(buf)
+    rc = load_kernels().packet_bvh_info(packed.pairs.shape[0], packed.depth,
+                                        buf)
     if rc != 0:
         raise RuntimeError(f'packet_bvh_info failed: CUDA error {rc}')
     return tuple(buf)
@@ -292,16 +294,16 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
         tmin = torch.full((n,), -1.0, device=dev)
     table = _soup_table(soup)
     f32, i32 = torch.float32, torch.int32
-    checks = ((packed.box, f32, (packed.box.shape[0], 6)),
-              (packed.na, i32, None), (packed.nb, i32, None),
-              (packed.nleaf, i32, None), (table, f32, None),
+    checks = ((packed.pairs, f32, (packed.pairs.shape[0], PAIR_WORDS)),
+              (table, f32, (table.shape[0], 16)),
               (org, f32, (n, 3)), (dirn, f32, (n, 3)), (tmax, f32, (n,)),
               (tmin, f32, (n,)))
-    for x, dt, shape in checks:
+    for k, (x, dt, shape) in enumerate(checks):
         if x.device != dev or x.dtype != dt or not x.is_contiguous() \
-                or (shape is not None and tuple(x.shape) != shape):
+                or tuple(x.shape) != shape or (k < 2 and x.data_ptr() % 16):
             raise ValueError('packet_hit inputs must be contiguous tensors '
-                             'of the kernel types on one device')
+                             'of the kernel types on one device (records '
+                             'and soup rows 16-byte aligned)')
     if work is not None and (work.device != dev or work.dtype != i32
                              or tuple(work.shape) != (n, WORK)):
         raise ValueError(f'packet_hit work must be an (N, {WORK}) int32 '
@@ -312,11 +314,13 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
     be = torch.empty_like(tmax)
     if n == 0:
         return t, tri, al, be
+    root_cnt = int(packed.nb[0]) if packed.pairs.shape[0] == 0 else 0
+    next_ray = torch.zeros(1, dtype=i32, device=dev)
     rc = load_kernels().packet_bvh_hit(
-        packed.box.data_ptr(), packed.na.data_ptr(), packed.nb.data_ptr(),
-        packed.nleaf.data_ptr(), table.data_ptr(), org.data_ptr(),
-        dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), n, t.data_ptr(),
-        tri.data_ptr(), al.data_ptr(), be.data_ptr(),
+        packed.pairs.data_ptr(), packed.pairs.shape[0], root_cnt,
+        packed.depth, table.data_ptr(), org.data_ptr(), dirn.data_ptr(),
+        tmax.data_ptr(), tmin.data_ptr(), n, next_ray.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), al.data_ptr(), be.data_ptr(),
         0 if work is None else work.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

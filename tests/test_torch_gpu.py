@@ -11,11 +11,12 @@ Without a CUDA device every test skips.  The kernels round every product
 and sum on their own in the plain versions' order, so the sweeps and the
 tree cull must agree with their plain versions exactly: same t, same tri,
 same occlusion, the same per-unit sweep counters at each lane group
-size, same counts and keys (the cull's kept ids may differ only
-among keys equal to the 128th).  The packet kernel walks a BVH where its
-plain version is brute force, so a ray grazing a leaf box may differ:
-tri equal on >= 99.9% of lanes, the rest ties within 2^-16 relative t or
-at most 0.1% hit/miss flips, t within 1e-5 relative where tri agrees.
+size, the same tree cull ids, counts, keys and per-packet counters.  The
+packet kernel equals its own walk stated in torch (packet_walk_plain) bit
+for bit, per-ray counters included; against the brute-force plain
+version a ray grazing a leaf box may differ: tri equal on >= 99.9% of
+lanes, the rest ties within 2^-16 relative t or at most 0.1% hit/miss
+flips, t within 1e-5 relative where tri agrees.
 The probes' fp32 product, epilogue, edge-matrix test and every ablation
 variant are bit-equal to their plain versions; the TF32 product agrees
 with its TF32-rounded plain version within sweep_micro.TF32_TOL of the
@@ -308,36 +309,102 @@ def test_packet_hit_matches_plain(cuda, with_tmin):
     assert bool(((be_k[h] - be_p[h]).abs() <= 1e-5).all())
 
 
-def _assert_cull_match(out_k, out_p):
-    """Equal counts and keys; equal kept ids except among keys equal to a
-    packet's 128th key."""
-    ids_k, cnt_k, keys_k = (x.cpu().numpy() for x in out_k)
-    ids_p, cnt_p, keys_p = (x.cpu().numpy() for x in out_p)
-    np.testing.assert_array_equal(cnt_k, cnt_p)
-    np.testing.assert_array_equal(keys_k, keys_p)
-    for b in range(ids_k.shape[0]):
-        m = min(int(cnt_p[b, 0]), tc.MAXC)
-        if m == 0:
-            continue
-        below = keys_p[b, :m] < keys_p[b, m - 1]
-        if cnt_p[b, 0] <= tc.MAXC:
-            below[:] = True
-        assert set(ids_k[b, :m][below]) == set(ids_p[b, :m][below])
-        assert (ids_k[b, m:] == -1).all()
+def _bounce_like(dev, n, seed):
+    """Rays leaving points of the 2k sphere's surface (radius about 12)
+    in cosine-weighted directions about the outward normal, from a seeded
+    torch.Generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    nrm = torch.randn((n, 3), generator=g, device=dev)
+    nrm = nrm / nrm.norm(dim=1, keepdim=True)
+    u = torch.rand((n, 2), generator=g, device=dev)
+    r, phi = u[:, 0].sqrt(), 2.0 * np.pi * u[:, 1]
+    ax = torch.where((nrm[:, 0].abs() > 0.9)[:, None],
+                     torch.tensor([0.0, 1.0, 0.0], device=dev),
+                     torch.tensor([1.0, 0.0, 0.0], device=dev))
+    t1 = torch.linalg.cross(ax, nrm)
+    t1 = t1 / t1.norm(dim=1, keepdim=True)
+    t2 = torch.linalg.cross(nrm, t1)
+    d = (r * phi.cos())[:, None] * t1 + (r * phi.sin())[:, None] * t2 \
+        + (1.0 - u[:, 0]).sqrt()[:, None] * nrm
+    o = (11.9 + 0.4 * torch.rand((n, 1), generator=g, device=dev)) * nrm
+    return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
 
 
 @pytest.mark.gpu
-def test_cull_tree_matches_plain(cuda):
-    cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=cuda)
+@pytest.mark.parametrize('rays', ['random', 'bounce', 'one-leaf'])
+def test_packet_hit_equals_its_walk(cuda, rays):
+    """The packet kernel equals packet_walk_plain bit for bit: t, tri,
+    alpha, beta and both per-ray counters, with tmin and bounded lanes;
+    also on a tree whose root is a leaf."""
+    tri = _sphere(32)
+    if rays == 'one-leaf':
+        tri = tri[:3]
+    fb = tb.build_bvh(tri)
+    packed = tp.pack_bvh(fb, device=cuda)
+    assert (packed.pairs.shape[0] == 0) == (rays == 'one-leaf')
+    soup = tt.make_soup(tri[fb.order], device=cuda)
+    n = 8 * tc.BLOCK + 77                          # a ragged last warp
+    if rays == 'bounce':
+        o, d = _bounce_like(cuda, n, seed=14)
+    else:
+        o, d = (x.to(cuda) for x in _rays(n + 1, seed=13))
+        o, d = o[:n].contiguous(), d[:n].contiguous()
+    if rays == 'one-leaf':
+        # aim at random points of the three triangles
+        w = torch.as_tensor(np.random.default_rng(16).dirichlet(
+            np.ones(3), n).astype(np.float32), device=cuda)
+        corners = torch.as_tensor(tri, device=cuda)[torch.arange(n) % 3]
+        d = (w[:, :, None] * corners).sum(1) - o
+        d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    rng = np.random.default_rng(15)
+    tmax = torch.as_tensor(np.where(rng.uniform(size=n) < 0.2, 30.0, BIG_T)
+                           .astype(np.float32), device=cuda)
+    tmin = torch.as_tensor(rng.uniform(-1.0, 0.5, n).astype(np.float32),
+                           device=cuda)
+    work = torch.zeros((n, tp.WORK), dtype=torch.int32, device=cuda)
+    before = tp.packet_hit.launches
+    out_k = tp.packet_hit(packed, soup, o, d, tmax, tmin, work=work)
+    assert tp.packet_hit.launches == before + 1
+    out_w = tp.packet_walk_plain(packed, soup, o, d, tmax, tmin)
+    for a, b in zip(out_k + (work[:, :2],), out_w):
+        assert torch.equal(a, b)
+    assert (out_k[1] >= 0).float().mean().item() > 0.02    # non-vacuous
+    assert bool((work[:, 2] > 0).all())                    # cycles
+
+
+def _assert_cull_match(out_k, out_p):
+    """Equal ids (the 128 smallest (key, cluster id) pairs, sorted so),
+    counts and keys."""
+    for a, b in zip(out_k, out_p):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('lat,tris_c', [(200, tc.SUBT), (12, 2 * tc.SUBT)],
+                         ids=['80k', 'one-cluster'])
+def test_cull_tree_matches_plain(cuda, lat, tris_c):
+    """Kernel against plain version, counters included, on coherent and
+    incoherent packets (some overflow) and on a one-cluster tree (the
+    root is a leaf)."""
+    cm = tc.build_clustered(_sphere(lat), tris_c=tris_c, dev=cuda)
+    assert (cm.n_clusters == 1) == (lat == 12)
     o, d = (x.to(cuda) for x in _rays(8 * tc.BLOCK, seed=12))
     tmax = torch.full((o.shape[0],), BIG_T, device=cuda)
     tmax[::97] = -1.0                                   # dead lanes
+    nb = o.shape[0] // tc.BLOCK
+    work_k = torch.zeros((nb, tc.CULL_WORK), dtype=torch.int64, device=cuda)
+    work_p = torch.zeros_like(work_k)
     before = tc.cull_tree.launches
-    out_k = tc.cull_tree(cm, o, d, tmax)
+    out_k = tc.cull_tree(cm, o, d, tmax, work=work_k)
     assert tc.cull_tree.launches == before + 1
-    out_p = tc.cull_tree_plain(cm, o, d, tmax)
-    assert (out_p[1] > tc.MAXC).any()                  # overflow exercised
+    out_p = tc.cull_tree_plain(cm, o, d, tmax, work=work_p)
+    if cm.n_clusters > tc.MAXC:
+        assert (out_p[1] > tc.MAXC).any()              # overflow exercised
+    assert (out_p[1] > 0).any()
     _assert_cull_match(out_k, out_p)
+    assert torch.equal(work_k[:, :3], work_p[:, :3])
+    assert bool((work_k[:, 3] > 0).all())              # cycles
 
 
 @pytest.mark.gpu
