@@ -586,14 +586,14 @@ def tree_phase(dev, cam):
     cm_dense = cl.build_clustered(tri, fb=fb, dev=dev)
     soup = tt.make_soup(tri[fb.order], device=dev)
     bvh = tt.upload_bvh(fb, device=dev)
-    info = cl.cull_kernel_info()
+    info = cl.cull_kernel_info(cm)
     log(f'tree phase build {time.perf_counter() - t0:.1f} s: '
         f'{tri.shape[0]} tris, {cm.n_clusters} clusters of <= 256 tris '
         f'(top depth < {cl.STACK_DEPTH}, max leaf {cm.top_max_leaf}, '
-        f'{cm.top_pairs.shape[0]} inner nodes); dense build '
-        f'{cm_dense.n_clusters} clusters; cull kernel {info[0]} registers, '
-        f'{info[1]} resident blocks of {info[3]} threads per SM, {info[2]} '
-        f'B static shared')
+        f'{cm.top_pairs.shape[0]} inner nodes, depth {cm.top_depth}); dense '
+        f'build {cm_dense.n_clusters} clusters; cull kernel {info[0]} '
+        f'registers, {info[1]} resident blocks of {info[3]} threads per SM, '
+        f'{info[2]} B shared per block')
     if not cm.n_clusters > cl.DENSE_CULL_MAX >= cm_dense.n_clusters:
         raise AssertionError('the tree phase needs a tree-tier and a '
                              'dense-tier build of one mesh')
@@ -694,6 +694,19 @@ def walk_set(mesh, org, dirn, tmax, name):
         raise AssertionError('packet t differs beyond 1e-5 relative')
     ms_k = cuda_ms(lambda: pb.packet_hit(mesh.packed, mesh.soup, org, dirn,
                                          tmax), reps=10)
+    # the same rays with their 32-ray batches heaviest first (by the
+    # counted cycles): how much of the launch the late heavy batches hold
+    cyc = work[:n // 32 * 32, 2].view(-1, 32).amax(dim=1)
+    rows = torch.cat([(torch.argsort(cyc, descending=True)[:, None] * 32
+                       + torch.arange(32, device=org.device)).reshape(-1),
+                      torch.arange(n // 32 * 32, n, device=org.device)])
+    o_h, d_h, m_h = org[rows].contiguous(), dirn[rows].contiguous(), \
+        tmax[rows].contiguous()
+    out_h = pb.packet_hit(mesh.packed, mesh.soup, o_h, d_h, m_h)
+    if not all(torch.equal(a, b[rows]) for a, b in zip(out_h, out_k)):
+        raise AssertionError('packet kernel differs on reordered rays')
+    ms_h = cuda_ms(lambda: pb.packet_hit(mesh.packed, mesh.soup, o_h, d_h,
+                                         m_h), reps=10)
     ms_p = cuda_ms(lambda: pb.packet_hit_plain(mesh.soup, org, dirn, tmax),
                    reps=1, warm=False)
     ms_w = cuda_ms(lambda: pb.packet_walk_plain(mesh.packed, mesh.soup, org,
@@ -705,9 +718,12 @@ def walk_set(mesh, org, dirn, tmax, name):
     b_ms, b_by = bound(ops, nbytes)
     w32 = work[:n // 32 * 32].view(-1, 32, pb.WORK).double()
     warp_cyc = w32[:, :, 2].amax(dim=1)
+    load_share = float(w32[:, :, 3].amax(dim=1).sum() / warp_cyc.sum())
     steps = w32[:, :, 0] + w32[:, :, 1]
     simd = float((steps.mean(dim=1) / steps.amax(dim=1).clamp_min(1)).mean())
-    rep = dict(rays=n, ms=ms_k, plain_ms=ms_p, walk_plain_ms=ms_w,
+    rep = dict(rays=n, ms=ms_k, ms_heavy_first=ms_h,
+               plain_ms=ms_p,
+               walk_plain_ms=ms_w, load_share=load_share,
                bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
                tri_agree_brute=frac,
                flips_brute=n_flip,
@@ -719,16 +735,17 @@ def walk_set(mesh, org, dirn, tmax, name):
     log(f'packet kernel, {name}: {n} rays, equal to packet_walk_plain bit '
         f'for bit (t, tri, alpha, beta, counters); vs brute force tri '
         f'{frac:.6f}, {n_flip} hit/miss flips, {int(tie.sum())} ties; hit '
-        f'share {rep["hit_share"]:.3f}; kernel {ms_k:.4f} ms, brute force '
-        f'{ms_p:.3f} ms, walk plain {ms_w:.3f} ms, bound {b_ms:.4f} ms '
-        f'({b_by})')
+        f'share {rep["hit_share"]:.3f}; kernel {ms_k:.4f} ms (batches heaviest '
+        f'first {ms_h:.4f} ms), brute force {ms_p:.3f} ms, walk '
+        f'plain {ms_w:.3f} ms, bound {b_ms:.4f} ms ({b_by})')
     log(f'  per ray {inner / n:.2f} inner nodes (max {rep["inner_max"]}), '
         f'{tests / n:.2f} triangle tests (max {rep["tests_max"]}); per warp '
         f'of 32 rays: cycles mean {rep["warp_cycles"]["mean"]:.0f} p99 '
         f'{rep["warp_cycles"]["p99"]:.0f} max '
         f'{rep["warp_cycles"]["max"]:.0f}, heaviest 1% '
-        f'{rep["warp_cycles"]["top1_share"]:.3f} of cycles; lane '
-        f'utilization (mean steps / max steps per warp) {simd:.3f}')
+        f'{rep["warp_cycles"]["top1_share"]:.3f} of cycles, {load_share:.3f} '
+        f'of cycles waiting for the staged rays; lane utilization (mean '
+        f'steps / max steps per warp) {simd:.3f}')
     return rep
 
 

@@ -30,23 +30,32 @@
 // rays) of nodes alone: 1.18 ms for 4,050 primary packets, 30 times the
 // bound (PERF.md).  The set of nodes a packet reaches does not depend on
 // the order of the walk (a node is reached iff some lane is live for it),
-// so this one spreads the walk over nodes instead of rays:
+// so this one spreads the walk over nodes instead of rays and keeps every
+// step off the block barrier:
 //   * one 128-thread block (4 warps) per packet; the packet's rays live in
 //     shared memory (origins, 1/d and tmax, 14 KB), so several packets
 //     share an SM;
-//   * a whole warp tests one node's two children against all 512 rays
-//     (16 per lane), with one ballot and one shuffle-min: no block barrier
-//     per node; an inner child needs only its any-lane liveness, so when
-//     neither child is a leaf the test stops at the first 32-ray chunk
-//     after which both are known live;
-//   * the top levels go breadth first, one barrier per level, the warps
-//     splitting each level's nodes, until the frontier holds FRONTIER
-//     nodes; then each warp walks whole subtrees of that frontier depth
-//     first (its own stack), taking the next subtree from a shared
-//     counter;
+//   * a node is tested only on the rays live for its parent: a child's box
+//     lies inside its parent's and a slab interval only narrows with the
+//     box under rounding, so a ray whose parent test was dead (and not NaN)
+//     is dead for every descendant.  A node carries a 512-bit ray mask,
+//     16 bits in each lane (lane l owns rays l + 32 k), and only the chunks
+//     k with a live ray in some lane are tested, four at a time and branch
+//     free (eight slab tests in flight per lane, no shuffle or ballot in
+//     the loop): deep nodes of a coherent packet cost a chunk or two;
+//   * a warp walks depth first on its own, testing a node's two children
+//     (then two votes and, for a leaf, a shuffle-min; no barrier), with its
+//     own stack of (node, mask) entries.  The walk
+//     starts on warp 0; a warp that runs out of work waits, and a working
+//     warp hands the shallowest entry of its stack (the largest subtree) to
+//     a shared pool while some warp waits.  The walk ends when every warp
+//     waits and the pool is empty.  So a coherent packet's walk (a few dozen
+//     nodes down one path) pays no barrier per level, and an incoherent
+//     one's (hundreds to thousands of nodes) spreads over four warps;
 //   * each node is one 64-byte child-pair record (both children's boxes,
 //     records or cluster ranges; ClusteredMesh.top_pairs), four 16-byte
-//     loads that every lane of the warp shares;
+//     loads that every lane of the warp shares; its inner children's
+//     records are prefetched into L1 before the node is tested;
 //   * reached clusters go to the warp's own buffer of (key, id) pairs;
 //     when it fills, the warp keeps its 128 smallest and drops later pairs
 //     that are not below the 128th; the end merges the four buffers by
@@ -60,11 +69,13 @@ namespace {
 constexpr int RAYS = 512;            // lanes per packet
 constexpr int NW = 4;                // warps per packet
 constexpr int THREADS = NW * 32;
-constexpr int PER_LANE = RAYS / 32;  // rays a lane tests per node
+constexpr int CHUNKS = RAYS / 32;    // rays per lane: lane + 32 k
 constexpr int MAXC = 128;
-constexpr int STACK_DEPTH = 64;      // per warp; the top tree is shallower
-constexpr int FRONTIER = 4 * NW;     // breadth first until this many nodes
-constexpr int CB = 256;              // (key, id) pairs buffered per warp
+constexpr int STACK_DEPTH = 64;      // build_clustered refuses deeper trees
+constexpr int CB = MAXC + 32;        // (key, id) pairs buffered per warp:
+                                     // a trim, then one chunk of a leaf
+constexpr int ENTRY = CHUNKS + 1;    // stack entry: 32 lanes' 16-bit ray
+                                     // masks in 16 words, then the node
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float BIG_T = 1e30f;
 typedef unsigned long long u64;
@@ -81,14 +92,12 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 struct Shared {
-  float o[3][RAYS];        // origins
-  float inv[3][RAYS];      // IEEE 1/d
-  float tcap[RAYS];
+  float4 ro[RAYS];          // origin xyz, tmax
+  float4 ri[RAYS];          // IEEE 1/d xyz, unused
   u64 buf[NW][CB];         // (key bits << 32 | cluster id), per warp
-  int stack[NW][STACK_DEPTH];
-  int front[2][2 * FRONTIER];
-  int n_front[2];
-  int next_item;
+  int pool[NW][ENTRY];     // stack entries handed to waiting warps
+  int state;               // waiting warps | pool entries << 8 (under lock)
+  int lock;
   int fill[NW];
   int total[3];            // inner nodes, leaves reached, clusters
 };
@@ -97,27 +106,105 @@ struct Box {
   float lx, ly, lz, hx, hy, hz;
 };
 
+struct Node {
+  Box a, b;
+  int ra, rb, ca, cb;      // child record or first cluster; cluster count
+};
+
+// A record from the lanes holding it, word j in lane base + j.
+__device__ __forceinline__ Node shfl_node(float w, int base) {
+  float v[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) v[j] = __shfl_sync(FULL, w, base + j);
+  return Node{{v[0], v[1], v[2], v[3], v[4], v[5]},
+              {v[6], v[7], v[8], v[9], v[10], v[11]},
+              __float_as_int(v[12]), __float_as_int(v[13]),
+              __float_as_int(v[14]), __float_as_int(v[15])};
+}
+
+__device__ __forceinline__ Node load_node(const float4* __restrict__ pairs,
+                                          int rec) {
+  const float4* q = pairs + 4 * (size_t)rec;
+  const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+               q3 = __ldg(q + 3);
+  return Node{{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y},
+              {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w},
+              __float_as_int(q3.x), __float_as_int(q3.y),
+              __float_as_int(q3.z), __float_as_int(q3.w)};
+}
+
 // TPU kernel slab (pallas_cluster._cull_kernel `slab`) of one box against
-// ray r: live, and the entry max(tmin, 0) with -0 written +0 (a lane that
-// is not live ignores it).
-__device__ __forceinline__ bool slab(const Box& b, const Shared& s, int r,
-                                     float* entry) {
-  const float ox = s.o[0][r], oy = s.o[1][r], oz = s.o[2][r];
-  const float ix = s.inv[0][r], iy = s.inv[1][r], iz = s.inv[2][r];
-  float t1 = __fmul_rn(__fsub_rn(b.lx, ox), ix);
-  float t2 = __fmul_rn(__fsub_rn(b.hx, ox), ix);
+// a ray (o: origin and tmax, inv: 1/d): live, the entry max(tmin, 0) with
+// -0 written +0 (ignored where not live), and whether a descendant can be
+// live (live, or NaN).
+__device__ __forceinline__ bool slab(const Box& b, float4 o, float4 inv,
+                                     float* entry, bool* keep) {
+  float t1 = __fmul_rn(__fsub_rn(b.lx, o.x), inv.x);
+  float t2 = __fmul_rn(__fsub_rn(b.hx, o.x), inv.x);
   float tmin = min_nan(t1, t2), tmax = max_nan(t1, t2);
-  t1 = __fmul_rn(__fsub_rn(b.ly, oy), iy);
-  t2 = __fmul_rn(__fsub_rn(b.hy, oy), iy);
+  t1 = __fmul_rn(__fsub_rn(b.ly, o.y), inv.y);
+  t2 = __fmul_rn(__fsub_rn(b.hy, o.y), inv.y);
   tmin = max_nan(tmin, min_nan(t1, t2));
   tmax = min_nan(tmax, max_nan(t1, t2));
-  t1 = __fmul_rn(__fsub_rn(b.lz, oz), iz);
-  t2 = __fmul_rn(__fsub_rn(b.hz, oz), iz);
+  t1 = __fmul_rn(__fsub_rn(b.lz, o.z), inv.z);
+  t2 = __fmul_rn(__fsub_rn(b.hz, o.z), inv.z);
   tmin = max_nan(tmin, min_nan(t1, t2));
   tmax = min_nan(tmax, max_nan(t1, t2));
   const float e = tmin > 0.f ? tmin : 0.f;
   *entry = e;
-  return (tmax >= e) && (tmin < s.tcap[r]);
+  const bool live = (tmax >= e) && (tmin < o.w);
+  *keep = live || tmin != tmin;
+  return live;
+}
+
+// Liveness and packet-min keys of a node's two children, accumulated per
+// lane over the rays it tests.
+struct Acc {
+  bool la, lb;
+  float ka, kb;
+};
+
+// One warp tests a node's two children on the node's live rays: the lane
+// owns rays lane + 32 k, live where bit k of m is set.  The chunks k with
+// a live ray in some lane go four at a time while four remain, so eight
+// slab tests per lane are in flight.  Returns this lane's masks of the children.
+__device__ __forceinline__ void test_node(const Node& nd, const Shared& s,
+                                          unsigned m, int lane, Acc& acc,
+                                          unsigned* ma, unsigned* mb) {
+  unsigned todo = __reduce_or_sync(FULL, m);
+  unsigned wa = 0, wb = 0;
+  auto chunk = [&](int k) {
+    const bool on = (m >> k) & 1u;
+    const int r = lane + 32 * k;
+    const float4 o = s.ro[r], inv = s.ri[r];
+    float ea, eb;
+    bool keep_a, keep_b;
+    const bool la = slab(nd.a, o, inv, &ea, &keep_a) && on;
+    const bool lb = slab(nd.b, o, inv, &eb, &keep_b) && on;
+    acc.la |= la;
+    acc.lb |= lb;
+    acc.ka = la ? fminf(acc.ka, ea) : acc.ka;
+    acc.kb = lb ? fminf(acc.kb, eb) : acc.kb;
+    wa |= (on && keep_a ? 1u : 0u) << k;
+    wb |= (on && keep_b ? 1u : 0u) << k;
+  };
+  while (__popc(todo) >= 4) {
+    int ks[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ks[j] = __ffs(todo) - 1;
+      todo &= todo - 1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) chunk(ks[j]);
+  }
+  while (todo) {
+    const int k = __ffs(todo) - 1;
+    todo &= todo - 1;
+    chunk(k);
+  }
+  *ma = wa;
+  *mb = wb;
 }
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -152,14 +239,29 @@ __device__ u64 trim(u64* b, int n, int lane) {
   return b[MAXC - 1];
 }
 
+// The pool's lock, taken and released by one lane of a warp.
+__device__ __forceinline__ void acquire(int* l) {
+  while (atomicCAS(l, 0, 1) != 0) __nanosleep(32);
+  __threadfence_block();
+}
+__device__ __forceinline__ void release(int* l) {
+  __threadfence_block();
+  atomicExch(l, 0);
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
 __global__ void __launch_bounds__(THREADS, 8)
-cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
-            int root_cnt, const int* __restrict__ order,
-            const float* __restrict__ org, const float* __restrict__ dir,
-            const float* __restrict__ tmax, int* __restrict__ ids_out,
-            int* __restrict__ count_out, float* __restrict__ keys_out,
-            long long* __restrict__ work) {
+cull_kernel(const float4* __restrict__ pairs, int cap,
+            const float* __restrict__ root, int root_cnt,
+            const int* __restrict__ order, const float* __restrict__ org,
+            const float* __restrict__ dir, const float* __restrict__ tmax,
+            int* __restrict__ ids_out, int* __restrict__ count_out,
+            float* __restrict__ keys_out, long long* __restrict__ work) {
   __shared__ Shared s;
+  extern __shared__ int stacks[];  // per warp: cap entries of ENTRY words
   const long long t_start = clock64();
   const int p = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -167,17 +269,18 @@ cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
   // ---- the packet's rays into shared memory ----
   const float* po = org + (size_t)p * RAYS * 3;
   const float* pd = dir + (size_t)p * RAYS * 3;
-  for (int i = tid; i < RAYS * 3; i += THREADS) {
-    s.o[i % 3][i / 3] = po[i];
-    s.inv[i % 3][i / 3] = __fdiv_rn(1.f, pd[i]);
+  const float* pt = tmax + (size_t)p * RAYS;
+#pragma unroll
+  for (int i = tid; i < RAYS; i += THREADS) {
+    s.ro[i] = make_float4(po[3 * i], po[3 * i + 1], po[3 * i + 2], pt[i]);
+    s.ri[i] = make_float4(__fdiv_rn(1.f, pd[3 * i]),
+                          __fdiv_rn(1.f, pd[3 * i + 1]),
+                          __fdiv_rn(1.f, pd[3 * i + 2]), 0.f);
   }
-  for (int i = tid; i < RAYS; i += THREADS)
-    s.tcap[i] = tmax[(size_t)p * RAYS + i];
   if (tid < 3) s.total[tid] = 0;
   if (tid == 0) {
-    s.n_front[0] = root_cnt ? 0 : 1;
-    s.front[0][0] = 0;
-    s.next_item = 0;
+    s.state = NW - 1;      // warp 0 starts at the root, the others wait
+    s.lock = 0;
   }
   __syncthreads();
 
@@ -206,60 +309,16 @@ cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
     }
   };
 
-  // one record's two children against the packet: live leaves emitted,
-  // live inner children returned (-1: dead or a leaf)
-  auto expand = [&](int rec, int* inner_a, int* inner_b) {
-    ++n_inner;
-    const float4* q = pairs + 4 * (size_t)rec;
-    const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
-                 q3 = __ldg(q + 3);
-    const Box ba = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y};
-    const Box bb = {q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-    const int ra = __float_as_int(q3.x), rb = __float_as_int(q3.y);
-    const int ca = __float_as_int(q3.z), cb = __float_as_int(q3.w);
-    const bool need_keys = ca > 0 || cb > 0;
-    bool la = false, lb = false;
-    float ka = BIG_T, kb = BIG_T;
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int r = lane + 32 * k;
-      float ea, eb;
-      if (slab(ba, s, r, &ea)) {
-        la = true;
-        ka = fminf(ka, ea);
-      }
-      if (slab(bb, s, r, &eb)) {
-        lb = true;
-        kb = fminf(kb, eb);
-      }
-      if (!need_keys && __any_sync(FULL, la) && __any_sync(FULL, lb)) break;
-    }
-    la = __any_sync(FULL, la);
-    lb = __any_sync(FULL, lb);
-    *inner_a = -1;
-    *inner_b = -1;
-    if (la) {
-      if (ca > 0)
-        emit(warp_min(ka), ra, ca);
-      else
-        *inner_a = ra;
-    }
-    if (lb) {
-      if (cb > 0)
-        emit(warp_min(kb), rb, cb);
-      else
-        *inner_b = rb;
-    }
-  };
-
   if (root_cnt) {
     // one-cluster tree: the root is the only leaf
     if (warp == 0) {
       const Box br = {root[0], root[1], root[2], root[3], root[4], root[5]};
-      bool l = false;
+      bool l = false, keep;
       float key = BIG_T;
-      for (int k = 0; k < PER_LANE; ++k) {
+      for (int k = 0; k < CHUNKS; ++k) {
         float e;
-        if (slab(br, s, lane + 32 * k, &e)) {
+        const int r = lane + 32 * k;
+        if (slab(br, s.ro[r], s.ri[r], &e, &keep)) {
           l = true;
           key = fminf(key, e);
         }
@@ -267,48 +326,137 @@ cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
       if (__any_sync(FULL, l)) emit(warp_min(key), 0, root_cnt);
     }
   } else {
-    // ---- breadth first over the top levels ----
-    int cur = 0;
+    // ---- each warp depth first; idle warps take donated subtrees ----
+    int* stack = stacks + warp * cap * ENTRY;   // a ring of cap entries
+    int bot = 0, top = 0;                        // entries [bot, top)
+    bool have = warp == 0;
+    int node = 0;
+    unsigned m = (1u << CHUNKS) - 1;             // this lane's live rays
+    // the inner children's records, loaded while their parent is tested:
+    // word lane & 15 of child a's (lanes 0-15) and child b's (16-31)
+    float pre = 0.f;
+    int from = -1;          // the next node's record: in lanes `from` + j
+    volatile int* state = &s.state;
+    unsigned nap = 32;      // a waiting warp's poll interval, ns, doubling
     for (;;) {
-      const int nf = s.n_front[cur];
-      if (nf == 0 || nf >= FRONTIER) break;
-      if (tid == 0) s.n_front[cur ^ 1] = 0;
-      __syncthreads();
-      for (int i = warp; i < nf; i += NW) {
-        int a, b;
-        expand(s.front[cur][i], &a, &b);
-        if (lane == 0) {
-          if (a >= 0) s.front[cur ^ 1][atomicAdd(&s.n_front[cur ^ 1], 1)] = a;
-          if (b >= 0) s.front[cur ^ 1][atomicAdd(&s.n_front[cur ^ 1], 1)] = b;
+      if (!have) {
+        // wait: take a pool entry, or end when all wait and it is empty
+        int st = 0;
+        if (lane == 0) st = *state;
+        st = __shfl_sync(FULL, st, 0);
+        if (st == NW) break;
+        if ((st >> 8) == 0) {
+          // back off, so that waiting warps leave the issue slots to the
+          // walking ones
+          __nanosleep(nap);
+          nap = nap < 2048 ? 2 * nap : nap;
+          continue;
         }
-      }
-      __syncthreads();
-      cur ^= 1;
-    }
-    // ---- each warp: whole subtrees of the frontier, depth first ----
-    const int nf = s.n_front[cur];
-    int* stack = s.stack[warp];
-    for (;;) {
-      int item = 0;
-      if (lane == 0) item = atomicAdd(&s.next_item, 1);
-      item = __shfl_sync(FULL, item, 0);
-      if (item >= nf) break;
-      int node = s.front[cur][item], sp = 0;
-      for (;;) {
-        int a, b;
-        expand(node, &a, &b);
-        if (a >= 0 && b >= 0) {
-          if (lane == 0) stack[sp] = b;
-          ++sp;
-          node = a;
-        } else if (a >= 0 || b >= 0) {
-          node = a >= 0 ? a : b;
-        } else {
-          if (sp == 0) break;
-          __syncwarp();
-          node = stack[--sp];
+        int got = 0;
+        if (lane == 0) {
+          acquire(&s.lock);
+          got = *state >> 8;
+          if (got > 0) *state = *state - 256 - 1;
+        }
+        got = __shfl_sync(FULL, got, 0);
+        __syncwarp();
+        if (got) {
+          const volatile int* e = s.pool[got - 1];
+          node = e[CHUNKS];
+          m = reinterpret_cast<const volatile unsigned short*>(e)[lane];
+          have = true;
+          nap = 32;
         }
         __syncwarp();
+        if (lane == 0) release(&s.lock);
+        continue;
+      }
+      ++n_inner;
+      const Node nd = from < 0 ? load_node(pairs, node) : shfl_node(pre, from);
+      {
+        const int c = lane < 16 ? nd.ra : nd.rb;
+        const int cnt = lane < 16 ? nd.ca : nd.cb;
+        if (cnt == 0)
+          pre = __ldg(reinterpret_cast<const float*>(pairs) + 16 * (size_t)c +
+                      (lane & 15));
+        else if (lane == 0 || lane == 16)
+          prefetch_l1(order + c);
+      }
+      from = -1;
+      Acc acc = {false, false, BIG_T, BIG_T};
+      unsigned ma, mb;
+      test_node(nd, s, m, lane, acc, &ma, &mb);
+      const bool la = __any_sync(FULL, acc.la);
+      const bool lb = __any_sync(FULL, acc.lb);
+      int a = -1, b = -1;
+      if (la) {
+        if (nd.ca > 0)
+          emit(warp_min(acc.ka), nd.ra, nd.ca);
+        else
+          a = nd.ra;
+      }
+      if (lb) {
+        if (nd.cb > 0)
+          emit(warp_min(acc.kb), nd.rb, nd.cb);
+        else
+          b = nd.rb;
+      }
+      if (a >= 0 && b >= 0) {
+        int* e = stack + (top % cap) * ENTRY;
+        reinterpret_cast<unsigned short*>(e)[lane] = (unsigned short)mb;
+        if (lane == 0) e[CHUNKS] = b;
+        ++top;
+        node = a;
+        m = ma;
+        from = 0;
+      } else if (a >= 0) {
+        node = a;
+        m = ma;
+        from = 0;
+      } else if (b >= 0) {
+        node = b;
+        m = mb;
+        from = 16;
+      } else if (top > bot) {
+        __syncwarp();
+        const int* e = stack + ((--top) % cap) * ENTRY;
+        node = e[CHUNKS];
+        m = reinterpret_cast<const unsigned short*>(e)[lane];
+      } else {
+        // out of work: wait (the pool's count of waiting warps rises)
+        if (lane == 0) {
+          acquire(&s.lock);
+          *state = *state + 1;
+          release(&s.lock);
+        }
+        have = false;
+      }
+      __syncwarp();
+      // hand the shallowest entry to a waiting warp
+      if (top > bot) {
+        int st = 0;
+        if (lane == 0) st = *state;
+        st = __shfl_sync(FULL, st, 0);
+        if ((st >> 8) < (st & 255)) {
+          int slot = -1;
+          if (lane == 0) {
+            acquire(&s.lock);
+            const int st2 = *state;
+            if ((st2 >> 8) < (st2 & 255)) slot = st2 >> 8;
+            else release(&s.lock);
+          }
+          slot = __shfl_sync(FULL, slot, 0);
+          if (slot >= 0) {
+            const int* e = stack + (bot % cap) * ENTRY;
+            if (lane <= CHUNKS) s.pool[slot][lane] = e[lane];
+            ++bot;
+            __syncwarp();
+            if (lane == 0) {
+              *state = *state + 256;
+              release(&s.lock);
+            }
+          }
+        }
       }
     }
   }
@@ -355,43 +503,61 @@ cull_kernel(const float4* __restrict__ pairs, const float* __restrict__ root,
   }
 }
 
+int stack_cap(int depth) {
+  return depth < 1 ? 1 : (depth < STACK_DEPTH ? depth : STACK_DEPTH);
+}
+
+cudaError_t set_smem(size_t dyn) {
+  return cudaFuncSetAttribute(cull_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)dyn);
+}
+
 }  // namespace
 
 // pairs (R, 16) child-pair records of the top tree's inner nodes
-// (ops/packet_bvh.pair_records, leaf ranges in `order`); when the root is
-// itself a leaf, R = 0, root is its box (6 f32) and root_cnt its cluster
-// count, else root_cnt = 0.  order (C,) int32 leaf position -> cluster id;
-// org, dir (nb*512, 3) f32, tmax (nb*512,) f32.  Outputs ids (nb, 128)
-// int32 (-1 padded), count (nb,) int32, keys (nb, 128) f32 (1e30 padded)
-// and, when work is not null, (nb, 4) int64 counters per packet: inner
-// nodes expanded, leaves reached, clusters emitted, clock64 cycles.
-// Returns cudaGetLastError() after the launch.
-extern "C" int cluster_cull_tree(const float* pairs, const float* root,
-                                 int root_cnt, const int* order,
-                                 const float* org, const float* dir,
-                                 const float* tmax, int n_packets,
-                                 int* ids_out, int* count_out,
+// (ops/packet_bvh.pair_records, leaf ranges in `order`), depth the top
+// tree's deepest node; when the root is itself a leaf, R = 0, root is its
+// box (6 f32) and root_cnt its cluster count, else root_cnt = 0.  order
+// (C,) int32 leaf position -> cluster id; org, dir (nb*512, 3) f32, tmax
+// (nb*512,) f32.  Outputs ids (nb, 128) int32 (-1 padded), count (nb,)
+// int32, keys (nb, 128) f32 (1e30 padded) and, when work is not null,
+// (nb, 4) int64 counters per packet: inner nodes expanded, leaves
+// reached, clusters emitted, clock64 cycles.  Returns the first CUDA
+// error of the set-up or the launch, else 0.
+extern "C" int cluster_cull_tree(const float* pairs, int depth,
+                                 const float* root, int root_cnt,
+                                 const int* order, const float* org,
+                                 const float* dir, const float* tmax,
+                                 int n_packets, int* ids_out, int* count_out,
                                  float* keys_out, long long* work,
                                  void* stream) {
-  if (n_packets > 0)
-    cull_kernel<<<n_packets, THREADS, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(pairs), root, root_cnt, order, org,
-        dir, tmax, ids_out, count_out, keys_out, work);
+  if (n_packets <= 0) return 0;
+  const int cap = stack_cap(depth);
+  const size_t dyn = (size_t)NW * cap * ENTRY * sizeof(int);
+  cudaError_t e = set_smem(dyn);
+  if (e != cudaSuccess) return (int)e;
+  cull_kernel<<<n_packets, THREADS, dyn, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(pairs), cap, root, root_cnt, order, org,
+      dir, tmax, ids_out, count_out, keys_out, work);
   return (int)cudaGetLastError();
 }
 
-// out[4]: registers per thread, resident blocks per SM, static shared
-// bytes, threads per block.  Returns the first CUDA error, else 0.
-extern "C" int cluster_cull_info(int* out) {
+// out[4] for a top tree of the given depth: registers per thread, resident
+// blocks per SM, shared bytes per block (static and dynamic), threads per
+// block.  Returns the first CUDA error, else 0.
+extern "C" int cluster_cull_info(int depth, int* out) {
+  const size_t dyn = (size_t)NW * stack_cap(depth) * ENTRY * sizeof(int);
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, cull_kernel);
   int blocks = 0;
+  cudaError_t e = set_smem(dyn);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, cull_kernel);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cull_kernel,
-                                                      THREADS, 0);
+                                                      THREADS, dyn);
   out[0] = fa.numRegs;
   out[1] = blocks;
-  out[2] = (int)fa.sharedSizeBytes;
+  out[2] = (int)(fa.sharedSizeBytes + dyn);
   out[3] = THREADS;
   return (int)e;
 }

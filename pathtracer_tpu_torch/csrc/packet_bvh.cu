@@ -179,6 +179,7 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
     __syncwarp();
     const int r = base + lane;
     if (lane < m) {
+      const long long t_loaded = clock64();
       Ray ray;
       ray.ox = so[3 * lane];
       ray.oy = so[3 * lane + 1];
@@ -245,9 +246,10 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
       al_out[r] = bal;
       be_out[r] = bbe;
       if (work) {
-        work[3 * r] = n_nodes;
-        work[3 * r + 1] = n_tris;
-        work[3 * r + 2] = (int)(clock64() - t_start);
+        work[4 * r] = n_nodes;
+        work[4 * r + 1] = n_tris;
+        work[4 * r + 2] = (int)(clock64() - t_start);
+        work[4 * r + 3] = (int)(t_loaded - t_start);
       }
     }
     __syncwarp();
@@ -281,10 +283,11 @@ int stack_cap(int depth) {
 // when the root is a leaf of root_cnt triangles, else root_cnt = 0), depth
 // the tree's deepest node, soup (T, 16) f32 rows in TriSoup field order,
 // org and dir (n, 3), tmax and tmin (n,), next_ray one int32 that is 0.
-// Outputs t, tri, alpha, beta (n,) and, when work is not null, (n, 3)
-// int32 counts of inner nodes expanded (two slab tests each) and of
-// triangle tests, and the clock64 cycles of the ray's walk.  Returns the
-// first CUDA error of the set-up or the launch, else 0.
+// Outputs t, tri, alpha, beta (n,) and, when work is not null, (n, 4)
+// int32 per ray: inner nodes expanded (two slab tests each), triangle
+// tests, and the clock64 cycles from its warp's turn on the 32-ray batch
+// to the ray's result and to its rays being loaded.  Returns the first
+// CUDA error of the set-up or the launch, else 0.
 extern "C" int packet_bvh_hit(const float* pairs, int n_pairs, int root_cnt,
                               int depth, const float* soup, const float* org,
                               const float* dir, const float* tmax,

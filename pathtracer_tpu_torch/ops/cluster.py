@@ -69,7 +69,7 @@ import torch
 
 from .. import device
 from . import bvh as bvh_mod
-from .packet_bvh import pair_records
+from .packet_bvh import pair_records, tree_depth
 from .traverse import TriSoup, make_soup
 
 BIG_T = float(np.float32(1e30))
@@ -124,6 +124,7 @@ class ClusteredMesh:
     top_max_leaf: int
     top_pairs: torch.Tensor   # (R, 16) child-pair records of the top tree's
                               # inner nodes (packet_bvh.pair_records)
+    top_depth: int            # deepest top-tree node (root 0)
     host_tris: Optional[np.ndarray] = None   # (T,3,3) BVH order (oracles)
 
     @property
@@ -340,7 +341,8 @@ def _top_fields(box, a, b, leaf, order, dev) -> dict:
                 top_order=i32(order),
                 top_max_leaf=int(b[leaf != 0].max()),
                 top_pairs=torch.as_tensor(pair_records(box, a, b, leaf),
-                                          device=dev))
+                                          device=dev),
+                top_depth=tree_depth(a, b, leaf))
 
 
 def from_tpu_arrays(arrays, dev=None) -> ClusteredMesh:
@@ -974,20 +976,21 @@ def load_cull_kernel(log=None) -> ctypes.CDLL:
     if 'cull' not in _libs:
         lib = ctypes.CDLL(device.build_cuda('cluster_cull', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_cull_tree.argtypes = [ptr, ptr, i32] + [ptr] * 4 \
+        lib.cluster_cull_tree.argtypes = [ptr, i32, ptr, i32] + [ptr] * 4 \
             + [i32] + [ptr] * 5
         lib.cluster_cull_tree.restype = i32
-        lib.cluster_cull_info.argtypes = [ptr]
+        lib.cluster_cull_info.argtypes = [i32, ptr]
         lib.cluster_cull_info.restype = i32
         _libs['cull'] = lib
     return _libs['cull']
 
 
-def cull_kernel_info() -> tuple:
-    """(registers per thread, resident blocks per SM, static shared bytes,
-    threads per block) of the tree cull kernel, from the CUDA runtime."""
+def cull_kernel_info(cm: ClusteredMesh) -> tuple:
+    """(registers per thread, resident blocks per SM, shared bytes per
+    block, threads per block) of the tree cull kernel on this mesh's top
+    tree, from the CUDA runtime."""
     buf = (ctypes.c_int * 4)()
-    rc = load_cull_kernel().cluster_cull_info(buf)
+    rc = load_cull_kernel().cluster_cull_info(cm.top_depth, buf)
     if rc != 0:
         raise RuntimeError(f'cluster_cull_info failed: CUDA error {rc}')
     return tuple(buf)
@@ -1031,7 +1034,8 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     # a tree without inner nodes is one leaf holding every cluster
     root_cnt = cm.n_clusters if cm.top_pairs.shape[0] == 0 else 0
     rc = load_cull_kernel().cluster_cull_tree(
-        cm.top_pairs.data_ptr(), cm.top_box.data_ptr(), root_cnt,
+        cm.top_pairs.data_ptr(), cm.top_depth, cm.top_box.data_ptr(),
+        root_cnt,
         cm.top_order.data_ptr(), org.data_ptr(), dirn.data_ptr(),
         tmax.data_ptr(), nb, ids.data_ptr(),
         count.data_ptr(), keys.data_ptr(),

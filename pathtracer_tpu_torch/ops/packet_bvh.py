@@ -37,8 +37,10 @@ BIG_T = float(np.float32(1e30))
 STACK_DEPTH = 64       # per-ray traversal stack of the kernel
 PLAIN_RAY_CHUNK = 16384  # rays per brute-force block of the plain version
 PAIR_WORDS = 16        # 32-bit words per child-pair record (64 bytes)
-WORK = 3               # per-ray kernel counters: inner nodes expanded,
-                       # triangle tests, cycles (kernel only)
+WORK = 4               # per-ray kernel counters: inner nodes expanded,
+                       # triangle tests; clock64 cycles from the warp's turn
+                       # on its 32-ray batch to the ray's result and to its
+                       # rays being loaded (kernel only)
 
 
 class PackedBVH(NamedTuple):
@@ -281,9 +283,9 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
     """Closest hit for N rays: (t, tri, alpha, beta).  CPU tensors take
     packet_hit_plain; CUDA tensors launch the hand-written kernel
     (replaces the TPU kernel pallas_bvh._traverse_kernel) or raise.
-    `work` (N, WORK) int32, optional: the kernel writes each ray's count
-    of inner nodes expanded (two slab tests each), of triangle tests, and
-    its walk's clock64 cycles there."""
+    `work` (N, WORK) int32, optional: the kernel writes each ray's
+    counters there (inner nodes expanded, two slab tests each; triangle
+    tests; clock64 cycles, see WORK)."""
     if org.device.type == 'cpu':
         return packet_hit_plain(soup, org, dirn, tmax, tmin)
     dev = org.device

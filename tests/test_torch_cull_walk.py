@@ -6,7 +6,9 @@ tests/test_torch_gpu.py and chip_smoke.py):
     clusters emitted) equal a depth-first walk of the top tree written
     here in numpy, one packet at a time, descending wherever any lane's
     slab is live: the walk expands the root and exactly the inner nodes
-    some lane is live for, whatever its order;
+    some lane is live for, whatever its order; and a ray dead (not NaN)
+    at a node is dead at its children, the premise of the kernel's ray
+    masks;
   * `packet_walk_plain` against a scalar numpy statement of one ray's walk
     (hits and counters equal), against JAX's `pallas_bvh.packet_hit_packed`
     in interpret mode and against the brute-force `packet_hit_plain`:
@@ -119,6 +121,38 @@ def test_cull_tree_plain_counts_equal_a_dfs(top_tree):
         k, i = keys[p, :m].numpy(), ids[p, :m].numpy()
         assert (np.diff(k) >= 0).all()
         assert all((k[j], i[j]) < (k[j + 1], i[j + 1]) for j in range(m - 1))
+
+
+def test_dead_ray_stays_dead_below(top_tree):
+    """The premise of the tree cull kernel's ray masks: a ray whose slab
+    test at a node is dead and not NaN is dead at both children (a child's
+    box lies inside its parent's, and the rounded slab interval narrows
+    with the box), so the kernel tests a node only on the rays its parent
+    kept."""
+    cm, seed = top_tree
+    n = 4 * tc.BLOCK
+    o, d = _mixed_rays(n, seed + 500)
+    tm = np.full((n,), BIG_T, np.float32)
+    tm[::7] = 5.0                                      # short lanes
+    box = cm.top_box.numpy()
+    a, b = cm.top_a.numpy(), cm.top_b.numpy()
+    inner = np.flatnonzero(cm.top_leaf.numpy() == 0)
+    with np.errstate(divide='ignore', invalid='ignore', over='ignore'):
+        inv = F32(1.0) / d
+
+        def test(node):
+            tmin, tmx = _slab(box[node], o, inv)
+            live = (tmx >= np.maximum(tmin, F32(0.0))) & (tmin < tm)
+            return live, live | np.isnan(tmin)
+
+        checked = 0
+        for p in inner:
+            _, keep = test(p)
+            for c in (a[p], b[p]):
+                live, _ = test(c)
+                assert not (live & ~keep).any(), (p, c)
+                checked += int(live.sum())
+    assert checked > 0                                 # non-vacuous
 
 
 # ---------------------------------------------------------------------------
