@@ -528,6 +528,16 @@ def cull_set(cm, org, dirn, tmax, name):
     out_p = cl.cull_tree_plain(cm, o[rows], d[rows], tx[rows], work=work_p)
     check_cull([x[pick] for x in out_k], out_p, work[pick], work_p)
     ms_k = cuda_ms(lambda: cl.cull_tree(cm, o, d, tx), reps=5)
+    # the same packets heaviest first (by the counted cycles): how much of
+    # the launch the late heavy packets hold
+    perm = torch.argsort(work[:, 3], descending=True)
+    rows_h = (perm[:, None] * cl.BLOCK
+              + torch.arange(cl.BLOCK, device=dev)[None]).reshape(-1)
+    o_h, d_h, x_h = o[rows_h], d[rows_h], tx[rows_h]
+    out_h = cl.cull_tree(cm, o_h, d_h, x_h)
+    if not all(torch.equal(a, b[perm]) for a, b in zip(out_h, out_k)):
+        raise AssertionError('tree cull differs on reordered packets')
+    ms_h = cuda_ms(lambda: cl.cull_tree(cm, o_h, d_h, x_h), reps=5)
     ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
                    warm=False)
     inner = int(work[:, 0].sum())
@@ -537,16 +547,21 @@ def cull_set(cm, org, dirn, tmax, name):
               + nb * (8 * cl.MAXC + 4))
     b_ms, b_by = bound(ops, nbytes)
     rep = dict(packets=nb, overflowed=int(over.numel()), checked=pick.numel(),
-               ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, ops=ops,
-               bytes=nbytes,
+               ms=ms_k, ms_heavy_first=ms_h, plain_ms=ms_p, bound_ms=b_ms,
+               bound_by=b_by, ops=ops, bytes=nbytes,
                cycles=share_report(work[:, 3]),
+               stage_share=float(work[:, 4].sum() / work[:, 3].sum()),
+               walk_share=float(work[:, 5].sum() / work[:, 3].sum()),
+               ray_chunks=float(work[:, 6].double().mean()),
+               bound_chunks=float(work[:, 7].double().mean()),
                inner=share_report(work[:, 0]),
                leaves_mean=float(work[:, 1].double().mean()),
                count=share_report(work[:, 2]))
     log(f'tree cull, {name}: {nb} packets, {over.numel()} overflowed, '
         f'{pick.numel()} equal to the plain version (ids, counts, keys, '
-        f'counters); kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound '
-        f'{b_ms:.4f} ms ({b_by})')
+        f'counters); kernel {ms_k:.4f} ms (packets heaviest first '
+        f'{ms_h:.4f} ms), plain {ms_p:.3f} ms, bound {b_ms:.4f} ms '
+        f'({b_by})')
     log(f'  per packet: cycles mean {rep["cycles"]["mean"]:.0f} p99 '
         f'{rep["cycles"]["p99"]:.0f} max {rep["cycles"]["max"]:.0f}, '
         f'heaviest 1% {rep["cycles"]["top1_share"]:.3f} of cycles; inner '
@@ -556,6 +571,10 @@ def cull_set(cm, org, dirn, tmax, name):
         f'{rep["count"]["mean"]:.2f} max {rep["count"]["max"]:.0f}; cycles '
         f'of the heaviest 1% of packets by emitted count: '
         f'{heavy_cycles(work[:, 2], work[:, 3]):.3f} of all')
+    log(f'  cycles staging rays and chunk bounds {rep["stage_share"]:.3f}, '
+        f'walking {rep["walk_share"]:.3f}, merging the rest; per packet '
+        f'{rep["ray_chunks"]:.1f} 32-ray chunks tested ray by ray, '
+        f'{rep["bound_chunks"]:.1f} decided on their bounds')
     return rep
 
 
@@ -721,6 +740,10 @@ def walk_set(mesh, org, dirn, tmax, name):
     load_share = float(w32[:, :, 3].amax(dim=1).sum() / warp_cyc.sum())
     steps = w32[:, :, 0] + w32[:, :, 1]
     simd = float((steps.mean(dim=1) / steps.amax(dim=1).clamp_min(1)).mean())
+    # SIMT efficiency: lane steps over 32 x the warp's runs of each path
+    wsum = work.long().sum(dim=0).double()
+    simt_inner = float(wsum[0] / (32 * wsum[4]).clamp_min(1))
+    simt_tri = float(wsum[1] / (32 * wsum[5]).clamp_min(1))
     rep = dict(rays=n, ms=ms_k, ms_heavy_first=ms_h,
                plain_ms=ms_p,
                walk_plain_ms=ms_w, load_share=load_share,
@@ -731,7 +754,8 @@ def walk_set(mesh, org, dirn, tmax, name):
                hit_share=float((tri_k >= 0).float().mean()),
                inner_per_ray=inner / n, tests_per_ray=tests / n,
                inner_max=int(work[:, 0].max()), tests_max=int(work[:, 1].max()),
-               warp_cycles=share_report(warp_cyc), lane_utilization=simd)
+               warp_cycles=share_report(warp_cyc), lane_utilization=simd,
+               simt_inner=simt_inner, simt_tri=simt_tri)
     log(f'packet kernel, {name}: {n} rays, equal to packet_walk_plain bit '
         f'for bit (t, tri, alpha, beta, counters); vs brute force tri '
         f'{frac:.6f}, {n_flip} hit/miss flips, {int(tie.sum())} ties; hit '
@@ -744,8 +768,9 @@ def walk_set(mesh, org, dirn, tmax, name):
         f'{rep["warp_cycles"]["p99"]:.0f} max '
         f'{rep["warp_cycles"]["max"]:.0f}, heaviest 1% '
         f'{rep["warp_cycles"]["top1_share"]:.3f} of cycles, {load_share:.3f} '
-        f'of cycles waiting for the staged rays; lane utilization (mean '
-        f'steps / max steps per warp) {simd:.3f}')
+        f'of cycles loading the rays; lane utilization (mean steps / max '
+        f'steps per warp) {simd:.3f}; SIMT efficiency of inner-node steps '
+        f'{simt_inner:.3f}, of triangle tests {simt_tri:.3f}')
     return rep
 
 

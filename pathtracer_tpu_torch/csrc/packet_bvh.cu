@@ -45,7 +45,24 @@
 //     staging their origins and directions through shared memory (three
 //     coalesced 128-byte loads per array), so a warp with cheap rays takes
 //     more of them;
-//   * triangles read as four 16-byte loads of their 64-byte soup row.
+//   * triangles read as four 16-byte loads of their 64-byte soup row;
+//   * the walk runs while-while (Aila and Laine 2009): a warp steps inner
+//     nodes until each of its lanes has reached a leaf or finished, then
+//     runs the leaves, so it runs one kind of step at a time; each ray's
+//     own sequence of steps is unchanged.  With one loop for both kinds, a
+//     warp ran triangle tests at 37% SIMT efficiency on the primaries (the
+//     lanes at inner nodes waiting); while-while gives 72% (inner-node
+//     steps fall from 87% to 69%) and about 8% less time.  A warp vote per
+//     step between the two kinds gave 78% / 64% and no gain.
+// On the 1080p primaries of the 2k mesh this is 6 times the bound: a step
+// of the walk (two slab tests, about 80 instructions, or one triangle
+// test) takes about 1,500 cycles of a warp's time at 32 resident warps
+// per SM (64 registers): the dependent chain of a step (record load, slab,
+// compare, branch) is not hidden by 8 warps per scheduler.  Loading the
+// rays takes about a tenth, and the heaviest batches run last: ordered
+// heaviest first the same rays take about 10% less.  Variants with the
+// table read through L1, 128-thread blocks, rays copied ahead by cp.async
+// or the counter read ahead were no faster (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,7 +153,7 @@ __device__ __forceinline__ bool tri_test(const float4* __restrict__ row,
          (t == t);
 }
 
-template <bool SMEM_NODES>
+template <bool SMEM_NODES, bool COUNT>
 __global__ void __launch_bounds__(THREADS, 2)
 packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
               int stack_cap, const float4* __restrict__ soup,
@@ -166,7 +183,7 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
     if (lane == 0) base = atomicAdd(next_ray, 32);
     base = __shfl_sync(0xffffffffu, base, 0);
     if (base >= n) break;
-    const long long t_start = clock64();
+    const long long t_start = COUNT ? clock64() : 0;
     // stage the 32 rays' origins and directions: three coalesced loads
     const int m = min(32, n - base);
     for (int c = 0; c < 3; ++c) {
@@ -179,7 +196,7 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
     __syncwarp();
     const int r = base + lane;
     if (lane < m) {
-      const long long t_loaded = clock64();
+      const long long t_loaded = COUNT ? clock64() : 0;
       Ray ray;
       ray.ox = so[3 * lane];
       ray.oy = so[3 * lane + 1];
@@ -197,59 +214,80 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
       // the current node: an inner record (cnt == 0) or a leaf's range;
       // the root is entered without a test, as on the TPU
       int ref = 0, cnt = root_cnt;
-      for (;;) {
-        if (cnt == 0) {
-          ++n_nodes;
-          const float4* rec = nodes + 4 * ref;
-          const float4 q0 = ld4<SMEM_NODES>(rec);
-          const float4 q1 = ld4<SMEM_NODES>(rec + 1);
-          const float4 q2 = ld4<SMEM_NODES>(rec + 2);
-          const float4 q3 = ld4<SMEM_NODES>(rec + 3);
-          const bool la =
-              slab_live(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ray, best);
-          const bool lb =
-              slab_live(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ray, best);
-          if (la) {
-            if (lb && sp < stack_cap)
-              s_stack[(sp++) * THREADS + tid] = 2 * ref + 1;
-            ref = __float_as_int(q3.x);
-            cnt = __float_as_int(q3.z);
-            continue;
-          }
-          if (lb) {
-            ref = __float_as_int(q3.y);
-            cnt = __float_as_int(q3.w);
-            continue;
-          }
-        } else {
-          for (int k = 0; k < cnt; ++k) {
-            float t, al, be;
-            ++n_tris;
-            if (tri_test(soup + 4 * (size_t)(ref + k), ray, &t, &al, &be) &&
-                t < best && t > tn) {
-              best = t;
-              btri = ref + k;
-              bal = al;
-              bbe = be;
-            }
-          }
-        }
-        if (sp == 0) break;
+      int x_nodes = 0, x_tris = 0;   // path executions this lane led
+      // the next entry of the stack; false at its end
+      auto pop = [&]() {
+        if (sp == 0) return false;
         // a pushed entry names its parent record and side
         const int e = s_stack[(--sp) * THREADS + tid];
         const float4 w = ld4<SMEM_NODES>(nodes + 4 * (e >> 1) + 3);
         ref = __float_as_int((e & 1) ? w.y : w.x);
         cnt = __float_as_int((e & 1) ? w.w : w.z);
+        return true;
+      };
+      // an inner node: false when neither child is live
+      auto inner = [&]() {
+        if (COUNT && lane == __ffs(__activemask()) - 1) ++x_nodes;
+        ++n_nodes;
+        const float4* rec = nodes + 4 * ref;
+        const float4 q0 = ld4<SMEM_NODES>(rec);
+        const float4 q1 = ld4<SMEM_NODES>(rec + 1);
+        const float4 q2 = ld4<SMEM_NODES>(rec + 2);
+        const float4 q3 = ld4<SMEM_NODES>(rec + 3);
+        const bool la =
+            slab_live(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ray, best);
+        const bool lb =
+            slab_live(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ray, best);
+        if (la) {
+          if (lb && sp < stack_cap)
+            s_stack[(sp++) * THREADS + tid] = 2 * ref + 1;
+          ref = __float_as_int(q3.x);
+          cnt = __float_as_int(q3.z);
+          return true;
+        }
+        if (lb) {
+          ref = __float_as_int(q3.y);
+          cnt = __float_as_int(q3.w);
+          return true;
+        }
+        return false;
+      };
+      auto leaf = [&]() {
+        for (int k = 0; k < cnt; ++k) {
+          float t, al, be;
+          if (COUNT && lane == __ffs(__activemask()) - 1) ++x_tris;
+          ++n_tris;
+          if (tri_test(soup + 4 * (size_t)(ref + k), ray, &t, &al, &be) &&
+              t < best && t > tn) {
+            best = t;
+            btri = ref + k;
+            bal = al;
+            bbe = be;
+          }
+        }
+      };
+      // inner nodes until this lane reaches a leaf, then the leaf: the
+      // warp runs one kind of step at a time (each ray's own sequence of
+      // steps is that of packet_walk_plain)
+      for (;;) {
+        bool more = true;
+        while (cnt == 0 && more) more = inner() || pop();
+        if (!more) break;
+        leaf();
+        if (!pop()) break;
       }
       t_out[r] = best;
       tri_out[r] = btri;
       al_out[r] = bal;
       be_out[r] = bbe;
-      if (work) {
-        work[4 * r] = n_nodes;
-        work[4 * r + 1] = n_tris;
-        work[4 * r + 2] = (int)(clock64() - t_start);
-        work[4 * r + 3] = (int)(t_loaded - t_start);
+      if (COUNT) {
+        int* w = work + 6 * (size_t)r;
+        w[0] = n_nodes;
+        w[1] = n_tris;
+        w[2] = (int)(clock64() - t_start);
+        w[3] = (int)(t_loaded - t_start);
+        w[4] = x_nodes;
+        w[5] = x_tris;
       }
     }
     __syncwarp();
@@ -261,16 +299,63 @@ size_t smem_bytes(bool smem_nodes, int n_pairs, int stack_cap) {
          (size_t)stack_cap * THREADS * 4;
 }
 
-template <bool S>
+template <bool S, bool C>
 cudaError_t occupancy(size_t smem, int* blocks) {
   cudaError_t e = cudaFuncSetAttribute(
-      packet_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      packet_kernel<S, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
-                                                      packet_kernel<S>,
-                                                      THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, packet_kernel<S, C>, THREADS, smem);
   return e;
+}
+
+struct Args {
+  const float4 *pairs, *soup;
+  int n_pairs, root_cnt, cap;
+  const float *org, *dir, *tmax, *tmin;
+  int n;
+  int* next_ray;
+  float* t_out;
+  int* tri_out;
+  float *al_out, *be_out;
+  int* work;
+};
+
+// Resident blocks per SM of one instance (C: with the counters) and its
+// launch, one persistent block per resident slot (info: no launch).
+template <bool S, bool C>
+cudaError_t run(const Args& a, size_t smem, cudaStream_t stream, bool info,
+                int* blocks, cudaFuncAttributes* fa) {
+  cudaError_t e = occupancy<S, C>(smem, blocks);
+  if (e == cudaSuccess && fa)
+    e = cudaFuncGetAttributes(fa, packet_kernel<S, C>);
+  if (e != cudaSuccess || info) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (*blocks < 1) return cudaErrorInvalidConfiguration;
+  int grid = *blocks * sms;
+  const int need = (a.n + THREADS - 1) / THREADS;
+  if (grid > need) grid = need;
+  packet_kernel<S, C><<<grid, THREADS, smem, stream>>>(
+      a.pairs, a.n_pairs, a.root_cnt, a.cap, a.soup, a.org, a.dir, a.tmax,
+      a.tmin, a.n, a.next_ray, a.t_out, a.tri_out, a.al_out, a.be_out,
+      a.work);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const Args& a, bool smem_nodes, size_t smem,
+                     cudaStream_t stream, bool info, int* blocks,
+                     cudaFuncAttributes* fa) {
+  const bool c = a.work != nullptr;
+  if (smem_nodes)
+    return c ? run<true, true>(a, smem, stream, info, blocks, fa)
+             : run<true, false>(a, smem, stream, info, blocks, fa);
+  return c ? run<false, true>(a, smem, stream, info, blocks, fa)
+           : run<false, false>(a, smem, stream, info, blocks, fa);
 }
 
 int stack_cap(int depth) {
@@ -283,59 +368,44 @@ int stack_cap(int depth) {
 // when the root is a leaf of root_cnt triangles, else root_cnt = 0), depth
 // the tree's deepest node, soup (T, 16) f32 rows in TriSoup field order,
 // org and dir (n, 3), tmax and tmin (n,), next_ray one int32 that is 0.
-// Outputs t, tri, alpha, beta (n,) and, when work is not null, (n, 4)
-// int32 per ray: inner nodes expanded (two slab tests each), triangle
-// tests, and the clock64 cycles from its warp's turn on the 32-ray batch
-// to the ray's result and to its rays being loaded.  Returns the first
-// CUDA error of the set-up or the launch, else 0.
+// Outputs t, tri, alpha, beta (n,) and, when work is not null, (n, 6)
+// int32 per ray from the instance with counters: inner nodes expanded (two
+// slab tests each), triangle tests, the clock64 cycles from its warp's
+// turn on the 32-ray batch to the ray's result and to its rays being
+// loaded, and the inner-node steps and triangle tests its warp ran with
+// this lane leading (their sums over 32 x the lanes' steps are the SIMT
+// efficiency).  Returns the first CUDA error of the set-up or the launch,
+// else 0.
 extern "C" int packet_bvh_hit(const float* pairs, int n_pairs, int root_cnt,
-                              int depth, const float* soup, const float* org,
-                              const float* dir, const float* tmax,
-                              const float* tmin, int n, int* next_ray,
-                              float* t_out, int* tri_out, float* al_out,
-                              float* be_out, int* work, void* stream) {
+                              int depth, const float* soup,
+                              const float* org, const float* dir,
+                              const float* tmax, const float* tmin, int n,
+                              int* next_ray, float* t_out, int* tri_out,
+                              float* al_out, float* be_out, int* work,
+                              void* stream) {
   if (n <= 0) return 0;
   const int cap = stack_cap(depth);
   const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
-  const size_t smem = smem_bytes(in_smem, n_pairs, cap);
-  int dev = 0, sms = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = in_smem ? occupancy<true>(smem, &blocks)
-                : occupancy<false>(smem, &blocks);
-  if (e != cudaSuccess) return (int)e;
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  int grid = blocks * sms;
-  const int need = (n + THREADS - 1) / THREADS;
-  if (grid > need) grid = need;
-  const float4* p4 = reinterpret_cast<const float4*>(pairs);
-  const float4* s4 = reinterpret_cast<const float4*>(soup);
-  if (in_smem)
-    packet_kernel<true><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        p4, n_pairs, root_cnt, cap, s4, org, dir, tmax, tmin, n, next_ray,
-        t_out, tri_out, al_out, be_out, work);
-  else
-    packet_kernel<false><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        p4, n_pairs, root_cnt, cap, s4, org, dir, tmax, tmin, n, next_ray,
-        t_out, tri_out, al_out, be_out, work);
-  return (int)cudaGetLastError();
+  const Args a = {reinterpret_cast<const float4*>(pairs),
+                  reinterpret_cast<const float4*>(soup), n_pairs, root_cnt,
+                  cap, org, dir, tmax, tmin, n, next_ray, t_out, tri_out,
+                  al_out, be_out, work};
+  int blocks = 0;
+  return (int)dispatch(a, in_smem, smem_bytes(in_smem, n_pairs, cap),
+                       (cudaStream_t)stream, false, &blocks, nullptr);
 }
 
 // out[4] for a tree of n_pairs records and the given depth: registers per
 // thread, resident blocks per SM, shared bytes per block (static and
-// dynamic), threads per block.  Returns the first CUDA error, else 0.
+// dynamic), threads per block, of the instance that runs without counters.
+// Returns the first CUDA error, else 0.
 extern "C" int packet_bvh_info(int n_pairs, int depth, int* out) {
   const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
   const size_t smem = smem_bytes(in_smem, n_pairs, stack_cap(depth));
+  Args a = {};
   cudaFuncAttributes fa;
   int blocks = 0;
-  cudaError_t e = in_smem ? cudaFuncGetAttributes(&fa, packet_kernel<true>)
-                          : cudaFuncGetAttributes(&fa, packet_kernel<false>);
-  if (e == cudaSuccess)
-    e = in_smem ? occupancy<true>(smem, &blocks)
-                : occupancy<false>(smem, &blocks);
+  const cudaError_t e = dispatch(a, in_smem, smem, 0, true, &blocks, &fa);
   out[0] = fa.numRegs;
   out[1] = blocks;
   out[2] = (int)(fa.sharedSizeBytes + smem);

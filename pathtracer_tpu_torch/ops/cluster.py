@@ -93,9 +93,12 @@ SWEEP_GROUP = 64        # rays per sweep decision unit (lane group), the
 STATS = 5               # sweep counters per unit: slots visited, clusters
                         # entered, subtile slab tests, subtiles swept,
                         # cycles (kernel only)
-CULL_WORK = 4           # tree cull counters per packet: inner nodes
+CULL_WORK = 8           # tree cull counters per packet: inner nodes
                         # expanded, leaves reached, clusters emitted (the
-                        # count), cycles (kernel only)
+                        # count); kernel only: clock64 cycles in all, to
+                        # stage the rays and their chunk bounds, and of the
+                        # walk; 32-ray chunks tested ray by ray and decided
+                        # on their bounds
 
 # the JAX package's packed layout (pallas_cluster.py:141-156), read by
 # `from_tpu_arrays`

@@ -37,10 +37,12 @@ BIG_T = float(np.float32(1e30))
 STACK_DEPTH = 64       # per-ray traversal stack of the kernel
 PLAIN_RAY_CHUNK = 16384  # rays per brute-force block of the plain version
 PAIR_WORDS = 16        # 32-bit words per child-pair record (64 bytes)
-WORK = 4               # per-ray kernel counters: inner nodes expanded,
+WORK = 6               # per-ray kernel counters: inner nodes expanded,
                        # triangle tests; clock64 cycles from the warp's turn
                        # on its 32-ray batch to the ray's result and to its
-                       # rays being loaded (kernel only)
+                       # rays being loaded; inner-node steps and triangle
+                       # tests the warp ran with this lane leading (kernel
+                       # only)
 
 
 class PackedBVH(NamedTuple):

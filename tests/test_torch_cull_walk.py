@@ -113,7 +113,7 @@ def test_cull_tree_plain_counts_equal_a_dfs(top_tree):
                         tmax[p:p + tc.BLOCK]) for p in range(0, n, tc.BLOCK)]
     np.testing.assert_array_equal(work[:, :3].numpy(), np.array(want))
     np.testing.assert_array_equal(work[:, 2].numpy(), count[:, 0].numpy())
-    assert (work[:, 3] == 0).all()                     # cycles: kernel only
+    assert (work[:, 3:] == 0).all()                    # kernel only
     assert work[0, 0] > 1 and work[0, 1] > 0           # non-vacuous
     # the kept slots: sorted by (key, cluster id), the smallest pairs
     for p in range(n // tc.BLOCK):
