@@ -1004,8 +1004,7 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     cluster_cull.  CPU tensors take cull_tree_plain; CUDA tensors launch
     the hand-written kernel (replaces the TPU kernel
     pallas_cluster._cull_kernel) or raise.  `work` ((nb, CULL_WORK) int64),
-    optional: each packet's counters (inner nodes expanded, leaves
-    reached, clusters emitted, and the kernel's clock64 cycles)."""
+    optional: each packet's counters (see CULL_WORK)."""
     if org.device.type == 'cpu':
         return cull_tree_plain(cm, org, dirn, tmax, work)
     dev = org.device

@@ -286,8 +286,7 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
     packet_hit_plain; CUDA tensors launch the hand-written kernel
     (replaces the TPU kernel pallas_bvh._traverse_kernel) or raise.
     `work` (N, WORK) int32, optional: the kernel writes each ray's
-    counters there (inner nodes expanded, two slab tests each; triangle
-    tests; clock64 cycles, see WORK)."""
+    counters there (see WORK)."""
     if org.device.type == 'cpu':
         return packet_hit_plain(soup, org, dirn, tmax, tmin)
     dev = org.device
