@@ -29,23 +29,31 @@
    wave under torch.profiler for the sweeps' device time.  Both sweep
    kernels' launch counters must rise; the image must be finite and lit.
 6. Tree-cull phase: a 3.4M-triangle displaced sphere cut into 256-triangle
-   clusters (more than DENSE_CULL_MAX), 1080p primaries.  The tree cull
-   kernel against its plain version on >= 256 packets and every packet
-   that overflowed (counts equal, keys within 1e-6 relative, kept ids
-   equal but for ties at the 128th key), timed on all packets; then the
-   tree tier end to end (two_level_hit with its residual lanes, the
+   clusters (more than DENSE_CULL_MAX), on its 1080p primaries and on one
+   bounce of the primaries that hit (cosine-weighted, from a seeded
+   torch.Generator).  On each set the tree cull kernel equals
+   cull_tree_plain exactly (ids, counts, keys, and inner nodes, leaves and
+   clusters per packet) on >= 256 packets and every packet that
+   overflowed; it is timed on all packets in image order and heaviest
+   first, its per-packet counters are summarized, and its bound counts
+   the slab tests of the 32-ray chunks it tests.  Between the two sets
+   the tree tier end to end (two_level_hit with its residual lanes, the
    bvh_hit_sparse net) against the same mesh on the dense tier: tri equal
    on >= 99.9% of lanes, at most 0.05% of lanes hit in one build only, t
    within 1e-5 relative on equal lanes.  The cull kernel must launch.
 7. Packet phase: the 2k-triangle mesh scene with the mesh uploaded with
-   use_cluster=False (the packet tier).  The packet kernel against its
-   plain version at 1080p primaries (tri equal on >= 99.9% of lanes, the
-   rest ties within 2^-16 relative t or hit/miss flips on at most 0.01%
-   of lanes, t within 1e-5 relative on equal lanes); then Renderer at
-   1920x1080, 3 bounces, compaction on, one warm-up and two timed waves,
-   whose image must agree with the same scene on the cluster tier (< 1%
-   of pixels beyond 1e-3 relative, means within 1%).  The packet kernel
-   must launch.
+   use_cluster=False (the packet tier).  On its 1080p primaries and on one
+   bounce of them the packet kernel equals packet_walk_plain bit for bit
+   on every lane (t, tri, alpha, beta, inner nodes and triangle tests per
+   ray) and agrees with the brute-force plain version (tri equal on >=
+   99.9% of lanes, the rest ties within 2^-16 relative t or hit/miss flips
+   on at most 0.01% of lanes, t within 1e-5 relative on equal lanes); it
+   is timed in ray order and with its 32-ray batches heaviest first, and
+   its counters (cycles per warp, SIMT efficiency) are summarized.  Then
+   Renderer at 1920x1080, 3 bounces, compaction on, one warm-up and two
+   timed waves, whose image must agree with the same scene on the cluster
+   tier (< 1% of pixels beyond 1e-3 relative, means within 1%).  The
+   packet kernel must launch.
 8. Probe phase: the sweep's cost probes at their full shapes.  The three
    entry points (pathtracer_tpu_torch.scripts.prof_sweep, proto_mxu,
    ablate_sweep; the last on its 1,002,528-triangle terrain, built once)
@@ -540,20 +548,22 @@ def cull_set(cm, org, dirn, tmax, name):
     ms_h = cuda_ms(lambda: cl.cull_tree(cm, o_h, d_h, x_h), reps=5)
     ms_p = cuda_ms(lambda: cl.cull_tree_plain(cm, o, d, tx), reps=1,
                    warm=False)
-    inner = int(work[:, 0].sum())
-    m_nodes = cm.top_box.shape[0]
-    ops = inner * 2 * cl.BLOCK * SLAB_OPS
-    nbytes = (m_nodes * 36 + cm.n_clusters * 4 + nb * cl.BLOCK * 28
-              + nb * (8 * cl.MAXC + 4))
+    # the slab tests the kernel makes: 32 rays x 2 children per 32-ray
+    # chunk it tests (the TPU kernel tests all 512 lanes at every node)
+    chunks = int(work[:, 6].sum())
+    ops = chunks * 32 * 2 * SLAB_OPS
+    ops_all_lanes = int(work[:, 0].sum()) * cl.BLOCK * 2 * SLAB_OPS
+    nbytes = (cm.top_pairs.shape[0] * 64 + cm.n_clusters * 4
+              + nb * cl.BLOCK * 28 + nb * (8 * cl.MAXC + 4))
     b_ms, b_by = bound(ops, nbytes)
     rep = dict(packets=nb, overflowed=int(over.numel()), checked=pick.numel(),
                ms=ms_k, ms_heavy_first=ms_h, plain_ms=ms_p, bound_ms=b_ms,
                bound_by=b_by, ops=ops, bytes=nbytes,
+               bound_ms_all_lanes=bound(ops_all_lanes, nbytes)[0],
                cycles=share_report(work[:, 3]),
                stage_share=float(work[:, 4].sum() / work[:, 3].sum()),
                walk_share=float(work[:, 5].sum() / work[:, 3].sum()),
-               ray_chunks=float(work[:, 6].double().mean()),
-               bound_chunks=float(work[:, 7].double().mean()),
+               chunks=float(work[:, 6].double().mean()),
                inner=share_report(work[:, 0]),
                leaves_mean=float(work[:, 1].double().mean()),
                count=share_report(work[:, 2]))
@@ -561,7 +571,8 @@ def cull_set(cm, org, dirn, tmax, name):
         f'{pick.numel()} equal to the plain version (ids, counts, keys, '
         f'counters); kernel {ms_k:.4f} ms (packets heaviest first '
         f'{ms_h:.4f} ms), plain {ms_p:.3f} ms, bound {b_ms:.4f} ms '
-        f'({b_by})')
+        f'({b_by}; {rep["bound_ms_all_lanes"]:.4f} ms testing all 512 lanes '
+        f'at every node)')
     log(f'  per packet: cycles mean {rep["cycles"]["mean"]:.0f} p99 '
         f'{rep["cycles"]["p99"]:.0f} max {rep["cycles"]["max"]:.0f}, '
         f'heaviest 1% {rep["cycles"]["top1_share"]:.3f} of cycles; inner '
@@ -571,10 +582,10 @@ def cull_set(cm, org, dirn, tmax, name):
         f'{rep["count"]["mean"]:.2f} max {rep["count"]["max"]:.0f}; cycles '
         f'of the heaviest 1% of packets by emitted count: '
         f'{heavy_cycles(work[:, 2], work[:, 3]):.3f} of all')
-    log(f'  cycles staging rays and chunk bounds {rep["stage_share"]:.3f}, '
-        f'walking {rep["walk_share"]:.3f}, merging the rest; per packet '
-        f'{rep["ray_chunks"]:.1f} 32-ray chunks tested ray by ray, '
-        f'{rep["bound_chunks"]:.1f} decided on their bounds')
+    log(f'  cycles staging rays {rep["stage_share"]:.3f}, walking '
+        f'{rep["walk_share"]:.3f}, merging the rest; per packet '
+        f'{rep["chunks"]:.1f} 32-ray chunks tested (against '
+        f'{16 * rep["inner"]["mean"]:.1f} for all 512 lanes at every node)')
     return rep
 
 
@@ -1086,19 +1097,8 @@ def build_kernels():
         log(f'[{k}] {m.strip()}')
 
 
-PHASES = ('kernel', 'reference', 'main', 'tree', 'packet', 'probe')
-
-
 def main():
-    import argparse
     import torch
-    ap = argparse.ArgumentParser()
-    ap.add_argument('--phases', default=','.join(PHASES),
-                    help='comma-separated subset of ' + ','.join(PHASES)
-                    + ' (default: all; the contract run takes all)')
-    phases = ap.parse_args().phases.split(',')
-    if set(phases) - set(PHASES):
-        raise SystemExit(f'unknown phases {set(phases) - set(PHASES)}')
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device; none found')
     log(f'python {sys.version.split()[0]} torch {torch.__version__} '
@@ -1113,31 +1113,23 @@ def main():
     log(f'kernel build {time.perf_counter() - t0:.1f} s')
 
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
-    kernels = []
-    if {'kernel', 'main'} & set(phases):
-        t0 = time.perf_counter()
-        sc, n_tris = big_scene(dev)
-        log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
-            f'{sc.meshes[0].n_clusters} clusters, backface cull '
-            f'{sc.meshes[0].backface_cull}')
-        if 'kernel' in phases:
-            kernels = kernel_phase(sc, cam, dev)
-        if 'reference' in phases:
-            reference_phase()
-        if 'main' in phases:
-            launches = main_path(sc, cam, card)
-            for k in kernels:
-                k['launches'] = launches[k['name']]
-        del sc
-    elif 'reference' in phases:
-        reference_phase()
+    t0 = time.perf_counter()
+    sc, n_tris = big_scene(dev)
+    log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
+        f'{sc.meshes[0].n_clusters} clusters, backface cull '
+        f'{sc.meshes[0].backface_cull}')
+    kernels = kernel_phase(sc, cam, dev)
+    reference_phase()
+    launches = main_path(sc, cam, card)
+    for k in kernels:
+        k['launches'] = launches[k['name']]
+    del sc
     for name, fn in (('tree', lambda: [tree_phase(dev, cam)]),
                      ('packet', lambda: [packet_phase(dev, cam, card)]),
                      ('probe', lambda: probe_phase(dev))):
-        if name in phases:
-            t0 = time.perf_counter()
-            kernels.extend(fn())
-            log(f'{name} phase {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        kernels.extend(fn())
+        log(f'{name} phase {time.perf_counter() - t0:.1f} s')
     log(card)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -20,9 +20,12 @@
 // 128th.)  Leaves holding several clusters emit each with the leaf's key;
 // a root that is itself a leaf is emitted when some lane is live for it.
 //
-// What bounds it on an H100: per expanded inner node 512 lanes x 2 slab
-// tests of about 25 fp32 operations, 0.04 ms for the 1080p primaries of
-// a 19k-cluster tree; the bytes (nodes, rays, slots) are less.  The first
+// What bounds it on an H100: the slab tests, 32 rays x 2 children of 23
+// fp32 operations for each 32-ray chunk it tests (below), 0.029 ms for the
+// 1080p primaries of a 19k-cluster tree (324 chunks per packet) and 0.045
+// ms for one bounce of them (1,815); the bytes (nodes, rays, slots) are
+// less.  Testing all 512 lanes at every node, as the TPU kernel does,
+// would cost 0.039 and 0.186 ms (PERF.md).  The first
 // version, one 512-thread block per packet walking depth first with one
 // __syncthreads and a 16-warp reduction per node and its dependent node
 // loads, took about 4,300 cycles per inner node at 3 blocks per SM, and
@@ -41,14 +44,10 @@
 //     16 bits in each lane (lane l owns rays l + 32 k), and only the chunks
 //     k with a live ray in some lane are tested, four at a time while four
 //     remain (eight slab tests in flight per lane, no shuffle or ballot in
-//     the loop): deep nodes of a coherent packet cost a chunk or two;
-//   * before that, each chunk's bounds (its rays' extreme origins, 1/d and
-//     tmax) are tested against each child: rounding is monotone, so the
-//     rounded slab values of every ray lie within those of the bounds, and
-//     a chunk found all live or all dead there is so ray by ray.  An inner
-//     child takes such chunks without a ray test; only the chunks that
-//     straddle a box (and, for a leaf child, which needs its packet-min
-//     key, the chunks not all dead) are tested ray by ray;
+//     the loop): deep nodes of a coherent packet cost a chunk or two.  (A
+//     test of whole chunks on their rays' bounds first settled 43% of the
+//     primaries' chunks and none of the bounce rays'; it took 5% off the
+//     primaries and added 6 to 11% to the bounce rays, so it went);
 //   * a warp walks depth first on its own, testing a node's two children
 //     (then two votes and, for a leaf, a shuffle-min; no barrier), with its
 //     own stack of (node, mask) entries.  The walk starts on warp 0; a warp
@@ -69,10 +68,10 @@
 //     when it fills, the warp keeps its 128 smallest and drops later pairs
 //     that are not below the 128th; the end merges the eight buffers by
 //     rank and writes the 128 smallest, sorted.
-// On the 1080p primaries of a 19k-cluster tree this takes about a quarter
-// of the first version's time.  What holds it now: the launch's end, as
-// the heaviest packets (up to 452 nodes) start late; the same packets
-// ordered heaviest first take about 30% less (the first round of a query
+// On the 1080p primaries of a 19k-cluster tree this takes about 28% of the
+// first version's time.  What holds it now: the launch's end, as the
+// heaviest packets (up to 452 nodes) start late; the same packets ordered
+// heaviest first take about 23% less (the first round of a query
 // has no counts to order them by).  And the walk of a coherent packet is
 // one path down the tree, so about two warps per scheduler are busy and a
 // node's chain of dependent steps sets the pace (PERF.md).
@@ -110,18 +109,13 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 struct Shared {
   float4 ro[RAYS];          // origin xyz, tmax
   float4 ri[RAYS];          // IEEE 1/d xyz, unused
-  // per 32-ray chunk, bounds of its rays: (origin min xyz, tmax min),
-  // (origin max xyz, tmax max), (1/d min xyz, usable), (1/d max xyz, 0);
-  // usable: origins and 1/d finite, each 1/d of one sign, no tmax NaN
-  // (chunk_status)
-  float4 cb[CHUNKS][4];
   u64 buf[NW][CB];         // (key bits << 32 | cluster id), per warp
   int pool[NW][ENTRY];     // stack entries handed to waiting warps
   int state;               // waiting warps | pool entries << 8 (under lock)
   int lock;
   int fill[NW];
-  int total[5];            // inner nodes, leaves reached, clusters,
-                           // chunks tested ray by ray, decided on bounds
+  int total[4];            // inner nodes, leaves reached, clusters,
+                           // 32-ray chunks tested
 };
 
 struct Box {
@@ -179,89 +173,6 @@ __device__ __forceinline__ bool slab(const Box& b, float4 o, float4 inv,
   return live;
 }
 
-// Range of the rounded products c * i over c in [c0, c1], i in [i0, i1]
-// (finite): rounding is monotone, so the rounded corners bound them.
-__device__ __forceinline__ void prod_range(float c0, float c1, float i0,
-                                           float i1, float* lo, float* hi) {
-  const float p0 = __fmul_rn(c0, i0), p1 = __fmul_rn(c0, i1),
-              p2 = __fmul_rn(c1, i0), p3 = __fmul_rn(c1, i1);
-  *lo = fminf(fminf(p0, p1), fminf(p2, p3));
-  *hi = fmaxf(fmaxf(p0, p1), fmaxf(p2, p3));
-}
-
-// One axis of the slab over a chunk: ranges of min(t1, t2) and max(t1,
-// t2) over its rays, t = (lo - o) * (1/d) rounded as slab() rounds it.
-__device__ __forceinline__ void axis_range(float l, float h, float omin,
-                                           float omax, float imin, float imax,
-                                           float* nlo, float* nhi, float* flo,
-                                           float* fhi) {
-  float a0, a1, b0, b1;
-  prod_range(__fsub_rn(l, omax), __fsub_rn(l, omin), imin, imax, &a0, &a1);
-  prod_range(__fsub_rn(h, omax), __fsub_rn(h, omin), imin, imax, &b0, &b1);
-  *nlo = fminf(a0, b0);
-  *nhi = fminf(a1, b1);
-  *flo = fmaxf(a0, b0);
-  *fhi = fmaxf(a1, b1);
-}
-
-enum { MIXED = 0, ALL_LIVE = 1, ALL_DEAD = 2 };
-
-// Whether every ray of a chunk is live for box b in slab() (ALL_LIVE),
-// none is (ALL_DEAD), or either may hold (MIXED), from the chunk's bounds:
-// each ray's rounded slab values lie within the bounds' rounded values, so
-// a decision on the bounds is the decision of every ray.  A chunk whose
-// rays have a 1/d of either sign, or one not finite, is MIXED.
-__device__ __forceinline__ int chunk_status(const Box& b,
-                                            const float4* __restrict__ c) {
-  const float4 o0 = c[0], o1 = c[1], i0 = c[2], i1 = c[3];
-  if (i0.w == 0.f) return MIXED;
-  float n0, n1, f0, f1, tmin_lo, tmin_hi, tmax_lo, tmax_hi;
-  axis_range(b.lx, b.hx, o0.x, o1.x, i0.x, i1.x, &tmin_lo, &tmin_hi,
-             &tmax_lo, &tmax_hi);
-  axis_range(b.ly, b.hy, o0.y, o1.y, i0.y, i1.y, &n0, &n1, &f0, &f1);
-  tmin_lo = fmaxf(tmin_lo, n0);
-  tmin_hi = fmaxf(tmin_hi, n1);
-  tmax_lo = fminf(tmax_lo, f0);
-  tmax_hi = fminf(tmax_hi, f1);
-  axis_range(b.lz, b.hz, o0.z, o1.z, i0.z, i1.z, &n0, &n1, &f0, &f1);
-  tmin_lo = fmaxf(tmin_lo, n0);
-  tmin_hi = fmaxf(tmin_hi, n1);
-  tmax_lo = fminf(tmax_lo, f0);
-  tmax_hi = fminf(tmax_hi, f1);
-  // live = (tmax >= max(tmin, 0)) & (tmin < tcap)
-  if (tmax_lo >= fmaxf(tmin_hi, 0.f) && tmin_hi < o0.w) return ALL_LIVE;
-  if (tmax_hi < fmaxf(tmin_lo, 0.f) || tmin_lo >= o1.w) return ALL_DEAD;
-  return MIXED;
-}
-
-// Bounds of chunk k's rays into s.cb[k], by one warp.
-__device__ void chunk_bounds(Shared& s, int k, int lane) {
-  const int r = lane + 32 * k;
-  const float4 o = s.ro[r], inv = s.ri[r];
-  float v[14] = {o.x, o.y, o.z, o.w, inv.x, inv.y, inv.z,
-                 o.x, o.y, o.z, o.w, inv.x, inv.y, inv.z};
-  for (int d = 16; d > 0; d >>= 1) {
-#pragma unroll
-    for (int j = 0; j < 7; ++j) {
-      v[j] = fminf(v[j], __shfl_xor_sync(FULL, v[j], d));
-      v[7 + j] = fmaxf(v[7 + j], __shfl_xor_sync(FULL, v[7 + j], d));
-    }
-  }
-  const bool fin = isfinite(o.x) && isfinite(o.y) && isfinite(o.z) &&
-                   o.w == o.w &&
-                   isfinite(inv.x) && isfinite(inv.y) && isfinite(inv.z) &&
-                   inv.x != 0.f && inv.y != 0.f && inv.z != 0.f;
-  const bool usable = __all_sync(FULL, fin) && (v[4] > 0.f || v[11] < 0.f) &&
-                      (v[5] > 0.f || v[12] < 0.f) &&
-                      (v[6] > 0.f || v[13] < 0.f);
-  if (lane == 0) {
-    s.cb[k][0] = make_float4(v[0], v[1], v[2], v[3]);
-    s.cb[k][1] = make_float4(v[7], v[8], v[9], v[10]);
-    s.cb[k][2] = make_float4(v[4], v[5], v[6], usable ? 1.f : 0.f);
-    s.cb[k][3] = make_float4(v[11], v[12], v[13], 0.f);
-  }
-}
-
 // Liveness and packet-min keys of a node's two children, accumulated per
 // lane over the rays it tests.
 struct Acc {
@@ -270,33 +181,17 @@ struct Acc {
 };
 
 // One warp tests a node's two children on the node's live rays: the lane
-// owns rays lane + 32 k, live where bit k of m is set.  First each chunk's
-// bounds against each child (lanes 0-15: child a, 16-31: child b): an
-// inner child takes the chunks found all live or all dead as found.  The
-// other chunks k with a live ray in some lane (and, for a leaf child, which
-// needs its packet-min key, every chunk not all dead) are tested ray by
-// ray, four at a time while four remain, so eight slab tests per lane are
-// in flight.  Returns this lane's masks of the children.
+// owns rays lane + 32 k, live where bit k of m is set.  The chunks k with
+// a live ray in some lane are tested, four at a time while four remain, so
+// eight slab tests per lane are in flight.  Returns this lane's masks of
+// the children.
 __device__ __forceinline__ void test_node(const Node& nd, const Shared& s,
                                           unsigned m, int lane, Acc& acc,
                                           unsigned* ma, unsigned* mb,
-                                          int& n_ray, int& n_bound) {
-  const unsigned live_any = __reduce_or_sync(FULL, m);
-  const int st = chunk_status(lane < 16 ? nd.a : nd.b, s.cb[lane & 15]);
-  const unsigned all_live = __ballot_sync(FULL, st == ALL_LIVE);
-  const unsigned all_dead = __ballot_sync(FULL, st == ALL_DEAD);
-  const unsigned live_a = all_live & 0xffffu, live_b = all_live >> 16;
-  const unsigned dead_a = all_dead & 0xffffu, dead_b = all_dead >> 16;
-  const unsigned need_a = nd.ca > 0 ? ~dead_a : ~(live_a | dead_a);
-  const unsigned need_b = nd.cb > 0 ? ~dead_b : ~(live_b | dead_b);
-  unsigned todo = live_any & (need_a | need_b);
-  n_ray += __popc(todo);
-  n_bound += __popc(live_any & ~todo);
-  // the chunks decided on their bounds (inner children only)
-  unsigned wa = nd.ca > 0 ? 0u : m & live_a & ~todo;
-  unsigned wb = nd.cb > 0 ? 0u : m & live_b & ~todo;
-  acc.la |= wa != 0u;
-  acc.lb |= wb != 0u;
+                                          int& n_chunks) {
+  unsigned todo = __reduce_or_sync(FULL, m);
+  n_chunks += __popc(todo);
+  unsigned wa = 0u, wb = 0u;
   auto chunk = [&](int k) {
     const bool on = (m >> k) & 1u;
     const int r = lane + 32 * k;
@@ -401,20 +296,18 @@ cull_kernel(const float4* __restrict__ pairs, int cap,
                           __fdiv_rn(1.f, pd[3 * i + 1]),
                           __fdiv_rn(1.f, pd[3 * i + 2]), 0.f);
   }
-  if (tid < 5) s.total[tid] = 0;
+  if (tid < 4) s.total[tid] = 0;
   if (tid == 0) {
     s.state = NW - 1;      // warp 0 starts at the root, the others wait
     s.lock = 0;
   }
-  __syncthreads();
-  for (int k = warp; k < CHUNKS; k += NW) chunk_bounds(s, k, lane);
   __syncthreads();
   const long long t_walk = clock64();
 
   // per-warp state, the same in every lane of the warp
   u64* buf = s.buf[warp];
   int fill = 0, n_inner = 0, n_leaves = 0, count = 0;
-  int n_ray_chunks = 0, n_bound_chunks = 0;
+  int n_chunks = 0;
   u64 bar = ~0ull;         // a pair not below it cannot be kept
 
   // clusters order[start, start + cnt) reached with packet-min key `key`
@@ -513,7 +406,7 @@ cull_kernel(const float4* __restrict__ pairs, int cap,
       from = -1;
       Acc acc = {false, false, BIG_T, BIG_T};
       unsigned ma, mb;
-      test_node(nd, s, m, lane, acc, &ma, &mb, n_ray_chunks, n_bound_chunks);
+      test_node(nd, s, m, lane, acc, &ma, &mb, n_chunks);
       const bool la = __any_sync(FULL, acc.la);
       const bool lb = __any_sync(FULL, acc.lb);
       int a = -1, b = -1;
@@ -599,8 +492,7 @@ cull_kernel(const float4* __restrict__ pairs, int cap,
     atomicAdd(&s.total[0], n_inner);
     atomicAdd(&s.total[1], n_leaves);
     atomicAdd(&s.total[2], count);
-    atomicAdd(&s.total[3], n_ray_chunks);
-    atomicAdd(&s.total[4], n_bound_chunks);
+    atomicAdd(&s.total[3], n_chunks);
   }
   __syncthreads();
   const long long t_merge = clock64();
@@ -626,7 +518,7 @@ cull_kernel(const float4* __restrict__ pairs, int cap,
   if (tid == 0) {
     count_out[p] = s.total[2];
     if (work) {
-      long long* w = work + 8 * (size_t)p;
+      long long* w = work + 7 * (size_t)p;
       w[0] = s.total[0];
       w[1] = s.total[1];
       w[2] = s.total[2];
@@ -634,7 +526,6 @@ cull_kernel(const float4* __restrict__ pairs, int cap,
       w[4] = t_walk - t_start;
       w[5] = t_merge - t_walk;
       w[6] = s.total[3];
-      w[7] = s.total[4];
     }
   }
 }
@@ -658,10 +549,9 @@ cudaError_t set_smem(size_t dyn) {
 // (C,) int32 leaf position -> cluster id; org, dir (nb*512, 3) f32, tmax
 // (nb*512,) f32.  Outputs ids (nb, 128) int32 (-1 padded), count (nb,)
 // int32, keys (nb, 128) f32 (1e30 padded) and, when work is not null,
-// (nb, 8) int64 counters per packet: inner nodes expanded, leaves
-// reached, clusters emitted; clock64 cycles in all, to stage the rays and
-// their chunk bounds, and of the walk; 32-ray chunks tested ray by ray and
-// decided on their bounds.  Returns the first CUDA error of the set-up or
+// (nb, 7) int64 counters per packet: inner nodes expanded, leaves
+// reached, clusters emitted; clock64 cycles in all, to stage the rays, and
+// of the walk; 32-ray chunks tested (each 32 rays x 2 slab tests).  Returns the first CUDA error of the set-up or
 // the launch, else 0.
 extern "C" int cluster_cull_tree(const float* pairs, int depth,
                                  const float* root, int root_cnt,

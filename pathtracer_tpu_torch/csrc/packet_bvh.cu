@@ -36,12 +36,12 @@
 // memory, 12-byte strided ray loads, no balance across rays.  This one:
 //   * one 64-byte child-pair record per inner node (both children's
 //     boxes, their records or leaf ranges; PackedBVH.pairs), read as four
-//     16-byte loads, from shared memory when the table fits (one copy per
-//     block, so the blocks are persistent: one per resident slot, each
-//     loading the table once), else read-only loads through L1;
+//     16-byte read-only loads through L1 (a copy of the table in each
+//     block's shared memory was no faster);
 //   * each thread's stack in shared memory, as deep as the tree (entry i
 //     of thread j at [i * THREADS + j]: no bank conflicts);
-//   * warps fetch 32 consecutive rays at a time from an atomic counter,
+//   * persistent blocks, one per resident slot, whose warps fetch 32
+//     consecutive rays at a time from an atomic counter,
 //     staging their origins and directions through shared memory (three
 //     coalesced 128-byte loads per array), so a warp with cheap rays takes
 //     more of them;
@@ -61,8 +61,8 @@
 // compare, branch) is not hidden by 8 warps per scheduler.  Loading the
 // rays takes about a tenth, and the heaviest batches run last: ordered
 // heaviest first the same rays take about 10% less.  Variants with the
-// table read through L1, 128-thread blocks, rays copied ahead by cp.async
-// or the counter read ahead were no faster (PERF.md).
+// table in shared memory, 128-thread blocks, rays copied ahead by
+// cp.async or the counter read ahead were no faster (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,7 +73,6 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int STACK_DEPTH = 64;          // the walk's stack (pack_bvh refuses
                                          // trees this deep)
-constexpr int NODE_SMEM_MAX = 64 * 1024;  // node table bytes kept in shared
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
@@ -89,12 +88,6 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
-
-// A node record's 16 bytes: from shared memory, or read-only through L1.
-template <bool SMEM>
-__device__ __forceinline__ float4 ld4(const float4* p) {
-  return SMEM ? *p : __ldg(p);
-}
 
 // Slab test of box [lo xyz, hi xyz] (pallas_bvh._traverse_kernel
 // node_live): live iff the exit is at or past max(entry, 0) and the entry
@@ -153,28 +146,18 @@ __device__ __forceinline__ bool tri_test(const float4* __restrict__ row,
          (t == t);
 }
 
-template <bool SMEM_NODES, bool COUNT>
+template <bool COUNT>
 __global__ void __launch_bounds__(THREADS, 2)
-packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
-              int stack_cap, const float4* __restrict__ soup,
+packet_kernel(const float4* __restrict__ nodes, int root_cnt, int stack_cap,
+              const float4* __restrict__ soup,
               const float* __restrict__ org, const float* __restrict__ dir,
               const float* __restrict__ tmax, const float* __restrict__ tmin,
               int n, int* __restrict__ next_ray, float* __restrict__ t_out,
               int* __restrict__ tri_out, float* __restrict__ al_out,
               float* __restrict__ be_out, int* __restrict__ work) {
-  extern __shared__ float4 smem[];
+  extern __shared__ int s_stack[];
   __shared__ float s_ray[WARPS][2][96];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float4* nodes = pairs;
-  int* s_stack;
-  if (SMEM_NODES) {
-    for (int i = tid; i < 4 * n_pairs; i += THREADS) smem[i] = __ldg(pairs + i);
-    nodes = smem;
-    s_stack = reinterpret_cast<int*>(smem + 4 * n_pairs);
-    __syncthreads();
-  } else {
-    s_stack = reinterpret_cast<int*>(smem);
-  }
   float* so = s_ray[warp][0];
   float* sd = s_ray[warp][1];
 
@@ -220,7 +203,7 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
         if (sp == 0) return false;
         // a pushed entry names its parent record and side
         const int e = s_stack[(--sp) * THREADS + tid];
-        const float4 w = ld4<SMEM_NODES>(nodes + 4 * (e >> 1) + 3);
+        const float4 w = __ldg(nodes + 4 * (e >> 1) + 3);
         ref = __float_as_int((e & 1) ? w.y : w.x);
         cnt = __float_as_int((e & 1) ? w.w : w.z);
         return true;
@@ -230,10 +213,8 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
         if (COUNT && lane == __ffs(__activemask()) - 1) ++x_nodes;
         ++n_nodes;
         const float4* rec = nodes + 4 * ref;
-        const float4 q0 = ld4<SMEM_NODES>(rec);
-        const float4 q1 = ld4<SMEM_NODES>(rec + 1);
-        const float4 q2 = ld4<SMEM_NODES>(rec + 2);
-        const float4 q3 = ld4<SMEM_NODES>(rec + 3);
+        const float4 q0 = __ldg(rec), q1 = __ldg(rec + 1),
+                     q2 = __ldg(rec + 2), q3 = __ldg(rec + 3);
         const bool la =
             slab_live(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ray, best);
         const bool lb =
@@ -294,25 +275,13 @@ packet_kernel(const float4* __restrict__ pairs, int n_pairs, int root_cnt,
   }
 }
 
-size_t smem_bytes(bool smem_nodes, int n_pairs, int stack_cap) {
-  return (smem_nodes ? (size_t)n_pairs * 64 : 0) +
-         (size_t)stack_cap * THREADS * 4;
-}
-
-template <bool S, bool C>
-cudaError_t occupancy(size_t smem, int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute(
-      packet_kernel<S, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, packet_kernel<S, C>, THREADS, smem);
-  return e;
+size_t smem_bytes(int stack_cap) {
+  return (size_t)stack_cap * THREADS * 4;
 }
 
 struct Args {
   const float4 *pairs, *soup;
-  int n_pairs, root_cnt, cap;
+  int root_cnt, cap;
   const float *org, *dir, *tmax, *tmin;
   int n;
   int* next_ray;
@@ -324,12 +293,17 @@ struct Args {
 
 // Resident blocks per SM of one instance (C: with the counters) and its
 // launch, one persistent block per resident slot (info: no launch).
-template <bool S, bool C>
-cudaError_t run(const Args& a, size_t smem, cudaStream_t stream, bool info,
-                int* blocks, cudaFuncAttributes* fa) {
-  cudaError_t e = occupancy<S, C>(smem, blocks);
-  if (e == cudaSuccess && fa)
-    e = cudaFuncGetAttributes(fa, packet_kernel<S, C>);
+template <bool C>
+cudaError_t run(const Args& a, cudaStream_t stream, bool info, int* blocks,
+                cudaFuncAttributes* fa) {
+  const size_t smem = smem_bytes(a.cap);
+  cudaError_t e = cudaFuncSetAttribute(
+      packet_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, packet_kernel<C>, THREADS, smem);
+  if (e == cudaSuccess && fa) e = cudaFuncGetAttributes(fa, packet_kernel<C>);
   if (e != cudaSuccess || info) return e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -340,22 +314,10 @@ cudaError_t run(const Args& a, size_t smem, cudaStream_t stream, bool info,
   int grid = *blocks * sms;
   const int need = (a.n + THREADS - 1) / THREADS;
   if (grid > need) grid = need;
-  packet_kernel<S, C><<<grid, THREADS, smem, stream>>>(
-      a.pairs, a.n_pairs, a.root_cnt, a.cap, a.soup, a.org, a.dir, a.tmax,
-      a.tmin, a.n, a.next_ray, a.t_out, a.tri_out, a.al_out, a.be_out,
-      a.work);
+  packet_kernel<C><<<grid, THREADS, smem, stream>>>(
+      a.pairs, a.root_cnt, a.cap, a.soup, a.org, a.dir, a.tmax, a.tmin, a.n,
+      a.next_ray, a.t_out, a.tri_out, a.al_out, a.be_out, a.work);
   return cudaGetLastError();
-}
-
-cudaError_t dispatch(const Args& a, bool smem_nodes, size_t smem,
-                     cudaStream_t stream, bool info, int* blocks,
-                     cudaFuncAttributes* fa) {
-  const bool c = a.work != nullptr;
-  if (smem_nodes)
-    return c ? run<true, true>(a, smem, stream, info, blocks, fa)
-             : run<true, false>(a, smem, stream, info, blocks, fa);
-  return c ? run<false, true>(a, smem, stream, info, blocks, fa)
-           : run<false, false>(a, smem, stream, info, blocks, fa);
 }
 
 int stack_cap(int depth) {
@@ -376,39 +338,36 @@ int stack_cap(int depth) {
 // this lane leading (their sums over 32 x the lanes' steps are the SIMT
 // efficiency).  Returns the first CUDA error of the set-up or the launch,
 // else 0.
-extern "C" int packet_bvh_hit(const float* pairs, int n_pairs, int root_cnt,
-                              int depth, const float* soup,
-                              const float* org, const float* dir,
-                              const float* tmax, const float* tmin, int n,
-                              int* next_ray, float* t_out, int* tri_out,
-                              float* al_out, float* be_out, int* work,
-                              void* stream) {
+extern "C" int packet_bvh_hit(const float* pairs, int root_cnt, int depth,
+                              const float* soup, const float* org,
+                              const float* dir, const float* tmax,
+                              const float* tmin, int n, int* next_ray,
+                              float* t_out, int* tri_out, float* al_out,
+                              float* be_out, int* work, void* stream) {
   if (n <= 0) return 0;
-  const int cap = stack_cap(depth);
-  const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
   const Args a = {reinterpret_cast<const float4*>(pairs),
-                  reinterpret_cast<const float4*>(soup), n_pairs, root_cnt,
-                  cap, org, dir, tmax, tmin, n, next_ray, t_out, tri_out,
-                  al_out, be_out, work};
+                  reinterpret_cast<const float4*>(soup), root_cnt,
+                  stack_cap(depth), org, dir, tmax, tmin, n, next_ray, t_out,
+                  tri_out, al_out, be_out, work};
   int blocks = 0;
-  return (int)dispatch(a, in_smem, smem_bytes(in_smem, n_pairs, cap),
-                       (cudaStream_t)stream, false, &blocks, nullptr);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(work ? run<true>(a, st, false, &blocks, nullptr)
+                    : run<false>(a, st, false, &blocks, nullptr));
 }
 
-// out[4] for a tree of n_pairs records and the given depth: registers per
-// thread, resident blocks per SM, shared bytes per block (static and
-// dynamic), threads per block, of the instance that runs without counters.
-// Returns the first CUDA error, else 0.
-extern "C" int packet_bvh_info(int n_pairs, int depth, int* out) {
-  const bool in_smem = (size_t)n_pairs * 64 <= NODE_SMEM_MAX;
-  const size_t smem = smem_bytes(in_smem, n_pairs, stack_cap(depth));
+// out[4] for a tree of the given depth: registers per thread, resident
+// blocks per SM, shared bytes per block (static and dynamic), threads per
+// block, of the instance that runs without counters.  Returns the first
+// CUDA error, else 0.
+extern "C" int packet_bvh_info(int depth, int* out) {
   Args a = {};
+  a.cap = stack_cap(depth);
   cudaFuncAttributes fa;
   int blocks = 0;
-  const cudaError_t e = dispatch(a, in_smem, smem, 0, true, &blocks, &fa);
+  const cudaError_t e = run<false>(a, 0, true, &blocks, &fa);
   out[0] = fa.numRegs;
   out[1] = blocks;
-  out[2] = (int)(fa.sharedSizeBytes + smem);
+  out[2] = (int)(fa.sharedSizeBytes + smem_bytes(a.cap));
   out[3] = THREADS;
   return (int)e;
 }

@@ -93,12 +93,11 @@ SWEEP_GROUP = 64        # rays per sweep decision unit (lane group), the
 STATS = 5               # sweep counters per unit: slots visited, clusters
                         # entered, subtile slab tests, subtiles swept,
                         # cycles (kernel only)
-CULL_WORK = 8           # tree cull counters per packet: inner nodes
+CULL_WORK = 7           # tree cull counters per packet: inner nodes
                         # expanded, leaves reached, clusters emitted (the
                         # count); kernel only: clock64 cycles in all, to
-                        # stage the rays and their chunk bounds, and of the
-                        # walk; 32-ray chunks tested ray by ray and decided
-                        # on their bounds
+                        # stage the rays, and of the walk; 32-ray chunks
+                        # tested (32 rays x 2 slab tests each)
 
 # the JAX package's packed layout (pallas_cluster.py:141-156), read by
 # `from_tpu_arrays`

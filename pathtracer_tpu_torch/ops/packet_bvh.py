@@ -253,10 +253,10 @@ def load_kernels(log=None) -> ctypes.CDLL:
     if _lib_handle is None:
         lib = ctypes.CDLL(device_mod.build_cuda('packet_bvh', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.packet_bvh_hit.argtypes = [ptr, i32, i32, i32] + [ptr] * 5 \
+        lib.packet_bvh_hit.argtypes = [ptr, i32, i32] + [ptr] * 5 \
             + [i32] + [ptr] * 7
         lib.packet_bvh_hit.restype = i32
-        lib.packet_bvh_info.argtypes = [i32, i32, ptr]
+        lib.packet_bvh_info.argtypes = [i32, ptr]
         lib.packet_bvh_info.restype = i32
         _lib_handle = lib
     return _lib_handle
@@ -267,8 +267,7 @@ def kernel_info(packed: PackedBVH) -> tuple:
     block, threads per block) of the packet kernel on this tree, from the
     CUDA runtime."""
     buf = (ctypes.c_int * 4)()
-    rc = load_kernels().packet_bvh_info(packed.pairs.shape[0], packed.depth,
-                                        buf)
+    rc = load_kernels().packet_bvh_info(packed.depth, buf)
     if rc != 0:
         raise RuntimeError(f'packet_bvh_info failed: CUDA error {rc}')
     return tuple(buf)
@@ -320,9 +319,9 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
     root_cnt = int(packed.nb[0]) if packed.pairs.shape[0] == 0 else 0
     next_ray = torch.zeros(1, dtype=i32, device=dev)
     rc = load_kernels().packet_bvh_hit(
-        packed.pairs.data_ptr(), packed.pairs.shape[0], root_cnt,
-        packed.depth, table.data_ptr(), org.data_ptr(), dirn.data_ptr(),
-        tmax.data_ptr(), tmin.data_ptr(), n, next_ray.data_ptr(),
+        packed.pairs.data_ptr(), root_cnt, packed.depth, table.data_ptr(),
+        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), n,
+        next_ray.data_ptr(),
         t.data_ptr(), tri.data_ptr(), al.data_ptr(), be.data_ptr(),
         0 if work is None else work.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -332,17 +332,21 @@ def _bounce_like(dev, n, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('rays', ['random', 'bounce', 'one-leaf'])
+@pytest.mark.parametrize('rays', ['random', 'bounce', 'one-leaf',
+                                  'big-tree'])
 def test_packet_hit_equals_its_walk(cuda, rays):
     """The packet kernel equals packet_walk_plain bit for bit: t, tri,
     alpha, beta and both per-ray counters, with tmin and bounded lanes;
-    also on a tree whose root is a leaf."""
-    tri = _sphere(32)
+    also on a tree whose root is a leaf and on one of 7,812 triangles
+    (2,453 records, 157 KB, near the tier's 8,000-triangle limit)."""
+    tri = _sphere(63 if rays == 'big-tree' else 32)
     if rays == 'one-leaf':
         tri = tri[:3]
     fb = tb.build_bvh(tri)
     packed = tp.pack_bvh(fb, device=cuda)
     assert (packed.pairs.shape[0] == 0) == (rays == 'one-leaf')
+    if rays == 'big-tree':
+        assert packed.pairs.shape[0] * 64 > 128 * 1024
     soup = tt.make_soup(tri[fb.order], device=cuda)
     n = 8 * tc.BLOCK + 77                          # a ragged last warp
     if rays == 'bounce':
