@@ -99,6 +99,9 @@ SLAB_OPS = 23           # one ray x box slab test
 TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
 EPI_PAIR_OPS = 20       # one lane x triangle of the probe epilogue
 EDGE_PAIR_OPS = 41      # one probe edge-matrix test (sweep_micro.cu)
+RADIANCE = 196964.7     # the gradient loss's scale (tests/test_gradients.py)
+DESCENT_TARGET = [0.8, 0.3, 0.2]   # g_kd of the descent's target image
+DESCENT_LR = 1.0
 
 
 def log(*a):
@@ -455,6 +458,236 @@ def main_path(sc, cam, card):
         + ', '.join(f'{k} {v:.1f} ms' for k, v in sweeps_ms.items())
         + f'; all {n_kern} kernels {busy_ms:.1f} ms (sum of kernel times)')
     return launches
+
+
+def flagship_scene(dev):
+    """bench.py's analytic flagship (:75-82): Phong, mirror and glass
+    spheres on the default slate."""
+    from pathtracer_tpu_torch.scene import scene as scn
+    objs = scn.default_objects()
+    objs.append(scn.sphere((0.0, -17.0, 0.0), 10.0, kd=(0.7, 0.3, 0.2),
+                           ks=(0.1, 0.1, 0.1), ne=(30.0, 30.0, 30.0)))
+    objs.append(scn.sphere((-16.0, -20.0, -10.0), 7.0, miroir=True))
+    objs.append(scn.sphere((17.0, -19.0, -5.0), 8.0, transp=True,
+                           refr_index=1.4))
+    return scn.build_scene(objs, scn.default_light_intensity(), device=dev)
+
+
+def timed(fn):
+    """(fn(), milliseconds) of one call, by CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def spread(ms):
+    """Median, min and max of timed runs (ms), and the runs."""
+    return dict(median=float(np.median(ms)), min=float(min(ms)),
+                max=float(max(ms)), runs=[float(x) for x in ms])
+
+
+def mean_image(sc, cam, cp, cfg, leaves):
+    """render_unsplatted's mean image of sc with `leaves` replaced (names
+    to tensors; g_* names are mesh 0's per-group materials)."""
+    from pathtracer_tpu_torch.render import renderer as rnd
+    kw = {k: v for k, v in leaves.items() if not k.startswith('g_')}
+    mesh_kw = {k: v for k, v in leaves.items() if k.startswith('g_')}
+    if mesh_kw:
+        kw['meshes'] = (sc.meshes[0].replace(**mesh_kw),) + sc.meshes[1:]
+    return rnd.render_unsplatted(sc.replace(**kw), cam, cp, cfg)[0]
+
+
+def check_grads(grads, what):
+    """Every gradient finite and not all zero."""
+    import torch
+    for name, g in grads.items():
+        if not bool(torch.isfinite(g).all()) or not float(g.abs().sum()) > 0:
+            raise AssertionError(f'{what}: gradient of {name} not finite or '
+                                 f'zero: {g.tolist()}')
+
+
+def flagship_grad(dev, cam, card):
+    """bench.py's fwd_ms_per_frame_1080p64 and fwd_bwd_ms_per_frame_1080p64
+    on the analytic flagship (no kernel runs): the mean 1920x1080 x 64 spp
+    image, 3 bounces, remat_samples, forward under torch.no_grad() and
+    forward + backward with respect to kd and light_intensity; one
+    warm-up and three timed runs each."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    sc = flagship_scene(dev)
+    cfg = pt.RenderConfig(width=W, height=H, nrays=64, nb_bounces=BOUNCES,
+                          remat_samples=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(W, H), device=dev)
+    leaves = {'kd': sc.kd.clone().requires_grad_(),
+              'light_intensity': sc.light_intensity.clone().requires_grad_()}
+
+    def fwd():
+        with torch.no_grad():
+            return float(mean_image(sc, cam, cp, cfg, leaves).mean())
+
+    def fwd_bwd():
+        loss = mean_image(sc, cam, cp, cfg, leaves).mean()
+        return dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+
+    fwd_ms = [timed(fwd)[1] for _ in range(4)][1:]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed(fwd_bwd) for _ in range(4)]
+    peak = torch.cuda.max_memory_allocated()
+    grads = runs[-1][0]
+    check_grads(grads, 'flagship')
+    rep = dict(fwd_ms_per_frame_1080p64=spread(fwd_ms),
+               fwd_bwd_ms_per_frame_1080p64=spread([ms for _, ms in
+                                                    runs[1:]]),
+               fwd_bwd_peak_bytes=int(peak),
+               grad_light_intensity=float(grads['light_intensity']))
+    log(f'flagship 1080p x 64 spp, 3 bounces, remat ({card}): forward '
+        f'(no_grad) median {rep["fwd_ms_per_frame_1080p64"]["median"]:.1f} '
+        f'ms (min {min(fwd_ms):.1f}, max {max(fwd_ms):.1f}; runs '
+        f'{", ".join(f"{x:.1f}" for x in fwd_ms)}); forward + backward wrt '
+        f'kd and light_intensity median '
+        f'{rep["fwd_bwd_ms_per_frame_1080p64"]["median"]:.1f} ms (runs '
+        f'{", ".join(f"{ms:.1f}" for _, ms in runs[1:])}; warm-up '
+        f'{runs[0][1]:.1f}); backward peak memory {peak / 2**30:.2f} GiB; '
+        f'd loss / d light_intensity {rep["grad_light_intensity"]:.4g}, '
+        f'|d loss / d kd| sum {float(grads["kd"].abs().sum()):.4g}')
+    return rep
+
+
+def mesh_grad(sc, cam, card):
+    """The main path's 2.4M-triangle scene differentiated at 1920x1080, 2
+    spp, 3 bounces, compaction and remat_samples, with respect to the
+    mesh's g_kd and light_intensity: both sweeps must launch in forward
+    and again in backward (the recompute); autograd against a central
+    difference on the card with the same seed (tests/test_gradients.py's
+    steps and tolerances); then three plain gradient steps on g_kd toward
+    a target image rendered with another g_kd, with the MSE loss of the
+    JAX package's make_train_step: the loss must fall.  Returns the
+    sweeps' launch counts in forward and backward, and the numbers."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.ops import cluster as cl
+    dev = sc.device
+    cfg = pt.RenderConfig(width=W, height=H, nrays=2, nb_bounces=BOUNCES,
+                          compact_rays=True, remat_samples=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(W, H), device=dev)
+    base = {'g_kd': sc.meshes[0].g_kd.clone(),
+            'light_intensity': sc.light_intensity.clone()}
+    fwd_ms, fwd_bwd_ms = [], []
+
+    def loss_of(leaves):
+        return mean_image(sc, cam, cp, cfg, leaves).mean() / RADIANCE
+
+    def fwd(leaves):
+        with torch.no_grad():
+            out, ms = timed(lambda: float(loss_of(leaves)))
+        fwd_ms.append(ms)
+        return out
+
+    fwd(base)                                   # warm-up
+    leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
+    sweeps = {'cluster_sweep_closest': cl.cluster_sweep,
+              'cluster_sweep_any': cl.cluster_sweep_any}
+    for f in sweeps.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = loss_of(leaves)
+    torch.cuda.synchronize()
+    n_fwd = {k: f.launches for k, f in sweeps.items()}
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    stop.record()
+    torch.cuda.synchronize()
+    n_bwd = {k: f.launches - n_fwd[k] for k, f in sweeps.items()}
+    fwd_bwd_ms.append(start.elapsed_time(stop))
+    peak = torch.cuda.max_memory_allocated()
+    check_grads(grads, 'mesh')
+    for name in n_fwd:
+        if n_fwd[name] <= 0 or n_bwd[name] <= 0:
+            raise AssertionError(f'{name} launched {n_fwd[name]} times in '
+                                 f'forward, {n_bwd[name]} in backward')
+    log(f'mesh gradient 1080p x 2 spp, 2.4M tris, 3 bounces, compaction, '
+        f'remat ({card}): sweep launches in forward {n_fwd}, in backward '
+        f'(the recompute) {n_bwd}; backward peak memory '
+        f'{peak / 2**30:.2f} GiB; grads g_kd {grads["g_kd"].tolist()}, '
+        f'light_intensity {float(grads["light_intensity"]):.6g}')
+
+    # central differences, the same seed
+    fd = {}
+    for name, idx, eps, rtol in (('g_kd', (0, 0), 1e-3, 5e-2),
+                                 ('light_intensity', (), 1e-3, 1e-2)):
+        step = eps * max(abs(float(base[name][idx])), 1.0)
+        delta = torch.zeros_like(base[name])
+        delta[idx] = step
+        lp = fwd({**base, name: base[name] + delta})
+        lm = fwd({**base, name: base[name] - delta})
+        want, got = (lp - lm) / (2 * step), float(grads[name][idx])
+        fd[name] = dict(fd=want, autograd=got, rel=abs(got - want)
+                        / max(abs(want), 1e-30), rtol=rtol)
+        log(f'  central difference {name}{list(idx)}: {want:.6g}, autograd '
+            f'{got:.6g} (relative difference {fd[name]["rel"]:.3g}, '
+            f'tolerance {rtol})')
+        if not np.isclose(want, got, rtol=rtol, atol=1e-12):
+            raise AssertionError(f'{name}: autograd {got:.6g} against a '
+                                 f'central difference {want:.6g}')
+
+    # three plain gradient steps on g_kd toward another g_kd's image
+    with torch.no_grad():
+        target = mean_image(sc, cam, cp, cfg, {
+            **base, 'g_kd': torch.tensor([DESCENT_TARGET], device=dev)}) \
+            / RADIANCE
+    p, losses = base['g_kd'].clone(), []
+
+    def step_of(q):
+        mse = ((mean_image(sc, cam, cp, cfg, {**base, 'g_kd': q}) / RADIANCE
+                - target) ** 2).mean()
+        return mse.item(), torch.autograd.grad(mse, [q])[0]
+
+    for _ in range(3):
+        (mse, g), ms = timed(lambda: step_of(p.clone().requires_grad_()))
+        fwd_bwd_ms.append(ms)
+        losses.append(mse)
+        p = p - DESCENT_LR * g
+    with torch.no_grad():
+        mse, ms = timed(lambda: float(((mean_image(
+            sc, cam, cp, cfg, {**base, 'g_kd': p}) / RADIANCE - target)
+            ** 2).mean()))
+    fwd_ms.append(ms)
+    losses.append(mse)
+    log(f'  descent toward g_kd {DESCENT_TARGET} (lr {DESCENT_LR}): MSE '
+        f'{", ".join(f"{x:.6g}" for x in losses)}; g_kd {p.tolist()}')
+    if not losses[3] < losses[0]:
+        raise AssertionError(f'the descent loss did not fall: {losses}')
+    log(f'  mesh forward (no_grad) ms: {", ".join(f"{x:.1f}" for x in fwd_ms)}'
+        f' (first: warm-up); forward + backward ms: '
+        f'{", ".join(f"{x:.1f}" for x in fwd_bwd_ms)} ({card})')
+    rep = dict(fwd_ms=spread(fwd_ms[1:]), fwd_bwd_ms=spread(fwd_bwd_ms),
+               fwd_bwd_peak_bytes=int(peak), launches_forward=n_fwd,
+               launches_backward=n_bwd, central_difference=fd,
+               descent_mse=losses)
+    return rep
+
+
+def grad_phase(sc, cam, card):
+    """Gradients: the flagship's bench keys, then the mesh gradient.
+    Returns (flagship numbers, mesh numbers)."""
+    t0 = time.perf_counter()
+    flag = flagship_grad(sc.device, cam, card)
+    mesh = mesh_grad(sc, cam, card)
+    log(f'gradient phase {time.perf_counter() - t0:.1f} s')
+    return flag, mesh
 
 
 def check_cull(out_k, out_p, work_k, work_p):
@@ -1121,8 +1354,11 @@ def main():
     kernels = kernel_phase(sc, cam, dev)
     reference_phase()
     launches = main_path(sc, cam, card)
+    flag, mesh = grad_phase(sc, cam, card)
     for k in kernels:
         k['launches'] = launches[k['name']]
+        k['launches_grad_forward'] = mesh['launches_forward'][k['name']]
+        k['launches_grad_backward'] = mesh['launches_backward'][k['name']]
     del sc
     for name, fn in (('tree', lambda: [tree_phase(dev, cam)]),
                      ('packet', lambda: [packet_phase(dev, cam, card)]),
@@ -1130,6 +1366,7 @@ def main():
         t0 = time.perf_counter()
         kernels.extend(fn())
         log(f'{name} phase {time.perf_counter() - t0:.1f} s')
+    log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))
     log(card)
     log(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -19,12 +19,17 @@
 //     plain version's order (the _rn intrinsics, -fmad=false), 1/d and t
 //     are IEEE divisions.  The slab's min / max are min.NaN / max.NaN:
 //     NaN in, NaN out, as torch.minimum; a slab's values only reach
-//     comparisons, so the sign of a zero never shows.
+//     comparisons, so the sign of a zero never shows;
+//   * the slab test is conservative, so that a ray grazing a leaf box
+//     still tests its triangles: an axis where the ray lies in the plane
+//     of a face (0 * inf) holds the whole ray, and the exit grows by
+//     1 + 2 gamma_3 (Ize 2013) before it is compared.  Without it, a ray
+//     in the plane of a leaf box's top face aimed at a vertex on it
+//     missed what brute force hits (tests/test_torch_cull_walk.py).
 // So t, tri, alpha, beta and the per-ray counters equal the plain walk's
-// bit for bit.  Where a ray grazes a leaf box, its own slab test can
-// reject a leaf whose triangle the brute-force plain version hits (the
-// TPU packet walk tests every lane against any lane's leaf, so it misses
-// less of them); the comparison with brute force allows for that.
+// bit for bit.  Brute force may still differ on a tie, or where the
+// triangle test's rounding accepts a point just outside the box; the
+// comparison with brute force allows for that.
 //
 // What bounds it on an H100: the bytes that must move are the rays in
 // and the hits out (48 bytes a ray), 0.03 ms for 1080p; the operations
@@ -65,6 +70,7 @@
 // cp.async or the counter read ahead were no faster (PERF.md).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -87,26 +93,62 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  bool flat;      // some 1/d is infinite (a zero direction component)
 };
 
-// Slab test of box [lo xyz, hi xyz] (pallas_bvh._traverse_kernel
-// node_live): live iff the exit is at or past max(entry, 0) and the entry
-// is below the ray's best t.
+// 1 + 2 gamma_3 in float32 (1 + 3 * 2^-23): the growth of a slab's exit
+// that covers the rounding of its products (Ize 2013;
+// packet_bvh.SLAB_GROW).
+constexpr float SLAB_GROW = 1.0000003576278687f;
+
+// One axis of a slab: the t interval between the box's two faces, or the
+// whole line where the ray lies in the plane of a face (a zero direction
+// component with the origin on the face: 0 * inf = NaN).
+__device__ __forceinline__ void slab_axis(float l, float h, float o, float i,
+                                          float& lo, float& hi) {
+  const float t1 = __fmul_rn(__fsub_rn(l, o), i);
+  const float t2 = __fmul_rn(__fsub_rn(h, o), i);
+  lo = min_nan(t1, t2);
+  hi = max_nan(t1, t2);
+  if (isnan(lo) && isinf(i)) {
+    lo = -INFINITY;
+    hi = INFINITY;
+  }
+}
+
+// Conservative slab test of box [lo xyz, hi xyz] (pallas_bvh.
+// _traverse_kernel node_live, made robust): live iff the exit, grown by
+// SLAB_GROW, is at or past max(entry, 0) and the entry is below the ray's
+// best t.  The in-plane rule of slab_axis can only act on an axis whose
+// 1/d is infinite, so a ray with none (Ray::flat false, nearly every ray)
+// takes the plain interval, which is then the same.
 __device__ __forceinline__ bool slab_live(float lx, float ly, float lz,
                                           float hx, float hy, float hz,
                                           const Ray& r, float best) {
-  float t1 = __fmul_rn(__fsub_rn(lx, r.ox), r.ix);
-  float t2 = __fmul_rn(__fsub_rn(hx, r.ox), r.ix);
-  float tmin = min_nan(t1, t2), tmax = max_nan(t1, t2);
-  t1 = __fmul_rn(__fsub_rn(ly, r.oy), r.iy);
-  t2 = __fmul_rn(__fsub_rn(hy, r.oy), r.iy);
-  tmin = max_nan(tmin, min_nan(t1, t2));
-  tmax = min_nan(tmax, max_nan(t1, t2));
-  t1 = __fmul_rn(__fsub_rn(lz, r.oz), r.iz);
-  t2 = __fmul_rn(__fsub_rn(hz, r.oz), r.iz);
-  tmin = max_nan(tmin, min_nan(t1, t2));
-  tmax = min_nan(tmax, max_nan(t1, t2));
-  return (tmax >= max_nan(tmin, 0.f)) && (tmin < best);
+  float tmin, tmax, lo, hi;
+  if (r.flat) {
+    slab_axis(lx, hx, r.ox, r.ix, tmin, tmax);
+    slab_axis(ly, hy, r.oy, r.iy, lo, hi);
+    tmin = max_nan(tmin, lo);
+    tmax = min_nan(tmax, hi);
+    slab_axis(lz, hz, r.oz, r.iz, lo, hi);
+  } else {
+    float t1 = __fmul_rn(__fsub_rn(lx, r.ox), r.ix);
+    float t2 = __fmul_rn(__fsub_rn(hx, r.ox), r.ix);
+    tmin = min_nan(t1, t2);
+    tmax = max_nan(t1, t2);
+    t1 = __fmul_rn(__fsub_rn(ly, r.oy), r.iy);
+    t2 = __fmul_rn(__fsub_rn(hy, r.oy), r.iy);
+    tmin = max_nan(tmin, min_nan(t1, t2));
+    tmax = min_nan(tmax, max_nan(t1, t2));
+    t1 = __fmul_rn(__fsub_rn(lz, r.oz), r.iz);
+    t2 = __fmul_rn(__fsub_rn(hz, r.oz), r.iz);
+    lo = min_nan(t1, t2);
+    hi = max_nan(t1, t2);
+  }
+  tmin = max_nan(tmin, lo);
+  tmax = min_nan(tmax, hi);
+  return (__fmul_rn(tmax, SLAB_GROW) >= max_nan(tmin, 0.f)) && (tmin < best);
 }
 
 // (a*x + b*y) + c*z, each product and sum rounded on its own.
@@ -190,6 +232,7 @@ packet_kernel(const float4* __restrict__ nodes, int root_cnt, int stack_cap,
       ray.ix = __fdiv_rn(1.f, ray.dx);
       ray.iy = __fdiv_rn(1.f, ray.dy);
       ray.iz = __fdiv_rn(1.f, ray.dz);
+      ray.flat = isinf(ray.ix) || isinf(ray.iy) || isinf(ray.iz);
       const float tn = tmin[r];
       float best = tmax[r], bal = 1.f, bbe = 0.f;
       int btri = -1, n_nodes = 0, n_tris = 0;

@@ -13,6 +13,11 @@ TF32 (about three decimal digits), which flips barycentric edge tests the
 same way the TPU's bf16 matmul passes did (ops/cluster.py).  The flags are
 process-wide torch settings, so importing the package sets them once.
 
+Gradients: the hit queries' kernels have no backward pass, and their
+wrappers (ops/cluster.py, ops/packet_bvh.py) refuse a ray that requires
+grad on every device (`refuse_grad`), so the plain versions on the CPU
+cannot differentiate what the card does not.
+
 Build directory: native code (the g++ BVH builder, one nvcc library per
 ``csrc/*.cu`` source) is compiled at first use into
 ``pathtracer_tpu_torch/_build``, which git ignores.  Nothing is built when
@@ -49,6 +54,19 @@ def default_device() -> torch.device:
 def resolve(dev) -> torch.device:
     """`dev` as a torch.device; None means default_device()."""
     return default_device() if dev is None else torch.device(dev)
+
+
+def refuse_grad(query: str, *rays):
+    """Raise if any of `rays` (a hit query's ray tensors) requires grad:
+    the query's hits are constants of the estimator, so the gradient must
+    have been cut upstream, as the integrator detaches its sampled
+    direction."""
+    if any(isinstance(x, torch.Tensor) and x.requires_grad for x in rays):
+        raise ValueError(
+            f'{query}: a ray input requires grad, but hit queries carry no '
+            f'gradient (their kernels have no backward); detach the ray '
+            f'upstream, as render/integrator.py detaches its sampled '
+            f'direction')
 
 
 def build_dir() -> str:

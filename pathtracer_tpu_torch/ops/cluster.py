@@ -56,6 +56,15 @@ the same; the layouts are the port's own.
 
 BLOCK = 512 and MAXC = 128 are kept from the JAX package, so the cull's
 ids/counts/keys compare with JAX's array for array.
+
+Gradients: none through a hit query.  The Pallas kernels carry no VJP, so
+in JAX hit ids and distances are constants of the estimator; the CUDA
+kernels return tensors without a gradient, and their plain versions are
+torch code that autograd would differentiate.  So `cull_tree`,
+`cluster_sweep` and `cluster_sweep_any` (and packet_bvh.packet_hit) raise
+on either device when a ray input requires grad (device.refuse_grad).
+With material and light leaves no ray does: the integrator detaches its
+sampled direction.
 """
 
 from __future__ import annotations
@@ -1004,6 +1013,7 @@ def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
     the hand-written kernel (replaces the TPU kernel
     pallas_cluster._cull_kernel) or raise.  `work` ((nb, CULL_WORK) int64),
     optional: each packet's counters (see CULL_WORK)."""
+    device.refuse_grad('cull_tree', org, dirn, tmax)
     if org.device.type == 'cpu':
         return cull_tree_plain(cm, org, dirn, tmax, work)
     dev = org.device
@@ -1116,6 +1126,7 @@ def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
     `order` ((units,) int32), optional: the unit each block takes (None:
     heaviest_first).  `stats` ((units, STATS) int64), optional: the kernel
     writes each unit's counters there."""
+    device.refuse_grad('cluster_sweep', keys, org, dirn, tmax, tmin)
     group = _group(group)
     if org.device.type == 'cpu':
         return cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax,
@@ -1146,6 +1157,7 @@ def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin,
     hand-written kernel (replaces the TPU kernel
     pallas_cluster._sweep_any_kernel) or raise.  `group`, `order` and
     `stats` as cluster_sweep."""
+    device.refuse_grad('cluster_sweep_any', keys, org, dirn, tmax, tmin)
     group = _group(group)
     if org.device.type == 'cpu':
         return cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn,

@@ -10,16 +10,19 @@ formula of traverse._tri_test_block (accept t >= 0, t > tmin,
 barycentrics >= 0, strict t < best so that ties keep the first found,
 which in BVH order is the lower index).
 
+The slab test is conservative (`_slab_live`): an axis where the ray lies
+in the plane of a face holds the whole ray, and the exit grows by
+SLAB_GROW, so a ray grazing a leaf box still tests its triangles.
+
 `packet_hit_plain` is the same function computed directly: brute force
 over the BVH-ordered soup (traverse.brute_force_hit with t_max and
-t_min).  A ray that grazes a leaf box can differ from the walk by a
-rounding of the slab test.  CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise.
+t_min).  It can still differ from the walk on a tie, or where the
+triangle test's rounding accepts a point just outside a leaf box.  CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise.
 
 `packet_walk_plain` is the kernel's own walk, ray by ray, in lockstep
 torch over rays: the exact reference the kernel is held to bit for bit
-(hits and per-ray counters), where brute force must allow for grazing
-rays.
+(hits and per-ray counters), where brute force must allow for ties.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ from .traverse import TriSoup, brute_force_hit
 BIG_T = float(np.float32(1e30))
 STACK_DEPTH = 64       # per-ray traversal stack of the kernel
 PLAIN_RAY_CHUNK = 16384  # rays per brute-force block of the plain version
+# 1 + 2 gamma_3 rounded to float32 (1 + 3 * 2^-23): the growth of a slab's
+# exit that covers the rounding of its products (Ize 2013)
+SLAB_GROW = float(np.float32(1.0 + 3.0 * 2.0 ** -23))
 PAIR_WORDS = 16        # 32-bit words per child-pair record (64 bytes)
 WORK = 6               # per-ray kernel counters: inner nodes expanded,
                        # triangle tests; clock64 cycles from the warp's turn
@@ -147,16 +153,23 @@ def packet_hit_plain(soup: TriSoup, org, dirn, tmax, tmin=None):
 
 
 def _slab_live(bx, o, inv, best):
-    """The kernel's slab_live for rows of boxes and rays: the exit at or
-    past max(entry, 0) and the entry below the ray's best t."""
+    """The kernel's slab_live for rows of boxes and rays, conservative: an
+    axis whose direction component is zero with the origin on a face
+    (0 * inf = NaN) holds the whole ray, and the exit grows by
+    SLAB_GROW before it is compared, so a ray that grazes the box stays
+    live.  Live: the exit at or past max(entry, 0) and the entry below
+    the ray's best t."""
     tmin = tmx = None
     for k in range(3):
         t1 = (bx[:, k] - o[:, k]) * inv[:, k]
         t2 = (bx[:, k + 3] - o[:, k]) * inv[:, k]
         lo_, hi_ = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        flat = torch.isnan(lo_) & torch.isinf(inv[:, k])
+        lo_ = torch.where(flat, -torch.inf, lo_)
+        hi_ = torch.where(flat, torch.inf, hi_)
         tmin = lo_ if tmin is None else torch.maximum(tmin, lo_)
         tmx = hi_ if tmx is None else torch.minimum(tmx, hi_)
-    return (tmx >= torch.clamp_min(tmin, 0.0)) & (tmin < best)
+    return (tmx * SLAB_GROW >= torch.clamp_min(tmin, 0.0)) & (tmin < best)
 
 
 def _tri_rows(soup: TriSoup, j, o, d):
@@ -285,7 +298,9 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
     packet_hit_plain; CUDA tensors launch the hand-written kernel
     (replaces the TPU kernel pallas_bvh._traverse_kernel) or raise.
     `work` (N, WORK) int32, optional: the kernel writes each ray's
-    counters there (see WORK)."""
+    counters there (see WORK).  A ray input that requires grad raises
+    (device.refuse_grad; ops/cluster.py, "Gradients")."""
+    device_mod.refuse_grad('packet_hit', org, dirn, tmax, tmin)
     if org.device.type == 'cpu':
         return packet_hit_plain(soup, org, dirn, tmax, tmin)
     dev = org.device

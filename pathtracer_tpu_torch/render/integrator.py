@@ -14,6 +14,15 @@ draw order, with gated draws leaving a lane's stream untouched:
 The indirect 2D sample is the per-pixel Cranley–Patterson rotation of the
 per-sample lattice point, reused at every depth.
 
+Gradients: the JAX integrator's detached-sampling estimator.  The sampled
+indirect direction and its pdf are detached where JAX stops their
+gradient, so with material and light leaves no ray carries a gradient and
+the mesh queries, whose kernels have none, see constant rays
+(ops/cluster.py); autograd differentiates the NEE weights, the BRDF
+values, the light power and the path throughput.  Every step is out of
+place, compaction included, so one code path serves rendering and
+autograd.
+
 Not ported yet: fog, the subsurface relocation (the entry RR draw is kept,
 so draw counts already match), ghosts, background photos and measured
 BRDFs (ROADMAP Queue 1 items 7-8); `scene.build_scene` refuses scenes that
@@ -58,14 +67,19 @@ class PathState:
                      if f.name == 'rng' else getattr(self, f.name)[idx])
             for f in dataclasses.fields(self)})
 
-    def put(self, idx, part: 'PathState'):
-        """Write `part` back into lanes `idx` in place."""
-        for f in dataclasses.fields(self):
-            if f.name == 'rng':
-                for dst, src in zip(self.rng, part.rng):
-                    dst[idx] = src
-            else:
-                getattr(self, f.name)[idx] = getattr(part, f.name)
+    def with_prefix(self, part: 'PathState') -> 'PathState':
+        """The lanes of `part` followed by this state's lanes past
+        len(part), out of place (autograd keeps the tensors it saved)."""
+        m = part.alive.shape[0]
+
+        def cat(new, old):
+            return torch.cat([new, old[m:]])
+
+        return PathState(**{
+            f.name: (tuple(cat(a, b) for a, b in zip(part.rng, self.rng))
+                     if f.name == 'rng'
+                     else cat(getattr(part, f.name), getattr(self, f.name)))
+            for f in dataclasses.fields(self)})
 
 
 def _where3(mask, new, old):
@@ -166,6 +180,9 @@ def _bounce(sc, depth: int, st: PathState, cp_r12) -> PathState:
     ind_dir, ind_pdf, _ = brdf.phong_sample(
         hit.kd, hit.ks, hit.ne, -ray_dir, nrm, u_choice,
         cp_r12[:, 0], cp_r12[:, 1])
+    # detached-sampling estimator: the sampled direction and its pdf are
+    # constants (JAX integrator stop_gradient, before `reject`)
+    ind_dir, ind_pdf = ind_dir.detach(), ind_pdf.detach()
     reject = ((vec.dot(ind_dir, nrm) < 0.0)
               | (vec.dot(ind_dir, vec.reflect(ray_dir, nrm)) < 0.0)
               | (ind_pdf <= 0.0))
@@ -221,7 +238,8 @@ def trace_paths(sc, origins, dirs, rng_state, cp_r12, nb_bounces: int,
     the camera draws; cp_r12: (N,2) rotated lattice sample.  compact_rays
     (requires sort_rays) runs bounces after the first only on the live
     prefix: after the alive-first sort, dead lanes sit at the tail and a
-    bounce leaves them unchanged, so this is exact.
+    bounce leaves them unchanged, so this is exact.  The bounced prefix and
+    the untouched tail make a new state, so autograd runs through it.
 
     Returns (color, normal_aux, albedo_aux, live_counts) where live_counts
     is the list of per-bounce live-lane counts (0-d int64 tensors)."""
@@ -237,7 +255,6 @@ def trace_paths(sc, origins, dirs, rng_state, cp_r12, nb_bounces: int,
     def flags(value):
         return torch.full((n,), value, dtype=torch.bool, device=dev)
 
-    # every field its own tensor: compaction writes lanes back in place
     st = PathState(org=origins, dirn=dirs,
                    weight=torch.ones((n, 3), device=dev), color=zeros3(),
                    alive=flags(True), show_lights=flags(True),
@@ -252,7 +269,7 @@ def trace_paths(sc, origins, dirs, rng_state, cp_r12, nb_bounces: int,
         if compact_rays and depth > 0:
             m = int(n_live)
             if m:
-                st.put(slice(0, m), _bounce(sc, depth, st.take(slice(0, m)),
+                st = st.with_prefix(_bounce(sc, depth, st.take(slice(0, m)),
                                             cp_r12[:m]))
         else:
             st = _bounce(sc, depth, st, cp_r12)

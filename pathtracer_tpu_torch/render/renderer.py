@@ -4,8 +4,12 @@
 A wave renders every pixel for a few samples.  Path (pixel p, sample k)
 owns the PCG32 stream keyed (seed << 32) | (p * nspp + k), seeded as
 pcg32(key, key), so an image depends only on the seed, never on the wave
-split.  Gradients (autograd through `render_unsplatted`, `remat_samples`)
-and the denoiser feed are not ported yet (ROADMAP Queue 1 items 6, 10).
+split.  `render_unsplatted` is differentiable with respect to the
+material and light leaves (the detached-sampling estimator of
+render/integrator.py); with `remat_samples` each sample's body runs under
+activation checkpointing and is recomputed in backward, from the same
+streams, so one sample's graph is alive at a time.  The denoiser feed is
+not ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import checkpoint
 
 from ..core import camera as cam_mod
 from ..core import qmc
@@ -40,16 +45,14 @@ class RenderConfig(NamedTuple):
     sort_rays: bool = False     # octant re-sort between bounces
     compact_rays: bool = False  # bounces > 0 on the live prefix only
                                 # (implies the octant sort)
-    remat_samples: bool = False  # gradients: not ported yet
+    remat_samples: bool = False  # render_unsplatted: checkpoint each
+                                 # sample, recomputed in backward
 
 
 def _check_config(cfg: RenderConfig):
     if cfg.has_denoiser:
         raise NotImplementedError('the denoiser feed is not ported yet '
                                   '(ROADMAP Queue 1 item 10)')
-    if cfg.remat_samples:
-        raise NotImplementedError('gradients / remat_samples are not ported '
-                                  'yet (ROADMAP Queue 1 item 6)')
 
 
 def _near_divisor(n: int, ts: int) -> int:
@@ -112,18 +115,36 @@ def _camera_paths(cam, cfg: RenderConfig, pix_i, pix_j, k: int, cp_table):
 def render_unsplatted(sc: scn.SceneArrays, cam: cam_mod.Camera, cp_table,
                       cfg: RenderConfig):
     """Per-pixel mean radiance over all cfg.nrays samples, no pixel filter,
-    row-major lanes.  Returns ((h, w, 3) mean, (h, w, nspp, 3) samples)."""
+    row-major lanes.  Returns ((h, w, 3) mean, (h, w, nspp, 3) samples).
+
+    Differentiable with respect to the scene's material and light tensors
+    (`sc.replace(kd=...)`, `mesh.replace(g_kd=...)` with requires_grad).
+    cfg.remat_samples checkpoints each sample (jax.checkpoint of the JAX
+    renderer): backward recomputes it, bit for bit, from its PCG streams.
+    Time a forward alone under torch.no_grad(): with leaves that require
+    grad every sample's graph would stay alive.  Unlike the JAX function,
+    the camera backface gate applies here too, as in Renderer."""
     _check_config(cfg)
+    sc = scn.camera_backface_gate(sc, cam.position.cpu().numpy())
     w, h = cfg.width, cfg.height
     pix_i, pix_j, _ = _pixel_order(w, h, 0, sc.device)
-    samples = []
-    for k in range(cfg.nrays):
+
+    def per_sample(k):
         st, org, dirn, _, _, cp_r12 = _camera_paths(cam, cfg, pix_i, pix_j,
                                                     k, cp_table)
-        color = integrator.trace_paths(
+        return integrator.trace_paths(
             sc, org, dirn, st, cp_r12, cfg.nb_bounces,
             sort_rays=cfg.sort_rays or cfg.compact_rays,
             compact_rays=cfg.compact_rays)[0]
+
+    samples = []
+    for k in range(cfg.nrays):
+        if cfg.remat_samples:
+            # the draws are PCG streams of their own, not torch's RNG
+            color = checkpoint.checkpoint(per_sample, k, use_reentrant=False,
+                                          preserve_rng_state=False)
+        else:
+            color = per_sample(k)
         samples.append(color)
     samples = torch.stack(samples, dim=1).reshape(h, w, cfg.nrays, 3)
     return samples.mean(dim=2), samples

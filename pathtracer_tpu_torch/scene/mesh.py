@@ -80,6 +80,11 @@ class MeshArrays:
         then puts the whole mesh under one key, as in JAX)."""
         return 0 if self.clustered is None else self.clustered.n_clusters
 
+    def replace(self, **fields) -> 'MeshArrays':
+        """A copy with `fields` replaced (the JAX package's
+        `mesh.replace(g_kd=...)`)."""
+        return dataclasses.replace(self, **fields)
+
     def col(self, name: str) -> Optional[slice]:
         for nm, s, w in self.shade_cols:
             if nm == name:

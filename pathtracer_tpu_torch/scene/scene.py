@@ -66,6 +66,11 @@ class SceneArrays:
     def num_objects(self) -> int:
         return self.obj_type.shape[0]
 
+    def replace(self, **fields) -> 'SceneArrays':
+        """A copy with `fields` replaced (the JAX package's
+        `sc.replace(kd=...)`, the idiom of its gradient examples)."""
+        return dataclasses.replace(self, **fields)
+
     @property
     def light_power(self):
         """intensite_lumiere / scale^2."""
@@ -100,6 +105,15 @@ class Hit(NamedTuple):
     refr_index: torch.Tensor  # (N,)
     miroir: torch.Tensor      # (N,) bool
     lkey: torch.Tensor        # (N,) int64 surface-locality sort key
+
+
+def _material(table, idx):
+    """Rows `idx` of a small (rows, 3) material table, one per lane.  The
+    same gather as table[idx]; its backward sums each row's lanes with
+    embedding's segment reduction, where indexing's backward (index_put_
+    with accumulate) runs the lanes of each row in one serial loop on the
+    card."""
+    return torch.nn.functional.embedding(idx, table)
 
 
 def _local_ray(sc: SceneArrays, origins, dirs):
@@ -193,8 +207,9 @@ def intersect(sc: SceneArrays, origins, dirs) -> Hit:
             rm[:, 6] * nl[:, 0] + rm[:, 7] * nl[:, 1] + rm[:, 8] * nl[:, 2],
         ], dim=-1)
     out = Hit(hit=hit, t=t, p=p, n=vec.normalize(n), obj_id=obj_id,
-              kd=sc.kd[obj_id], ks=sc.ks[obj_id], ne=sc.ne[obj_id],
-              ke=torch.zeros_like(p), ksub=sc.ksub[obj_id],
+              kd=_material(sc.kd, obj_id), ks=_material(sc.ks, obj_id),
+              ne=_material(sc.ne, obj_id), ke=torch.zeros_like(p),
+              ksub=_material(sc.ksub, obj_id),
               transp=sc.transp[obj_id] & hit,
               refr_index=sc.refr_index[obj_id],
               miroir=sc.miroir[obj_id] & hit, lkey=obj_id)
@@ -299,7 +314,7 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
         grp = sf[:, gcol][:, 0].contiguous().view(torch.int32).long()
 
         def mat(tbl):
-            return tbl[grp]
+            return _material(tbl, grp) if tbl.dim() == 2 else tbl[grp]
 
     def sel(new, old):
         m = win[:, None] if new.dim() > win.dim() else win

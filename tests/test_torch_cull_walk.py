@@ -12,11 +12,10 @@ tests/test_torch_gpu.py and chip_smoke.py):
   * `packet_walk_plain` against a scalar numpy statement of one ray's walk
     (hits and counters equal), against JAX's `pallas_bvh.packet_hit_packed`
     in interpret mode and against the brute-force `packet_hit_plain`:
-    tri equal on >= 99.9% of lanes, t within 1e-5 relative and the
-    barycentrics within 1e-4 where tri agrees.  Not bit-equal, because a
-    ray that grazes a leaf box may be refused by its own slab test where
-    brute force tests every triangle and the TPU walk tests the packet's
-    union of live lanes (csrc/packet_bvh.cu);
+    tri equal on every lane, t within 1e-5 relative and the barycentrics
+    within 1e-4 (another framework's rounding); and one pinned ray in the
+    plane of a leaf box's face, which the walk's conservative slab test
+    keeps (csrc/packet_bvh.cu);
   * the child-pair records decode back to box / na / nb / nleaf, for the
     packet tier's BVH and for the cluster tier's top tree.
 """
@@ -182,6 +181,22 @@ def walk_bvh():
                 pk_t=tpb.pack_bvh(ft, device='cpu'), o=o, d=d, tmax=tmax)
 
 
+def _walk_slab(box, o, inv):
+    """The packet walk's conservative slab (ops/packet_bvh._slab_live) in
+    numpy float32: (entry, exit grown by SLAB_GROW); an axis where the ray
+    lies in the plane of a face (0 * inf = NaN) holds the whole ray."""
+    tmin = tmx = None
+    for k in range(3):
+        t1 = (box[k] - o[k]) * inv[k]
+        t2 = (box[k + 3] - o[k]) * inv[k]
+        lo_, hi_ = np.minimum(t1, t2), np.maximum(t1, t2)
+        if np.isnan(lo_) and np.isinf(inv[k]):
+            lo_, hi_ = F32(-np.inf), F32(np.inf)
+        tmin = lo_ if tmin is None else np.maximum(tmin, lo_)
+        tmx = hi_ if tmx is None else np.minimum(tmx, hi_)
+    return tmin, tmx * F32(tpb.SLAB_GROW)
+
+
 def _walk_one(pk, soup, o, d, tmax, tmin):
     """One ray's walk as csrc/packet_bvh.cu states it, in numpy float32:
     (t, tri, alpha, beta, inner nodes, triangle tests)."""
@@ -213,7 +228,7 @@ def _walk_one(pk, soup, o, d, tmax, tmin):
                 inner += 1
                 la, lb = [
                     bool((tmx >= np.maximum(tmin_, F32(0))) & (tmin_ < best))
-                    for tmin_, tmx in (_slab(box[c], o, inv)
+                    for tmin_, tmx in (_walk_slab(box[c], o, inv)
                                        for c in (na[node], nb[node]))]
                 if la:
                     if lb:
@@ -252,8 +267,8 @@ def test_packet_walk_plain(walk_bvh, with_tmin):
                work[i, 0].item(), work[i, 1].item())
         assert got == tuple(float(x) if k < 4 and k != 1 else int(x)
                             for k, x in enumerate(want)), i
-    # against the TPU packet walk and against brute force: own-lane
-    # grazing may drop a leaf whose triangle the others hit
+    # against the TPU packet walk and against brute force: the same tri
+    # on every lane (0 of the 2,048 differ in either variant)
     out_j = [np.asarray(x) for x in jpb.packet_hit_packed(
         w['pk_j'], w['soup_j'], jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(tmax), interpret=True,
@@ -262,11 +277,49 @@ def test_packet_walk_plain(walk_bvh, with_tmin):
                                                      tmt, tnt)]
     for t_r, tri_r, al_r, be_r in (out_j, out_b):
         same = tri.numpy() == tri_r
-        assert same.mean() >= 0.999, same.mean()
+        assert same.all(), np.flatnonzero(~same)
         hit = same & (tri_r >= 0)
         np.testing.assert_allclose(t.numpy()[hit], t_r[hit], rtol=1e-5)
         np.testing.assert_allclose(al.numpy()[hit], al_r[hit], atol=1e-4)
         np.testing.assert_allclose(be.numpy()[hit], be_r[hit], atol=1e-4)
+
+
+# A ray in the plane of leaf 551's top face (d_y = 0, o_y on the face),
+# aimed at the vertex of triangle 916 on that face from 30 units away.
+GRAZE_LEAF, GRAZE_TRI = 551, 916
+
+
+def test_packet_walk_grazing_ray(walk_bvh):
+    """The walk's answer on one grazing ray, beside JAX's packet walk and
+    brute force.  The slab's y axis is (face - o_y) * inf = NaN there: the
+    walk's conservative slab holds the whole ray on that axis and finds the
+    vertex at t = 30, as brute force does (the same triangle).  Before the
+    conservative slab the walk missed this ray entirely.  JAX's walk hits
+    the vertex through a neighbouring triangle (a tie at 2^-16)."""
+    w = walk_bvh
+    pk, soup = w['pk_t'], w['soup_t']
+    box = pk.box.numpy()[GRAZE_LEAF]
+    first, cnt = int(pk.na[GRAZE_LEAF]), int(pk.nb[GRAZE_LEAF])
+    assert pk.nleaf[GRAZE_LEAF] != 0 and first <= GRAZE_TRI < first + cnt
+    rows = np.stack([x.numpy() for x in soup], 1)[GRAZE_TRI]
+    verts = np.stack([rows[0:3], rows[0:3] + rows[3:6],
+                      rows[0:3] + rows[6:9]])
+    v = verts[verts[:, 1] == box[4]][0]          # a vertex on the top face
+    d = np.array([np.cos(F32(0.3)), 0.0, np.sin(F32(0.3))], F32)
+    o = (v - F32(30.0) * d).astype(F32)
+    assert o[1] == box[4] and d[1] == 0.0        # in the face's plane
+    o1, d1 = o[None], d[None]
+    tmax = np.full((1,), BIG_T, F32)
+    ot, dt_, tmt = (torch.as_tensor(x) for x in (o1, d1, tmax))
+    t, tri, _, _, _ = tpb.packet_walk_plain(pk, soup, ot, dt_, tmt)
+    t_b, tri_b, _, _ = tpb.packet_hit_plain(soup, ot, dt_, tmt)
+    t_j, tri_j, _, _ = (np.asarray(x) for x in jpb.packet_hit_packed(
+        w['pk_j'], w['soup_j'], jnp.asarray(o1), jnp.asarray(d1),
+        jnp.asarray(tmax), interpret=True))
+    got = (t.item(), tri.item())
+    assert got == (t_b.item(), tri_b.item()) == (30.0, GRAZE_TRI), got
+    assert tri_j[0] >= 0 and abs(t_j[0] - 30.0) <= 2.0 ** -16 * 30.0
+    assert got == _walk_one(pk, soup, o, d, tmax[0], F32(-1.0))[:2]
 
 
 # ---------------------------------------------------------------------------

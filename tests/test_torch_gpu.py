@@ -1,7 +1,7 @@
 """PyTorch port on a CUDA card: the hand-written kernels (cluster sweeps,
 tree cull, packet BVH, the sweep's cost probes and ablation) against
-their plain PyTorch versions, and a small render through the kernels
-against the CPU plain path.
+their plain PyTorch versions, and a small render and its gradients
+through the kernels against the CPU plain path.
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import pathtracer_tpu_torch as pt
+from pathtracer_tpu_torch.core import rng_host
 from pathtracer_tpu_torch.ops import bvh as tb
 from pathtracer_tpu_torch.ops import cluster as tc
 from pathtracer_tpu_torch.ops import packet_bvh as tp
@@ -271,6 +272,45 @@ def test_render_matches_cpu_plain_path(cuda):
     assert abs(out['cuda'].mean() - out['cpu'].mean()) / scale < 0.02
 
 
+def _mesh_grads(dev, **kw):
+    """Gradients of the mean 64x48 image (2 spp, 3 bounces, compaction) of
+    the 2k mesh scene with respect to the mesh's g_kd and light_intensity,
+    on `dev`."""
+    md = procgen.sphere_mesh(32, 32, radius=12.0, displace_amp=0.25)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(md, translation=(0.0, -15.0, 0.0)))
+    sc = scn.build_scene(objs, scn.default_light_intensity(), device=dev)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(64, 48), device=dev)
+    g_kd = sc.meshes[0].g_kd.clone().requires_grad_()
+    li = sc.light_intensity.clone().requires_grad_()
+    sc = sc.replace(meshes=(sc.meshes[0].replace(g_kd=g_kd),),
+                    light_intensity=li)
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=2, nb_bounces=3,
+                           compact_rays=True, **kw)
+    loss = rnd.render_unsplatted(sc, cam, cp, cfg)[0].mean()
+    return [g.cpu().numpy() for g in torch.autograd.grad(loss, [g_kd, li])]
+
+
+@pytest.mark.gpu
+def test_mesh_gradients_match_cpu_plain_path(cuda):
+    """Autograd through the kernels on the card against the CPU plain
+    route: within 2%, the reference render's allowance."""
+    card, cpu = _mesh_grads(cuda), _mesh_grads('cpu')
+    for a, b in zip(card, cpu):
+        assert np.isfinite(a).all() and np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, rtol=0.02)
+
+
+@pytest.mark.gpu
+def test_remat_gradients_agree_on_the_card(cuda):
+    """remat_samples recomputes each sample in backward; on the card the
+    backward's atomic adds are not bit-stable, so 1e-5 relative."""
+    a, b = _mesh_grads(cuda), _mesh_grads(cuda, remat_samples=True)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x, y, rtol=1e-5)
+
+
 def _sphere(lat):
     md = procgen.sphere_mesh(lat, lat, radius=12.0, displace_amp=0.25)
     return md.vertices[md.vtx_idx]
@@ -331,14 +371,43 @@ def _bounce_like(dev, n, seed):
     return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
 
 
+def _in_plane_rays(tri, fb, n, dev):
+    """Rays in the plane of a leaf box's face (that direction component
+    exactly 0, the origin on the face), each aimed at a vertex on the face
+    from 30 units away, on every other lane (the rest _rays'), so that a
+    warp mixes rays with and without an infinite 1/d."""
+    pk = tp.pack_bvh(fb, device='cpu')
+    box, na, nb = pk.box.numpy(), pk.na.numpy(), pk.nb.numpy()
+    verts = tri[fb.order].astype(np.float32)
+    rng = np.random.default_rng(17)
+    o, d = [], []
+    for node in np.flatnonzero(pk.nleaf.numpy()):
+        for v in verts[na[node]:na[node] + nb[node]].reshape(-1, 3):
+            for k in np.flatnonzero((v == box[node, :3])
+                                    | (v == box[node, 3:])):
+                a = rng.uniform(0.0, 2.0 * np.pi)
+                dv = np.zeros(3, np.float32)
+                dv[(k + 1) % 3], dv[(k + 2) % 3] = np.cos(a), np.sin(a)
+                o.append(v - np.float32(30.0) * dv)
+                d.append(dv)
+    o, d = np.array(o, np.float32), np.array(d, np.float32)
+    idx = np.arange(n // 2) % len(o)
+    o2, d2 = (x.numpy() for x in _rays(n - n // 2 + 1, seed=18))
+    oo, dd = np.empty((n, 3), np.float32), np.empty((n, 3), np.float32)
+    oo[0::2], dd[0::2] = o2[:n - n // 2], d2[:n - n // 2]
+    oo[1::2], dd[1::2] = o[idx], d[idx]
+    return (torch.as_tensor(oo, device=dev), torch.as_tensor(dd, device=dev))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('rays', ['random', 'bounce', 'one-leaf',
-                                  'big-tree'])
+                                  'big-tree', 'in-plane'])
 def test_packet_hit_equals_its_walk(cuda, rays):
     """The packet kernel equals packet_walk_plain bit for bit: t, tri,
     alpha, beta and both per-ray counters, with tmin and bounded lanes;
-    also on a tree whose root is a leaf and on one of 7,812 triangles
-    (2,453 records, 157 KB, near the tier's 8,000-triangle limit)."""
+    also on a tree whose root is a leaf, on one of 7,812 triangles
+    (2,453 records, 157 KB, near the tier's 8,000-triangle limit), and on
+    rays in the plane of leaf box faces (the slab's in-plane rule)."""
     tri = _sphere(63 if rays == 'big-tree' else 32)
     if rays == 'one-leaf':
         tri = tri[:3]
@@ -351,6 +420,8 @@ def test_packet_hit_equals_its_walk(cuda, rays):
     n = 8 * tc.BLOCK + 77                          # a ragged last warp
     if rays == 'bounce':
         o, d = _bounce_like(cuda, n, seed=14)
+    elif rays == 'in-plane':
+        o, d = _in_plane_rays(tri, fb, n, cuda)
     else:
         o, d = (x.to(cuda) for x in _rays(n + 1, seed=13))
         o, d = o[:n].contiguous(), d[:n].contiguous()
