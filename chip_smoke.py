@@ -75,9 +75,13 @@ path, agreement, and the roofline bound from this run's work) and the
 contract line.
 """
 
+import collections
 import concurrent.futures
 import dataclasses
+import functools
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -87,11 +91,13 @@ import numpy as np
 W, H, BOUNCES = 1920, 1080, 3
 TIE = 2.0 ** -16
 BIG_T = float(np.float32(1e30))
-# roofline of one H100 SXM (NVIDIA data sheet): fp32 outside the tensor
-# cores, HBM3 bandwidth
-PEAK_FLOPS = 67e12
+# roofline of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and dense
+# TF32 on the tensor cores (mma counts two flops per FMA).  The operations
+# bound of the CUDA-core kernels is the card's fp32 issue rate, read on
+# the card (issue_rate): they are built with -fmad=false, so each counted
+# single-rounded operation is one instruction.
 PEAK_BYTES = 3.35e12
-PEAK_TF32 = 494.7e12    # dense TF32 on the tensor cores
+PEAK_TF32 = 494.7e12
 # fp32 operations (products, sums, divides, min / max) per unit of work,
 # counted in the kernel sources
 SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
@@ -115,21 +121,96 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(ops, nbytes, peak=PEAK_FLOPS):
-    """Least time (ms) for `ops` operations at `peak` per second and
-    `nbytes` bytes on the card, and which of the two bounds it."""
+@functools.lru_cache(maxsize=None)
+def issue_rate():
+    """(fp32 instructions per second, SMs, max SM clock in MHz) of card 0:
+    SMs (torch) x 128 fp32 lanes x the maximum SM clock (nvidia-smi
+    clocks.max.sm).  No FMA: one counted operation per lane and cycle."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'], check=True,
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return sms * 128 * mhz * 1e6, sms, mhz
+
+
+def bound(ops, nbytes, peak=None):
+    """Least time (ms) for `ops` operations at `peak` per second (None:
+    the card's fp32 issue rate) and `nbytes` bytes on the card, and which
+    of the two bounds it."""
+    peak = issue_rate()[0] if peak is None else peak
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
 def entry(name, source, replaces, err, agree, ms, plain_ms, ops, nbytes,
-          peak=PEAK_FLOPS, **extra):
-    """One kernel's record of the kernel JSON line."""
+          peak=None, **extra):
+    """One kernel's record of the kernel JSON line; `share` is the bound
+    over the time."""
     bound_ms, bound_by = bound(ops, nbytes, peak)
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 launches=0, max_abs_err=err, agree=agree, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, **extra)
+                share=bound_ms / ms, library_ms=None, **extra)
+
+
+def cycle_summary(cyc, work):
+    """Per-unit clock64 cycles and work (1-D tensors): cycles mean, p99,
+    max, the heaviest 1% of units' share of cycles, work mean and max."""
+    import torch
+    cyc, work = cyc.double().cpu(), work.double().cpu()
+    n1 = max(1, cyc.numel() // 100)
+    top = float(torch.sort(cyc, descending=True).values[:n1].sum()
+                / max(float(cyc.sum()), 1.0))
+    return dict(units=cyc.numel(), cycles_mean=float(cyc.mean()),
+                cycles_p99=float(torch.quantile(cyc, 0.99)),
+                cycles_max=float(cyc.max()), top1_share=top,
+                work_mean=float(work.mean()), work_max=float(work.max()))
+
+
+_SASS_LINE = re.compile(r'/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?'
+                        r'([A-Z][A-Z0-9_.]*)([^;]*);')
+_SASS_FP32 = ('FADD', 'FMUL', 'FFMA', 'FSETP', 'FMNMX', 'FSEL', 'FCHK',
+              'MUFU')
+
+
+def sass_loop(lib, key):
+    """The innermost pair loop of the kernel whose mangled name contains
+    `key`, from `cuobjdump -sass` of the built library `lib`: the shortest
+    backward branch whose body holds a MUFU.RCP (the IEEE divide's
+    reciprocal, one per ray x triangle pair).  Returns its instruction
+    count, the divides in it, instructions per pair, the fp32-pipe share
+    and the opcodes, and the body's text."""
+    from pathtracer_tpu_torch import device
+    tool = os.path.join(os.path.dirname(device.nvcc_path()), 'cuobjdump')
+    out = subprocess.run([tool, '-sass', lib], check=True,
+                         capture_output=True, text=True, timeout=300).stdout
+    funcs = re.split(r'\n\s*Function : ', out)
+    body = [f for f in funcs[1:] if key in f.split('\n', 1)[0]]
+    if len(body) != 1:
+        raise AssertionError(f'{len(body)} kernels of {lib} match {key}')
+    ins = [(int(m.group(1), 16), m.group(3), m.group(4), m.group(2) or '')
+           for m in _SASS_LINE.finditer(body[0])]
+    best = None
+    for addr, op, rest, _ in ins:
+        hit = re.search(r'0x([0-9a-f]+)', rest) if op.startswith('BRA') \
+            else None
+        if hit is None or int(hit.group(1), 16) > addr:
+            continue
+        loop = [x for x in ins if int(hit.group(1), 16) <= x[0] <= addr]
+        if any(x[1].startswith('MUFU.RCP') for x in loop) and (
+                best is None or len(loop) < len(best)):
+            best = loop
+    if best is None:
+        raise AssertionError(f'no loop with a divide in {key}')
+    ops = collections.Counter(x[1].split('.')[0] for x in best)
+    div = sum(1 for x in best if x[1].startswith('MUFU.RCP'))
+    fp32 = sum(v for k, v in ops.items() if k in _SASS_FP32)
+    return dict(instructions=len(best), divides=div,
+                per_pair=len(best) / div, fp32_share=fp32 / len(best),
+                opcodes=dict(ops.most_common()),
+                text='\n'.join(f'{a:05x} {p}{o}{r}' for a, o, r, p in best))
 
 
 def cuda_ms(fn, reps=1, warm=True):
@@ -1155,6 +1236,21 @@ def check_dot(kern, tf32, x, w, reps, eps, out_cols):
     return err, ratio
 
 
+def occupancy(info):
+    """(registers, resident blocks per SM, threads per block) as a dict
+    with the resident warps per SM."""
+    regs, blocks, threads = info
+    return dict(registers=regs, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
+
+
+def sass(lib, key):
+    """sass_loop without the loop's text."""
+    out = sass_loop(lib, key)
+    del out['text']
+    return out
+
+
 def probe_phase(dev):
     """The sweep's cost probes: the entry points at their full shapes,
     then every probe kernel against its plain version.  Returns the
@@ -1163,6 +1259,7 @@ def probe_phase(dev):
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import sweep_ablate as sa
     from pathtracer_tpu_torch.ops import sweep_micro as sm
+    from pathtracer_tpu_torch import device
     from pathtracer_tpu_torch.scripts import ablate_sweep, prof_sweep, \
         proto_mxu, time_us
     prof, n_prof = drive(lambda: prof_sweep.run(dev, log=log),
@@ -1201,7 +1298,7 @@ def probe_phase(dev):
                 f'dot_{route}[{script}]', src, replaces[route], err, 1.0,
                 res[route] * reps / 1e3, ms_p, reps * 2 * m * 8 * n,
                 4 * (m * 8 + 8 * n + m * cols + m * n // 2),
-                peak=PEAK_TF32 if route == 'tf32' else PEAK_FLOPS,
+                peak=PEAK_TF32 if route == 'tf32' else None,
                 us_per_rep=res[route], reps=reps, shape=f'({m}x8)x(8x{n})',
                 err_over_bound=ratio,
                 library_ms_per_rep=res[f'torch.matmul {route}'] / 1e3)
@@ -1244,29 +1341,36 @@ def probe_phase(dev):
         rec['launches'] = n_prof[name]
         recs.append(rec)
         log(f'{name}: {prof[name]:.3f} us/rep, bound '
-            f'{rec["bound_ms"] * 1e3 / reps:.4f} us/rep, plain {ms_p:.3f} '
-            f'ms per launch; equal to its plain version')
+            f'{rec["bound_ms"] * 1e3 / reps:.4f} us/rep '
+            f'({rec["share"]:.3f} of it), plain {ms_p:.3f} ms per launch; '
+            f'equal to its plain version')
+    rec['counters'] = dict(occupancy(sm.kernel_info()['edgemat']), sass=sass(
+        device.build_cuda('sweep_micro'), 'edgemat_kernel'))
+    log(f'edgemat counters: {rec["counters"]}')
 
     # ---- the ablation ----
     args = w.args()
+    nb = w.ids.shape[0]
     variants = {}
     for v in sa.VARIANTS:
         out_k = sa.sweep_ablate(*args, v)
         out_p = sa.sweep_ablate_plain(*args, v)
-        equal = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
-        if not equal:
-            if v in ('no-epi', 'tonly', 'acc-only'):
-                raise AssertionError(f'ablation {v} differs from its plain '
-                                     f'version')
-            check_hits(out_p[0], out_p[1], out_k[0], out_k[1])
-        variants[v] = dict(ms=abl[v], equal=equal)
-    full = sa.sweep_ablate(*args, 'full')
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            raise AssertionError(f'ablation {v} differs from its plain '
+                                 f'version')
+        variants[v] = dict(ms=abl[v], equal=True)
+    st = torch.zeros((nb, sa.STATS), dtype=torch.int64, device=dev)
+    full = sa.sweep_ablate(*args, 'full', stats=st)
+    counters = dict(occupancy(sa.kernel_info()['full']), sass=sass(
+        device.build_cuda('sweep_ablate'), 'ablate_kernelILi0E'),
+        **cycle_summary(st[:, 1], st[:, 0]))
+    log(f'ablation full counters (per block; work = subtiles swept): '
+        f'{counters}')
     t_s, tri_s = cl.cluster_sweep(
         w.cm, w.ids, w.counts, torch.zeros(w.ids.shape, device=dev), w.org,
         w.dirn, w.tmax, w.tmin)
     frac, err = check_hits(t_s, tri_s, full[0], full[1])
     keys0 = torch.zeros(w.ids.shape, device=dev)
-    nb = w.ids.shape[0]
     ms_sweep = time_us(lambda: cl.cluster_sweep(
         w.cm, w.ids, w.counts, keys0, w.org, w.dirn, w.tmax, w.tmin), 4,
         dev) / 1e3
@@ -1289,14 +1393,20 @@ def probe_phase(dev):
         + distinct * w.cm.n_sub * cl.PLANE_ROWS * cl.SUBT * 4,
         variants=variants, packets=nb, slots=w.slots,
         full_vs_cluster_sweep=frac, cluster_sweep_ms=ms_sweep,
-        cluster_sweep_rows=swept * cl.SWEEP_GROUP)
+        cluster_sweep_rows=swept * cl.SWEEP_GROUP, counters=counters,
+        ps_per_pair=abl['full'] * 1e9 / pairs,
+        cluster_sweep_ps_per_pair=ms_sweep * 1e9 / max(
+            swept * cl.SWEEP_GROUP * cl.SUBT, 1))
     rec['launches'] = n_abl['sweep_ablate']
     recs.append(rec)
     log(f'ablation: {nb} packets, {w.slots} slots, {distinct} distinct '
         f'clusters; every variant equal to its plain version: '
         f'{all(v["equal"] for v in variants.values())}; full vs '
         f'cluster_sweep tri agreement {frac:.6f} (max |dt| {err:.3g}); '
-        f'full {abl["full"]:.3f} ms (bound {rec["bound_ms"]:.4f} ms), plain '
+        f'full {abl["full"]:.3f} ms (bound {rec["bound_ms"]:.4f} ms, '
+        f'{rec["share"]:.3f} of it; {rec["ps_per_pair"]:.3f} ps per pair '
+        f'against cluster_sweep\'s {rec["cluster_sweep_ps_per_pair"]:.3f} '
+        f'on the same inputs), plain '
         f'{ms_p:.3f} ms, {abl["full"] * 1e3 / (w.slots * w.cm.n_sub):.3f} us '
         f'per swept subtile; the production cluster_sweep on the same inputs '
         f'{ms_sweep:.3f} ms for the {swept} G={cl.SWEEP_GROUP} lane-group '
@@ -1338,6 +1448,9 @@ def main():
         f'cuda {torch.version.cuda}')
     card = card_line()
     log(card)
+    rate, sms, mhz = issue_rate()
+    log(f'fp32 issue rate {rate:.5g} /s = {sms} SMs x 128 x {mhz:.0f} MHz '
+        f'(clocks.max.sm): the operations bound of the CUDA-core kernels')
     dev = torch.device('cuda:0')
     import pathtracer_tpu_torch as pt
 

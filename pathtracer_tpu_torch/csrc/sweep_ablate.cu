@@ -102,8 +102,10 @@ ablate_kernel(const int* __restrict__ ids, const int* __restrict__ counts,
               const float* __restrict__ org, const float* __restrict__ dir,
               const float* __restrict__ tmax, const float* __restrict__ tmin,
               float* __restrict__ t_out, int* __restrict__ tri_out,
-              float* __restrict__ be_out, float* __restrict__ ga_out) {
+              float* __restrict__ be_out, float* __restrict__ ga_out,
+              long long* __restrict__ stats) {
   __shared__ __align__(16) float sp[PLANE_FLOATS];
+  const long long c0 = clock64();
   const int b = blockIdx.x;
   const int r = b * BLOCK + threadIdx.x;
   const Ray ray = load_ray(org, dir, r);
@@ -203,12 +205,16 @@ ablate_kernel(const int* __restrict__ ids, const int* __restrict__ counts,
   tri_out[r] = btri;
   be_out[r] = bb;
   ga_out[r] = bg;
+  if (stats != nullptr && threadIdx.x == 0) {
+    stats[2 * b] = (long long)cnt * n_sub;
+    stats[2 * b + 1] = clock64() - c0;
+  }
 }
 
 using Kernel = void (*)(const int*, const int*, const float*, const float*,
                         const int*, int, const float*, const float*,
                         const float*, const float*, float*, int*, float*,
-                        float*);
+                        float*, long long*);
 
 const Kernel KERNELS[] = {
     ablate_kernel<FULL>,   ablate_kernel<NO_LOAD>, ablate_kernel<NO_PRODUCTS>,
@@ -228,13 +234,30 @@ extern "C" int sweep_ablate(const int* ids, const int* counts,
                             const int* starts, int n_sub, const float* org,
                             const float* dir, const float* tmax,
                             const float* tmin, float* t_out, int* tri_out,
-                            float* be_out, float* ga_out, int nb, int variant,
-                            void* stream) {
+                            float* be_out, float* ga_out, long long* stats,
+                            int nb, int variant, void* stream) {
   if (variant < 0 || variant >= (int)(sizeof(KERNELS) / sizeof(Kernel)))
     return (int)cudaErrorInvalidValue;
   if (nb > 0)
     KERNELS[variant]<<<nb, BLOCK, 0, (cudaStream_t)stream>>>(
         ids, counts, planes, ctab, starts, n_sub, org, dir, tmax, tmin, t_out,
-        tri_out, be_out, ga_out);
+        tri_out, be_out, ga_out, stats);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, resident blocks per SM and threads per block of
+// one variant's kernel, into out[0..2].  Returns a CUDA error code.
+extern "C" int sweep_ablate_info(int variant, int* out) {
+  if (variant < 0 || variant >= (int)(sizeof(KERNELS) / sizeof(Kernel)))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, (const void*)KERNELS[variant]);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, (const void*)KERNELS[variant], BLOCK, 0);
+  out[0] = a.numRegs;
+  out[1] = blocks;
+  out[2] = BLOCK;
+  return (int)e;
 }

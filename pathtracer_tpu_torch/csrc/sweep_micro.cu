@@ -318,3 +318,26 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
                    (cudaStream_t)stream>>>(o, d, tr, m, reps, eps, out);
   return (int)cudaGetLastError();
 }
+
+// Registers per thread, resident blocks per SM and threads per block of
+// one probe kernel (0 dot_fp32, 1 dot_tf32, 2 epilogue, 3 edgemat), into
+// out[0..2].  Returns a CUDA error code.
+extern "C" int sweep_micro_info(int kernel, int* out) {
+  const void* fns[] = {(const void*)dot_fp32_kernel,
+                       (const void*)dot_tf32_kernel,
+                       (const void*)epilogue_kernel,
+                       (const void*)edgemat_kernel};
+  const int threads[] = {DOT_THREADS, 32 * TF32_WARPS, 32 * EPI_WARPS,
+                         EDGE_THREADS};
+  if (kernel < 0 || kernel > 3) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[kernel],
+                                                    threads[kernel], 0);
+  out[0] = a.numRegs;
+  out[1] = blocks;
+  out[2] = threads[kernel];
+  return (int)e;
+}

@@ -37,6 +37,7 @@ SLOTS = 8           # slots swept per packet (the TPU script's clamp)
 VARIANTS = ('full', 'no-load', 'no-products', 'no-epi', 'tonly', 'acc-only',
             'lean', 'notb', 'pk')
 PLAIN_CHUNK = 64    # packets per plain-version step (bounds its tensors)
+STATS = 2           # counters per unit: subtiles swept, clock64 cycles
 
 
 def _dot(v, pl, r):
@@ -165,15 +166,31 @@ def load_kernels(log=None) -> ctypes.CDLL:
     if 'ablate' not in _libs:
         lib = ctypes.CDLL(device.build_cuda('sweep_ablate', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sweep_ablate.argtypes = [ptr] * 5 + [i32] + [ptr] * 8 \
+        lib.sweep_ablate.argtypes = [ptr] * 5 + [i32] + [ptr] * 9 \
             + [i32, i32, ptr]
         lib.sweep_ablate.restype = i32
+        lib.sweep_ablate_info.argtypes = [i32, ptr]
+        lib.sweep_ablate_info.restype = i32
         _libs['ablate'] = lib
     return _libs['ablate']
 
 
+def kernel_info() -> dict:
+    """{variant: (registers per thread, resident blocks per SM, threads
+    per block)} of the ablation kernels, from the CUDA runtime."""
+    lib = load_kernels()
+    out = {}
+    for i, v in enumerate(VARIANTS):
+        buf = (ctypes.c_int * 3)()
+        rc = lib.sweep_ablate_info(i, buf)
+        if rc != 0:
+            raise RuntimeError(f'sweep_ablate_info failed: CUDA error {rc}')
+        out[v] = tuple(buf)
+    return out
+
+
 def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
-                 variant: str):
+                 variant: str, stats=None):
     """One ablation variant over nb = N / BLOCK packets: (t, tri, beta,
     gamma).  CPU tensors take sweep_ablate_plain; CUDA tensors launch the
     hand-written kernel (replaces the TPU kernel
@@ -210,7 +227,8 @@ def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
         ids.data_ptr(), counts.data_ptr(), cm.planes.data_ptr(),
         cm.ctab.data_ptr(), cm.starts.data_ptr(), cm.n_sub, org.data_ptr(),
         dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), t.data_ptr(),
-        tri.data_ptr(), be.data_ptr(), ga.data_ptr(), nb,
+        tri.data_ptr(), be.data_ptr(), ga.data_ptr(),
+        0 if stats is None else stats.data_ptr(), nb,
         VARIANTS.index(variant),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -150,10 +150,27 @@ def load_kernels(log=None) -> ctypes.CDLL:
                                   ptr, ptr, ptr]
         lib.sweep_epilogue.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr]
         lib.sweep_edgemat.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
-        for fn in (lib.sweep_dot, lib.sweep_epilogue, lib.sweep_edgemat):
+        lib.sweep_micro_info.argtypes = [i32, ptr]
+        for fn in (lib.sweep_dot, lib.sweep_epilogue, lib.sweep_edgemat,
+                   lib.sweep_micro_info):
             fn.restype = i32
         _libs['micro'] = lib
     return _libs['micro']
+
+
+def kernel_info() -> dict:
+    """{kernel: (registers per thread, resident blocks per SM, threads per
+    block)} of the probe kernels, from the CUDA runtime."""
+    lib = load_kernels()
+    out = {}
+    for i, name in enumerate(('dot_fp32', 'dot_tf32', 'epilogue',
+                              'edgemat')):
+        buf = (ctypes.c_int * 3)()
+        rc = lib.sweep_micro_info(i, buf)
+        if rc != 0:
+            raise RuntimeError(f'sweep_micro_info failed: CUDA error {rc}')
+        out[name] = tuple(buf)
+    return out
 
 
 def _takes_plain(name, tensors, shapes):
