@@ -1359,12 +1359,14 @@ def probe_phase(dev):
             raise AssertionError(f'ablation {v} differs from its plain '
                                  f'version')
         variants[v] = dict(ms=abl[v], equal=True)
-    st = torch.zeros((nb, sa.STATS), dtype=torch.int64, device=dev)
+    g = cl.SWEEP_GROUP
+    st = torch.zeros((nb * (cl.BLOCK // g), sa.STATS), dtype=torch.int64,
+                     device=dev)
     full = sa.sweep_ablate(*args, 'full', stats=st)
     counters = dict(occupancy(sa.kernel_info()['full']), sass=sass(
-        device.build_cuda('sweep_ablate'), 'ablate_kernelILi0E'),
+        device.build_cuda('sweep_ablate'), f'ablate_kernelILi0ELi{g}E'),
         **cycle_summary(st[:, 1], st[:, 0]))
-    log(f'ablation full counters (per block; work = subtiles swept): '
+    log(f'ablation full counters (per G={g} group; work = subtiles swept): '
         f'{counters}')
     t_s, tri_s = cl.cluster_sweep(
         w.cm, w.ids, w.counts, torch.zeros(w.ids.shape, device=dev), w.org,

@@ -69,64 +69,9 @@ namespace {
 
 constexpr int STATS = 5;   // per unit: slots visited, clusters entered,
                            // subtile slab tests, subtiles swept, cycles
-constexpr unsigned PLANE_BYTES = PLANE_FLOATS * sizeof(float);
 
-// ---- the 1-D bulk copy and its mbarrier (PTX) ----
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// One thread: expect PLANE_BYTES on `bar` and start copying them from
-// global `src` into shared `dst` (both 16-byte aligned).
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          unsigned long long* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(PLANE_BYTES) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(PLANE_BYTES),
-         "r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.  A copy
-// lands within microseconds; one that has not landed after about 2^33
-// cycles (seconds) is a fault, and the kernel traps instead of hanging.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const long long t0 = clock64();
-  unsigned done;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// ---- group-wide votes, barrier and max ----
-
-template <int G>
-__device__ __forceinline__ bool group_any(bool p) {
-  if constexpr (G == 32) return __any_sync(0xffffffffu, p);
-  else return __syncthreads_or(p);
-}
-
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (G == 32) __syncwarp();
-  else __syncthreads();
-}
+// ---- group-wide max (the copy, its mbarrier, the vote and the barrier
+// are sweep_common.cuh's) ----
 
 // NaN-propagating max over the group (every lane gets it); `red` holds one
 // float per warp.

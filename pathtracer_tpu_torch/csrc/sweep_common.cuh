@@ -1,6 +1,7 @@
-// The cluster sweep's per-ray arithmetic, shared by the production sweeps
-// (cluster_sweep.cu) and the sweep ablation (sweep_ablate.cu), so that the
-// ablation measures the sweep's own code and not a copy of it.  Every
+// The cluster sweep's per-ray arithmetic and plane staging, shared by the
+// production sweeps (cluster_sweep.cu) and the sweep ablation
+// (sweep_ablate.cu), so that the ablation measures the sweep's own code
+// and not a copy of it.  Every
 // product and sum is rounded on its own (the _rn intrinsics; the library
 // is also built with -fmad=false), in the order of the plain PyTorch
 // versions (ops/cluster._subtile_hits), so kernels and plain versions agree
@@ -65,11 +66,63 @@ __device__ __forceinline__ Ray load_ray(const float* org, const float* dir,
   return ray;
 }
 
-// Copy one subtile's planes (12 x SUBT floats) into shared memory.
-__device__ __forceinline__ void stage_planes(float* sp, const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(sp);
-  for (int i = threadIdx.x; i < PLANE_FLOATS / 4; i += BLOCK) d4[i] = s4[i];
+// ---- staging: the 1-D bulk copy of one subtile's planes and its mbarrier
+// (PTX), and the lane group's barrier and vote ----
+
+constexpr unsigned PLANE_BYTES = PLANE_FLOATS * sizeof(float);
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// One thread: expect PLANE_BYTES on `bar` and start copying them from
+// global `src` into shared `dst` (both 16-byte aligned).
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(PLANE_BYTES) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(PLANE_BYTES),
+         "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  A copy
+// lands within microseconds; one that has not landed after about 2^33
+// cycles (seconds) is a fault, and the kernel traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// Vote and barrier over a lane group of G threads (one block).
+template <int G>
+__device__ __forceinline__ bool group_any(bool p) {
+  if constexpr (G == 32) return __any_sync(0xffffffffu, p);
+  else return __syncthreads_or(p);
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (G == 32) __syncwarp();
+  else __syncthreads();
 }
 
 // (a*x + b*y) + c*z with every product and sum rounded on its own: the

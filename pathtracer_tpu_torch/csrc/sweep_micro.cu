@@ -38,10 +38,23 @@
 //   instructions.
 //
 // edgemat: o, d (3, M), tr (12, 256) f32; per rep the edge-matrix ray x
-//   triangle test and a min of t.  One warp per ray, four rays per block;
-//   each rep the block writes tr + i*eps into one of two shared-memory
-//   buffers (one __syncthreads per rep), and each lane tests eight
-//   triangles.  Bound: fp32 instructions.
+//   triangle test and a min of t.  The result, the least accepted t over
+//   all (rep, triangle) pairs of a ray, does not depend on the pairs'
+//   order, so the reps are cut into ranges over blocks (enough blocks for
+//   about four waves): one thread per triangle, eight rays per block read
+//   from shared memory, tr + i*eps computed in registers once per rep for
+//   the eight rays, no barrier per rep.  Partial minima are combined
+//   exactly by a key of (|t|, rep, triangle, sign): -0.0 and +0.0 compare
+//   equal and the first pair in (rep, triangle) order gives the sign, as
+//   the plain version keeps the earlier rep on a tie (torch.minimum on
+//   the CPU).  A second small kernel reduces the ranges' keys.  Bound:
+//   fp32 instructions (41 counted operations a pair, the divide several
+//   instructions).
+//
+//   This replaced one warp per ray, four rays per block, writing tr +
+//   i*eps into shared memory every rep behind a block barrier: 1,024 rays
+//   gave under eight warps per SM, too few to hide the divide's and the
+//   twelve shared loads' latency (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -221,42 +234,79 @@ epilogue_kernel(const float* __restrict__ p, const float* __restrict__ tn,
 }
 
 // ---- edge-matrix test ----
-constexpr int EDGE_WARPS = 4;
-constexpr int EDGE_THREADS = 32 * EDGE_WARPS;
-constexpr int TR_FLOATS = 12 * SUBT;
+constexpr int EDGE_THREADS = SUBT;   // one thread per triangle
+constexpr int EDGE_WARPS = EDGE_THREADS / 32;
+constexpr int EDGE_RAYS = 8;         // rays per block (ops/sweep_micro.py)
+constexpr unsigned long long NONE = ~0ull;
 
-__global__ void __launch_bounds__(EDGE_THREADS)
+// The combine key of an accepted t (>= 0, so -0.0 or positive) at (rep,
+// tri): |t|'s bits, then the pair's place in (rep, tri) order, then t's
+// sign.  The least key is the least t, -0.0 and +0.0 equal as floats,
+// and among equal t the first pair in (rep, tri) order, whose sign it
+// keeps.  NONE when no pair was accepted.
+__device__ __forceinline__ unsigned long long edge_key(float t, int rep,
+                                                       int tri) {
+  if (!(t < BIG_T)) return NONE;
+  const unsigned b = __float_as_uint(t);
+  return ((unsigned long long)(b & 0x7fffffffu) << 32) |
+         ((unsigned long long)(rep * SUBT + tri) << 1) | (b >> 31);
+}
+
+__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
+                                                     unsigned long long b) {
+  return b < a ? b : a;
+}
+
+// Block (tile, split): EDGE_RAYS rays x all SUBT triangles x the reps of
+// range `split` (split * reps / splits up to the next).  Thread j owns
+// triangle j: tr + i*eps in registers, from a copy of tr loaded once, each
+// rep's shift amortized over the tile's rays, which every thread reads
+// from shared memory (one barrier in all).  Per ray, each thread keeps the
+// first least accepted t in its (rep) order; a warp shuffle and a pass
+// over the block's warps combine the keys; partial[split][ray] is the
+// block's key.
+__global__ void __launch_bounds__(EDGE_THREADS, 4)
 edgemat_kernel(const float* __restrict__ o, const float* __restrict__ d,
-               const float* __restrict__ tr, int m, int reps, float eps,
-               float* __restrict__ out) {
-  __shared__ float trs[2][TR_FLOATS];
-  constexpr int PER_THREAD = TR_FLOATS / EDGE_THREADS;
-  float base[PER_THREAD];
-  for (int q = 0; q < PER_THREAD; ++q)
-    base[q] = tr[threadIdx.x + EDGE_THREADS * q];
-  const int ray = blockIdx.x * EDGE_WARPS + (threadIdx.x >> 5);
-  const bool live = ray < m;
-  const int lane = threadIdx.x & 31;
-  const int rr = live ? ray : 0;
-  const float ox = o[rr], oy = o[m + rr], oz = o[2 * m + rr];
-  const float dx = d[rr], dy = d[m + rr], dz = d[2 * m + rr];
-  float best = BIG_T;
-  for (int i = 0; i < reps; ++i) {
+               const float* __restrict__ tr, int m, int reps, int splits,
+               float eps, unsigned long long* __restrict__ partial) {
+  __shared__ float4 ray_a[EDGE_RAYS];   // ox, oy, oz, dx
+  __shared__ float2 ray_b[EDGE_RAYS];   // dy, dz
+  __shared__ unsigned long long red[EDGE_WARPS][EDGE_RAYS];
+  const int j = threadIdx.x;
+  const int ray0 = blockIdx.x * EDGE_RAYS;
+  const int split = blockIdx.y;
+  const int r0 = (int)((long long)split * reps / splits);
+  const int r1 = (int)((long long)(split + 1) * reps / splits);
+  if (j < EDGE_RAYS) {
+    const int ray = min(ray0 + j, m - 1);
+    ray_a[j] = make_float4(o[ray], o[m + ray], o[2 * m + ray], d[ray]);
+    ray_b[j] = make_float2(d[m + ray], d[2 * m + ray]);
+  }
+  float base[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) base[k] = tr[k * SUBT + j];
+  __syncthreads();
+  float best[EDGE_RAYS];
+  int brep[EDGE_RAYS];
+#pragma unroll
+  for (int r = 0; r < EDGE_RAYS; ++r) {
+    best[r] = BIG_T;
+    brep[r] = 0;
+  }
+  for (int i = r0; i < r1; ++i) {
     const float step = __fmul_rn((float)i, eps);
-    float* s = trs[i & 1];
-    for (int q = 0; q < PER_THREAD; ++q)
-      s[threadIdx.x + EDGE_THREADS * q] = __fadd_rn(base[q], step);
-    // the writes of rep i + 1 go to the other buffer, and every warp has
-    // left rep i - 1 before any thread passes this barrier
-    __syncthreads();
-    if (!live) continue;
-#pragma unroll 2
-    for (int q = 0; q < PER_LANE; ++q) {
-      const int j = lane + 32 * q;
-      const float ax = s[0 * SUBT + j], ay = s[1 * SUBT + j], az = s[2 * SUBT + j];
-      const float nx = s[3 * SUBT + j], ny = s[4 * SUBT + j], nz = s[5 * SUBT + j];
-      const float ux = s[6 * SUBT + j], uy = s[7 * SUBT + j], uz = s[8 * SUBT + j];
-      const float vx = s[9 * SUBT + j], vy = s[10 * SUBT + j], vz = s[11 * SUBT + j];
+    float s[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) s[k] = __fadd_rn(base[k], step);
+    const float ax = s[0], ay = s[1], az = s[2], nx = s[3], ny = s[4],
+                nz = s[5], ux = s[6], uy = s[7], uz = s[8], vx = s[9],
+                vy = s[10], vz = s[11];
+#pragma unroll
+    for (int r = 0; r < EDGE_RAYS; ++r) {
+      const float4 ra = ray_a[r];
+      const float2 rb = ray_b[r];
+      const float ox = ra.x, oy = ra.y, oz = ra.z;
+      const float dx = ra.w, dy = rb.x, dz = rb.y;
       const float dn = __fadd_rn(__fadd_rn(__fmul_rn(dx, nx), __fmul_rn(dy, ny)),
                                  __fmul_rn(dz, nz));
       const float on = __fadd_rn(
@@ -273,12 +323,40 @@ edgemat_kernel(const float* __restrict__ o, const float* __restrict__ d,
                                     __fmul_rn(pz, vz));
       const bool ok = (t >= 0.f) && (beta >= 0.f) && (gamma >= 0.f) &&
                       (__fadd_rn(beta, gamma) <= 1.f);
-      if (ok && t < best) best = t;
+      // this thread meets its pairs in rep order: the first least t stays
+      if (ok && t < best[r]) {
+        best[r] = t;
+        brep[r] = i;
+      }
     }
   }
-  for (int k = 16; k > 0; k >>= 1)
-    best = fminf(best, __shfl_xor_sync(0xffffffffu, best, k));
-  if (live && lane == 0) out[ray] = best;
+#pragma unroll
+  for (int r = 0; r < EDGE_RAYS; ++r) {
+    unsigned long long v = edge_key(best[r], brep[r], j);
+    for (int k = 16; k > 0; k >>= 1)
+      v = umin64(v, __shfl_xor_sync(0xffffffffu, v, k));
+    if ((j & 31) == 0) red[j >> 5][r] = v;
+  }
+  __syncthreads();
+  if (j < EDGE_RAYS && ray0 + j < m) {
+    unsigned long long v = red[0][j];
+#pragma unroll
+    for (int w = 1; w < EDGE_WARPS; ++w) v = umin64(v, red[w][j]);
+    partial[(size_t)split * m + ray0 + j] = v;
+  }
+}
+
+// out[ray] = the t of the least key over the splits' partial keys (BIG_T
+// when none), its sign restored.
+__global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
+                               int m, int splits, float* __restrict__ out) {
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ray >= m) return;
+  unsigned long long v = NONE;
+  for (int s = 0; s < splits; ++s) v = umin64(v, partial[(size_t)s * m + ray]);
+  out[ray] = v == NONE ? BIG_T
+                       : __uint_as_float((unsigned)(v >> 32) |
+                                         ((unsigned)(v & 1) << 31));
 }
 
 }  // namespace
@@ -311,11 +389,19 @@ extern "C" int sweep_epilogue(const float* p, const float* tn, int m,
 }
 
 // o, d (3, m), tr (12, 256) f32; out (m,) f32 = min accepted t (or 1e30).
+// The reps are cut into `splits` ranges (ops/sweep_micro.edgemat_ranges);
+// partial (splits, m) uint64 is scratch.  Returns cudaGetLastError().
 extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
-                             int m, int reps, float eps, float* out,
+                             int m, int reps, int splits, float eps,
+                             unsigned long long* partial, float* out,
                              void* stream) {
-  edgemat_kernel<<<(m + EDGE_WARPS - 1) / EDGE_WARPS, EDGE_THREADS, 0,
-                   (cudaStream_t)stream>>>(o, d, tr, m, reps, eps, out);
+  cudaStream_t s = (cudaStream_t)stream;
+  edgemat_kernel<<<dim3((m + EDGE_RAYS - 1) / EDGE_RAYS, splits),
+                   EDGE_THREADS, 0, s>>>(o, d, tr, m, reps, splits, eps,
+                                         partial);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  edgemat_finish<<<(m + 255) / 256, 256, 0, s>>>(partial, m, splits, out);
   return (int)cudaGetLastError();
 }
 

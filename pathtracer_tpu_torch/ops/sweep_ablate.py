@@ -31,7 +31,8 @@ import ctypes
 import torch
 
 from .. import device
-from .cluster import BIG_T, BLOCK, MAXC, SUBT, ClusteredMesh
+from . import cluster
+from .cluster import BIG_T, BLOCK, MAXC, SUBT, ClusteredMesh, heaviest_first
 
 SLOTS = 8           # slots swept per packet (the TPU script's clamp)
 VARIANTS = ('full', 'no-load', 'no-products', 'no-epi', 'tonly', 'acc-only',
@@ -114,22 +115,27 @@ def _subtile(variant, planes, oc, d, tn, base, st):
     st[1] = torch.where(win, trj, btri)
 
 
-def _plain_chunk(cm, ids, counts, org, dirn, tmax, tmin, variant):
-    nb = ids.shape[0]
-    o = org.view(nb, BLOCK, 3)
-    d = dirn.view(nb, BLOCK, 3)
-    tn = torch.clamp_min(tmin, 0.0).view(nb, BLOCK)
-    st = [tmax.view(nb, BLOCK).clone(),
-          torch.full((nb, BLOCK), -1, dtype=torch.int32, device=org.device),
-          torch.zeros((nb, BLOCK), device=org.device),
-          torch.zeros((nb, BLOCK), device=org.device)]
-    cnt = counts[:, 0].clamp(max=min(MAXC, SLOTS))
-    first = cm.planes[ids[:, 0].clamp_min(0).long(), 0]     # no-load
+def _plain_units(cm, ids, cnt, org, dirn, tmax, tmin, variant, units, g):
+    """Sweep the lane groups `units` ((U,) int64) of g rays; returns their
+    outputs as (U * g,) tensors and the lanes they belong to."""
+    nu = units.shape[0]
+    pk = units // (BLOCK // g)                              # packet of a unit
+    lanes = (units[:, None] * g + torch.arange(g, device=org.device)
+             ).reshape(-1)
+    o = org[lanes].view(nu, g, 3)
+    d = dirn[lanes].view(nu, g, 3)
+    tn = torch.clamp_min(tmin[lanes], 0.0).view(nu, g)
+    st = [tmax[lanes].view(nu, g).clone(),
+          torch.full((nu, g), -1, dtype=torch.int32, device=org.device),
+          torch.zeros((nu, g), device=org.device),
+          torch.zeros((nu, g), device=org.device)]
+    c = cnt[pk]
+    first = cm.planes[ids[pk, 0].clamp_min(0).long(), 0]    # no-load
     for k in range(SLOTS):
-        p = (cnt > k).nonzero()[:, 0]
+        p = (c > k).nonzero()[:, 0]
         if p.numel() == 0:
             break
-        cid = ids[p, k].clamp_min(0).long()
+        cid = ids[pk[p], k].clamp_min(0).long()
         oc = o[p] - cm.ctab[cid, None, 6:9]
         for s in range(cm.n_sub):
             planes = first[p] if variant == 'no-load' else cm.planes[cid, s]
@@ -138,23 +144,58 @@ def _plain_chunk(cm, ids, counts, org, dirn, tmax, tmin, variant):
                      cm.starts[cid] + s * SUBT, sub)
             for x, y in zip(st, sub):
                 x[p] = y
-    return [x.reshape(-1) for x in st]
+    return [x.reshape(-1) for x in st], lanes
 
 
-def sweep_ablate_plain(cm: ClusteredMesh, ids, counts, org, dirn, tmax,
-                       tmin, variant: str):
-    """The ablation variant computed with torch ops, PLAIN_CHUNK packets
-    at a time: (t, tri, beta, gamma), (N,) each."""
+def _order(order, counts, g, nu):
+    """The unit order of a launch: heaviest_first on the clamped counts
+    when None, else `order` checked to be a (units,) int32 permutation on
+    the rays' device."""
+    if order is None:
+        return heaviest_first(counts.clamp(max=SLOTS), g)
+    if (order.dtype != torch.int32 or tuple(order.shape) != (nu,)
+            or order.device != counts.device
+            or not torch.equal(torch.sort(order).values,
+                               torch.arange(nu, dtype=torch.int32,
+                                            device=order.device))):
+        raise ValueError(f'sweep_ablate order must be an int32 permutation '
+                         f'of the {nu} units on {counts.device}')
+    return order
+
+
+def _check_variant(variant):
     if variant not in VARIANTS:
         raise ValueError(f'unknown ablation variant {variant!r}; one of '
                          f'{VARIANTS}')
-    outs = []
-    for p0 in range(0, ids.shape[0], PLAIN_CHUNK):
-        pk = slice(p0, p0 + PLAIN_CHUNK)
-        rk = slice(p0 * BLOCK, (p0 + PLAIN_CHUNK) * BLOCK)
-        outs.append(_plain_chunk(cm, ids[pk], counts[pk], org[rk], dirn[rk],
-                                 tmax[rk], tmin[rk], variant))
-    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def sweep_ablate_plain(cm: ClusteredMesh, ids, counts, org, dirn, tmax,
+                       tmin, variant: str, group=None, order=None,
+                       stats=None):
+    """The ablation variant computed with torch ops over lane groups of
+    `group` rays (None: SWEEP_GROUP), PLAIN_CHUNK packets' worth of units
+    at a time, taken in `order` (None: heaviest first): (t, tri, beta,
+    gamma), (N,) each; neither the group size nor the order changes a
+    bit.  `stats` ((units, STATS) int64), optional: column 0 receives each
+    unit's subtiles swept (the kernel's cycles column is left as it is)."""
+    _check_variant(variant)
+    g = cluster._group(group)
+    gpp = BLOCK // g
+    nu = ids.shape[0] * gpp
+    order = _order(order, counts, g, nu).long()
+    cnt = counts[:, 0].clamp(max=min(MAXC, SLOTS))
+    outs = [torch.empty_like(tmax),
+            torch.empty(tmax.shape, dtype=torch.int32, device=org.device),
+            torch.empty_like(tmax), torch.empty_like(tmax)]
+    for u0 in range(0, nu, PLAIN_CHUNK * gpp):
+        res, lanes = _plain_units(cm, ids, cnt, org, dirn, tmax, tmin,
+                                  variant, order[u0:u0 + PLAIN_CHUNK * gpp],
+                                  g)
+        for out, x in zip(outs, res):
+            out[lanes] = x
+    if stats is not None:
+        stats[:, 0] = cnt.repeat_interleave(gpp) * cm.n_sub
+    return tuple(outs)
 
 
 _libs = {}
@@ -166,23 +207,25 @@ def load_kernels(log=None) -> ctypes.CDLL:
     if 'ablate' not in _libs:
         lib = ctypes.CDLL(device.build_cuda('sweep_ablate', log=log))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sweep_ablate.argtypes = [ptr] * 5 + [i32] + [ptr] * 9 \
-            + [i32, i32, ptr]
+        lib.sweep_ablate.argtypes = [ptr] * 5 + [i32] + [ptr] * 10 \
+            + [i32, i32, i32, ptr]
         lib.sweep_ablate.restype = i32
-        lib.sweep_ablate_info.argtypes = [i32, ptr]
+        lib.sweep_ablate_info.argtypes = [i32, i32, ptr]
         lib.sweep_ablate_info.restype = i32
         _libs['ablate'] = lib
     return _libs['ablate']
 
 
-def kernel_info() -> dict:
+def kernel_info(group=None) -> dict:
     """{variant: (registers per thread, resident blocks per SM, threads
-    per block)} of the ablation kernels, from the CUDA runtime."""
+    per block)} of the ablation kernels at lane group `group` (None:
+    SWEEP_GROUP), from the CUDA runtime."""
+    g = cluster._group(group)
     lib = load_kernels()
     out = {}
     for i, v in enumerate(VARIANTS):
         buf = (ctypes.c_int * 3)()
-        rc = lib.sweep_ablate_info(i, buf)
+        rc = lib.sweep_ablate_info(i, g, buf)
         if rc != 0:
             raise RuntimeError(f'sweep_ablate_info failed: CUDA error {rc}')
         out[v] = tuple(buf)
@@ -190,22 +233,32 @@ def kernel_info() -> dict:
 
 
 def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
-                 variant: str, stats=None):
-    """One ablation variant over nb = N / BLOCK packets: (t, tri, beta,
-    gamma).  CPU tensors take sweep_ablate_plain; CUDA tensors launch the
+                 variant: str, group=None, order=None, stats=None):
+    """One ablation variant over nb = N / BLOCK packets in lane groups of
+    `group` rays (None: SWEEP_GROUP), one launch: (t, tri, beta, gamma).
+    CPU tensors take sweep_ablate_plain; CUDA tensors launch the
     hand-written kernel (replaces the TPU kernel
-    tpu_ablate_sweep.make_kernel) or raise."""
-    if variant not in VARIANTS:
-        raise ValueError(f'unknown ablation variant {variant!r}; one of '
-                         f'{VARIANTS}')
+    tpu_ablate_sweep.make_kernel) or raise.  `order` ((units,) int32),
+    optional: the unit each block takes, a permutation (None:
+    heaviest_first on the clamped counts).  `stats` ((units, STATS)
+    int64), optional: per unit the subtiles swept and, from the kernel,
+    its clock64 cycles."""
+    _check_variant(variant)
+    g = cluster._group(group)
     dev = org.device
+    nb = ids.shape[0]
+    n, nu = nb * BLOCK, nb * (BLOCK // g)
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f'sweep_ablate takes CUDA or CPU tensors, got {dev}')
+    order = _order(order, counts, g, nu)
+    if stats is not None and (
+            stats.device != dev or stats.dtype != torch.int64
+            or not stats.is_contiguous() or tuple(stats.shape) != (nu, STATS)):
+        raise ValueError(f'sweep_ablate stats must be a contiguous (units, '
+                         f'{STATS}) int64 tensor on {dev}')
     if dev.type == 'cpu':
         return sweep_ablate_plain(cm, ids, counts, org, dirn, tmax, tmin,
-                                  variant)
-    if dev.type != 'cuda':
-        raise ValueError(f'sweep_ablate takes CUDA or CPU tensors, got {dev}')
-    nb = ids.shape[0]
-    n = nb * BLOCK
+                                  variant, g, order, stats)
     i32, f32 = torch.int32, torch.float32
     checks = (('ids', ids, i32, (nb, MAXC)), ('counts', counts, i32, (nb, 1)),
               ('planes', cm.planes, f32, tuple(cm.planes.shape)),
@@ -219,6 +272,9 @@ def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
             raise ValueError(f'sweep_ablate input {name} must be a '
                              f'contiguous {dt} tensor of shape {shape} on '
                              f'{dev}')
+    if cm.planes.data_ptr() % 16:
+        raise ValueError('sweep_ablate planes must be 16-byte aligned (the '
+                         'bulk copy)')
     t = torch.empty((n,), device=dev)
     tri = torch.empty((n,), dtype=i32, device=dev)
     be = torch.empty((n,), device=dev)
@@ -226,9 +282,9 @@ def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
     rc = load_kernels().sweep_ablate(
         ids.data_ptr(), counts.data_ptr(), cm.planes.data_ptr(),
         cm.ctab.data_ptr(), cm.starts.data_ptr(), cm.n_sub, org.data_ptr(),
-        dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), t.data_ptr(),
-        tri.data_ptr(), be.data_ptr(), ga.data_ptr(),
-        0 if stats is None else stats.data_ptr(), nb,
+        dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), order.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), be.data_ptr(), ga.data_ptr(),
+        0 if stats is None else stats.data_ptr(), nu, g,
         VARIANTS.index(variant),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

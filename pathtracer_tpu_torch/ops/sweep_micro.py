@@ -25,7 +25,9 @@ tensors, and a wrapper that launches a hand-written CUDA kernel
     acceptance, first-index argmin and best-t update; (2, M) f32
     [tbest, tri].  Bit-equal to `epilogue_plain`.
   * `edgemat`: per rep the edge-matrix ray x triangle test and a min of
-    t; (1, M) f32.  Bit-equal to `edgemat_plain`.
+    t; (1, M) f32.  Bit-equal to `edgemat_plain`.  The kernel cuts the
+    reps into ranges (`edgemat_ranges`) and combines the ranges' minima
+    as `edgemat_combine` states it.
 
 The products are never handed to cuBLAS or torch.matmul: the probes ask
 what a hand-written product costs.
@@ -44,6 +46,8 @@ BIG_T = float(np.float32(1e30))
 AR = 8            # depth of the ray matrix
 SUBT = 256        # triangles per subtile
 TF32_TOL = 2.0 ** -14   # |dot_tf32 - dot_plain(tf32=True)| <= TF32_TOL * bound
+EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
+EDGE_MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernel's 31-bit key
 
 
 def _steps(reps: int, eps: float, dev) -> torch.Tensor:
@@ -108,15 +112,16 @@ def epilogue_plain(p, tn, reps: int, eps: float):
     return torch.stack([tbest, tri.to(torch.float32)])
 
 
-def edgemat_plain(o, d, tr, reps: int, eps: float):
+def edgemat_plain(o, d, tr, reps: int, eps: float, rep0: int = 0):
     """The edge-matrix test of tpu_prof_sweep.edgemat_kernel: o, d (3, M),
     tr (12, SUBT) = [a | n | u | v] x xyz rows; per rep tr + i*eps, t, the
-    barycentric acceptance, and the min accepted t.  (1, M) f32."""
+    barycentric acceptance, and the min accepted t, over the reps rep0 <=
+    i < reps.  (1, M) f32."""
     steps = _steps(reps, eps, o.device)
     ox, oy, oz = (o[k][:, None] for k in range(3))
     dx, dy, dz = (d[k][:, None] for k in range(3))
     tbest = torch.full((o.shape[1],), BIG_T, device=o.device)
-    for i in range(reps):
+    for i in range(rep0, reps):
         ax, ay, az, nx, ny, nz, ux, uy, uz, vx, vy, vz = tr + steps[i]
         dn = dx * nx + dy * ny + dz * nz
         on = (ox - ax) * nx + (oy - ay) * ny + (oz - az) * nz
@@ -138,6 +143,7 @@ def edgemat_plain(o, d, tr, reps: int, eps: float):
 # ---------------------------------------------------------------------------
 
 _libs = {}
+_info = {}
 
 
 def load_kernels(log=None) -> ctypes.CDLL:
@@ -149,7 +155,8 @@ def load_kernels(log=None) -> ctypes.CDLL:
         lib.sweep_dot.argtypes = [ptr, ptr, i32, i32, i32, f32, i32, i32,
                                   ptr, ptr, ptr]
         lib.sweep_epilogue.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr]
-        lib.sweep_edgemat.argtypes = [ptr, ptr, ptr, i32, i32, f32, ptr, ptr]
+        lib.sweep_edgemat.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
+                                      ptr, ptr, ptr]
         lib.sweep_micro_info.argtypes = [i32, ptr]
         for fn in (lib.sweep_dot, lib.sweep_epilogue, lib.sweep_edgemat,
                    lib.sweep_micro_info):
@@ -160,9 +167,11 @@ def load_kernels(log=None) -> ctypes.CDLL:
 
 def kernel_info() -> dict:
     """{kernel: (registers per thread, resident blocks per SM, threads per
-    block)} of the probe kernels, from the CUDA runtime."""
+    block)} of the probe kernels, from the CUDA runtime (read once)."""
+    if _info:
+        return _info
     lib = load_kernels()
-    out = {}
+    out = _info
     for i, name in enumerate(('dot_fp32', 'dot_tf32', 'epilogue',
                               'edgemat')):
         buf = (ctypes.c_int * 3)()
@@ -258,6 +267,27 @@ def epilogue(p, tn, reps: int, eps: float):
 epilogue.launches = 0
 
 
+def edgemat_ranges(m: int, reps: int, resident: int):
+    """The edge-matrix kernel's cut of the reps into n contiguous ranges,
+    one per block column: n * ceil(m / EDGE_RAYS) blocks fill at most four
+    waves of `resident` blocks (blocks per SM times SMs), at least one
+    range and at least one rep a range.  Range s is [s * reps // n, (s + 1)
+    * reps // n)."""
+    tiles = -(-m // EDGE_RAYS)
+    n = max(1, min(reps, 4 * resident // max(tiles, 1)))
+    return [(s * reps // n, (s + 1) * reps // n) for s in range(n)]
+
+
+def edgemat_combine(parts):
+    """The kernel's combine of the ranges' results, in rep order: the least
+    t, and on a tie (-0.0 against +0.0) the earlier range's, as the plain
+    version keeps the earlier rep's."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.where(p < out, p, out)
+    return out
+
+
 def edgemat(o, d, tr, reps: int, eps: float):
     """The edge-matrix test, (1, M) f32 min accepted t.  CPU tensors take
     edgemat_plain; CUDA tensors launch the hand-written kernel (replaces
@@ -265,10 +295,17 @@ def edgemat(o, d, tr, reps: int, eps: float):
     m = o.shape[1]
     if _takes_plain('edgemat', (o, d, tr), ((3, m), (3, m), (12, SUBT))):
         return edgemat_plain(o, d, tr, reps, eps)
+    if not 0 <= reps <= EDGE_MAX_REPS:
+        raise ValueError(f'edgemat takes 0 <= reps <= {EDGE_MAX_REPS}')
     out = torch.empty((1, m), device=o.device)
+    if m == 0:
+        return out
+    sms = torch.cuda.get_device_properties(o.device).multi_processor_count
+    splits = len(edgemat_ranges(m, reps, kernel_info()['edgemat'][1] * sms))
+    partial = torch.empty((splits, m), dtype=torch.int64, device=o.device)
     _check('sweep_edgemat', load_kernels().sweep_edgemat(
-        o.data_ptr(), d.data_ptr(), tr.data_ptr(), m, reps, eps,
-        out.data_ptr(),
+        o.data_ptr(), d.data_ptr(), tr.data_ptr(), m, reps, splits, eps,
+        partial.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(o.device).cuda_stream))
     edgemat.launches += 1
     return out
