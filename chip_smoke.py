@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA device (no CPU fallback); prints the
-   torch version and the card's name and power limit.
+   torch version, the card's name and power limit, and its fp32 issue
+   rate.
 2. Builds the hand-written CUDA kernels (csrc/*.cu, one nvcc process per
    source, all started together) and prints the build time and the ptxas
    reports.
@@ -60,14 +61,26 @@
    are each driven with the launch counts set to 0 just before and read
    just after, and each must launch its kernels.  Then every probe kernel
    against its plain version: the fp32 product, the epilogue, the
-   edge-matrix test and every ablation variant bit-equal, the TF32
-   product within sweep_micro.TF32_TOL of the absolute-value bound; the
-   ablation's `full` against the production cluster_sweep on the same
-   clamped inputs by check_hits (and timed there); and the fp32 product
-   must take at least twice as long at 1536 columns as at 384, so the
-   whole product is computed.  Times are the entry points' CUDA-event
+   edge-matrix test and every ablation variant bit-equal (bits of t,
+   tri, beta, gamma), the TF32 product within sweep_micro.TF32_TOL of the
+   absolute-value bound; the ablation's `full` bit-equal and timed at
+   every lane group size, and against the production cluster_sweep on
+   the same clamped inputs by check_hits (and timed there, in ps per
+   pair, beside the main path's first round); and the fp32 product must
+   take at least twice as long at 1536 columns as at 384, so the whole
+   product is computed.  Counters: each probe kernel's registers and
+   resident warps per SM; for the epilogue, the edge-matrix test and the
+   ablation's `full`, the SASS instructions per ray x triangle pair of
+   the pair loop (sass_loop, cuobjdump); the ablation's cycles and
+   subtiles per lane group.  Times are the entry points' CUDA-event
    times; torch.matmul of one product is the library yardstick of the
    products.
+
+Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
+rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
+clock; the kernels are built with -fmad=false, so each counted operation
+is one instruction), or over the dense TF32 rate for the tensor-core
+product.
 
 Every failure raises.  The last three lines are the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
@@ -157,16 +170,21 @@ def entry(name, source, replaces, err, agree, ms, plain_ms, ops, nbytes,
 
 def cycle_summary(cyc, work):
     """Per-unit clock64 cycles and work (1-D tensors): cycles mean, p99,
-    max, the heaviest 1% of units' share of cycles, work mean and max."""
+    max, the heaviest 1% of units' share of cycles and of work (units
+    ranked by each), work mean and max."""
     import torch
     cyc, work = cyc.double().cpu(), work.double().cpu()
     n1 = max(1, cyc.numel() // 100)
-    top = float(torch.sort(cyc, descending=True).values[:n1].sum()
-                / max(float(cyc.sum()), 1.0))
+
+    def top_share(x):
+        return float(torch.sort(x, descending=True).values[:n1].sum()
+                     / max(float(x.sum()), 1.0))
+
     return dict(units=cyc.numel(), cycles_mean=float(cyc.mean()),
                 cycles_p99=float(torch.quantile(cyc, 0.99)),
-                cycles_max=float(cyc.max()), top1_share=top,
-                work_mean=float(work.mean()), work_max=float(work.max()))
+                cycles_max=float(cyc.max()), top1_share=top_share(cyc),
+                top1_work_share=top_share(work), work_mean=float(work.mean()),
+                work_max=float(work.max()))
 
 
 _SASS_LINE = re.compile(r'/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?'
@@ -229,6 +247,16 @@ def cuda_ms(fn, reps=1, warm=True):
     return start.elapsed_time(stop) / reps
 
 
+def same_bits(out_k, out_p):
+    """Kernel and plain outputs (tensors of 32-bit types, or tuples of
+    them) equal bit for bit: -0.0 differs from +0.0."""
+    import torch
+    pairs = zip(out_k, out_p) if isinstance(out_k, tuple) else [(out_k,
+                                                                 out_p)]
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in pairs)
+
+
 def check_hits(t_p, tri_p, t_k, tri_k):
     """Closest-hit agreement of kernel (k) with plain version (p)."""
     same = tri_p == tri_k
@@ -273,25 +301,18 @@ def unit_report(st, group):
     """One line on a sweep's per-unit counters (kernel stats, (units,
     STATS) int64): cycles mean / p99 / max, the heaviest 1% of units'
     share of cycles and of swept subtiles, and the means per unit."""
-    import torch
     st = st.double()
-    cyc, swept = st[:, 4], st[:, 3]
-    n1 = max(1, cyc.numel() // 100)
-
-    def top_share(x):
-        return float(torch.sort(x, descending=True).values[:n1].sum()
-                     / max(float(x.sum()), 1.0))
-
+    c = cycle_summary(st[:, 4], st[:, 3])
     mean = st.mean(dim=0).tolist()
-    return (f'G={group}: {st.shape[0]} units; cycles per unit mean '
-            f'{mean[4]:.0f}, p99 {float(torch.quantile(cyc.cpu(), 0.99)):.0f},'
-            f' max {float(cyc.max()):.0f}; heaviest 1% of units '
-            f'{top_share(cyc):.3f} of cycles, {top_share(swept):.3f} of swept '
-            f'subtiles; per unit means: slots visited {mean[0]:.2f} (max '
-            f'{float(st[:, 0].max()):.0f}), clusters entered {mean[1]:.2f}, '
-            f'subtile slab tests {mean[2]:.2f}, subtiles swept {mean[3]:.2f} '
-            f'(max {float(swept.max()):.0f}); units that sweep nothing '
-            f'{float((swept == 0).double().mean()):.3f}')
+    return (f'G={group}: {c["units"]} units; cycles per unit mean '
+            f'{c["cycles_mean"]:.0f}, p99 {c["cycles_p99"]:.0f}, max '
+            f'{c["cycles_max"]:.0f}; heaviest 1% of units '
+            f'{c["top1_share"]:.3f} of cycles, {c["top1_work_share"]:.3f} of '
+            f'swept subtiles; per unit means: slots visited {mean[0]:.2f} '
+            f'(max {float(st[:, 0].max()):.0f}), clusters entered '
+            f'{mean[1]:.2f}, subtile slab tests {mean[2]:.2f}, subtiles swept '
+            f'{c["work_mean"]:.2f} (max {c["work_max"]:.0f}); units that '
+            f'sweep nothing {float((st[:, 3] == 0).double().mean()):.3f}')
 
 
 def kernel_phase(sc, cam, dev):
@@ -1303,6 +1324,7 @@ def probe_phase(dev):
                 err_over_bound=ratio,
                 library_ms_per_rep=res[f'torch.matmul {route}'] / 1e3)
             rec['launches'] = counts[f'dot_{route}']
+            rec['counters'] = occupancy(sm.kernel_info()[f'dot_{route}'])
             rec['library_ms'] = res[f'torch.matmul {route}'] * reps / 1e3
             recs.append(rec)
             log(f'dot_{route} at {script} shape: {res[route]:.3f} us/rep, '
@@ -1331,7 +1353,7 @@ def probe_phase(dev):
              reps * (m * s * EDGE_PAIR_OPS + 12 * s),
              4 * (6 * m + 12 * s + m), 89)):
         out_k, out_p = fn(*args, reps, eps), plain(*args, reps, eps)
-        if not torch.equal(out_k, out_p):
+        if not same_bits(out_k, out_p):
             raise AssertionError(f'{name} differs from its plain version')
         ms_p = cuda_ms(lambda: plain(*args, reps, eps), reps=1)
         rec = entry(name, src, f'scripts/tpu_prof_sweep.py:{line}', 0.0, 1.0,
@@ -1339,26 +1361,36 @@ def probe_phase(dev):
                     us_per_rep=prof[name], reps=reps,
                     hit_share=float((out_k[0] < BIG_T).float().mean()))
         rec['launches'] = n_prof[name]
+        rec['counters'] = dict(occupancy(sm.kernel_info()[name]), sass=sass(
+            device.build_cuda('sweep_micro'), f'{name}_kernel'))
         recs.append(rec)
         log(f'{name}: {prof[name]:.3f} us/rep, bound '
             f'{rec["bound_ms"] * 1e3 / reps:.4f} us/rep '
             f'({rec["share"]:.3f} of it), plain {ms_p:.3f} ms per launch; '
-            f'equal to its plain version')
-    rec['counters'] = dict(occupancy(sm.kernel_info()['edgemat']), sass=sass(
-        device.build_cuda('sweep_micro'), 'edgemat_kernel'))
-    log(f'edgemat counters: {rec["counters"]}')
+            f'equal to its plain version; counters {rec["counters"]}')
 
     # ---- the ablation ----
     args = w.args()
     nb = w.ids.shape[0]
     variants = {}
     for v in sa.VARIANTS:
-        out_k = sa.sweep_ablate(*args, v)
         out_p = sa.sweep_ablate_plain(*args, v)
-        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        if not same_bits(sa.sweep_ablate(*args, v), out_p):
             raise AssertionError(f'ablation {v} differs from its plain '
                                  f'version')
         variants[v] = dict(ms=abl[v], equal=True)
+        if v == 'full':
+            ref = out_p
+    ms_by_group = {}
+    for g in cl.GROUPS:
+        if not same_bits(sa.sweep_ablate(*args, 'full', group=g), ref):
+            raise AssertionError(f'ablation full at G={g} differs from its '
+                                 f'plain version')
+        ms_by_group[g] = time_us(lambda g=g: sa.sweep_ablate(
+            *args, 'full', group=g), 4, dev) / 1e3
+    log('ablation full by lane group (ms): ' + ', '.join(
+        f'G={g} {ms:.3f} ({sa.kernel_info(g)["full"][1] * g // 32} warps '
+        f'per SM)' for g, ms in ms_by_group.items()))
     g = cl.SWEEP_GROUP
     st = torch.zeros((nb * (cl.BLOCK // g), sa.STATS), dtype=torch.int64,
                      device=dev)
@@ -1396,6 +1428,7 @@ def probe_phase(dev):
         variants=variants, packets=nb, slots=w.slots,
         full_vs_cluster_sweep=frac, cluster_sweep_ms=ms_sweep,
         cluster_sweep_rows=swept * cl.SWEEP_GROUP, counters=counters,
+        ms_by_group=ms_by_group,
         ps_per_pair=abl['full'] * 1e9 / pairs,
         cluster_sweep_ps_per_pair=ms_sweep * 1e9 / max(
             swept * cl.SWEEP_GROUP * cl.SUBT, 1))
@@ -1481,6 +1514,15 @@ def main():
         t0 = time.perf_counter()
         kernels.extend(fn())
         log(f'{name} phase {time.perf_counter() - t0:.1f} s')
+    from pathtracer_tpu_torch.ops import cluster as cl
+    recs = {k['name']: k for k in kernels}
+    main_sweep, abl = recs['cluster_sweep_closest'], recs['sweep_ablate']
+    abl['cluster_sweep_main_ps_per_pair'] = (
+        main_sweep['ms'] * 1e9 / (main_sweep['rows'] * cl.SUBT))
+    log(f'ablation full {abl["ps_per_pair"]:.3f} ps per pair; the production '
+        f'cluster_sweep {abl["cluster_sweep_ps_per_pair"]:.3f} on the same '
+        f'inputs, {abl["cluster_sweep_main_ps_per_pair"]:.3f} on the main '
+        f'path\'s first round')
     log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))
     log(card)
     log(json.dumps({'kernels': kernels}))

@@ -25,8 +25,9 @@
 //
 // This replaced one 512-thread block per packet in packet order, staging
 // each subtile with a synchronous copy between two block barriers: the
-// design PR 4 removed from the production sweep, so the shares it gave
-// described a kernel the render path no longer ran.
+// first design of the production sweep, which cluster_sweep.cu gave up,
+// so the shares it gave described a kernel the render path no longer ran
+// (and its launch waited on the heaviest packets, taken last).
 //
 // Variants (each a deterministic function; ops/sweep_ablate.py holds the
 // plain version of each):
@@ -47,9 +48,10 @@
 //              and PK the exact t of the winning index; PK also beta, gamma
 //
 // What bounds it on an H100: fp32 instruction issue, as the sweep (41
-// fp32 operations, one of them an IEEE divide of several instructions, per
-// ray-triangle pair, planes reused by G rays from shared memory), with
-// two 12 KB buffers per group limiting residency.
+// counted fp32 operations, about 90 SASS instructions with the IEEE
+// divide's, per ray-triangle pair, planes reused by G rays from shared
+// memory), with two 12 KB buffers per group limiting residency to 9
+// groups per SM (18 warps at G = 64).
 
 #include <limits.h>
 

@@ -17,11 +17,17 @@ The TPU script's `*high*` variants chose the MXU's bf16x3 passes; the
 port's sweep has no matrix product and no precision knob, so they have no
 counterpart here (the tensor-core question is sweep_micro.dot_tf32's).
 
+Layout: the production sweep's, lane groups of `group` rays (None:
+cluster.SWEEP_GROUP) taken in `order` (None: cluster.heaviest_first on
+the clamped counts), one launch; a lane's result depends only on its ray
+and its packet's slots, so neither changes a bit.
+
 `sweep_ablate` launches the hand-written CUDA kernel on CUDA tensors (or
 raises) and takes `sweep_ablate_plain` on CPU tensors; the two are
 bit-equal.  Both return (t, tri, beta, gamma), (N,) each: t starts at
 tmax, tri at -1, beta and gamma at 0, and each variant writes what it
-computes.
+computes.  `stats` ((units, STATS) int64) receives each unit's subtiles
+swept and, from the kernel, its clock64 cycles.
 """
 
 from __future__ import annotations

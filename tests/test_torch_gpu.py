@@ -17,8 +17,9 @@ for bit, per-ray counters included; against the brute-force plain
 version a ray grazing a leaf box may differ: tri equal on >= 99.9% of
 lanes, the rest ties within 2^-16 relative t or at most 0.1% hit/miss
 flips, t within 1e-5 relative where tri agrees.
-The probes' fp32 product, epilogue, edge-matrix test and every ablation
-variant are bit-equal to their plain versions; the TF32 product agrees
+The probes' fp32 product, epilogue, edge-matrix test (over its rep ranges)
+and every ablation variant (at several lane group sizes and unit orders)
+are bit-equal to their plain versions; the TF32 product agrees
 with its TF32-rounded plain version within sweep_micro.TF32_TOL of the
 absolute-value bound (the tensor core sums in its own order).
 """
@@ -581,6 +582,73 @@ def test_ablate_matches_plain(terrain_workload, variant):
         assert torch.equal(a, b)
     if variant == 'full':
         assert (out_k[1] >= 0).float().mean().item() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,reps', [(97, 1), (97, 7), (97, 256),
+                                    (1024, 7)])
+def test_edgemat_matches_plain_over_rep_ranges(cuda, m, reps):
+    """The kernel cuts the reps into ranges over blocks (one range when
+    reps = 1) and combines the ranges' minima exactly."""
+    rng = np.random.default_rng(24 + reps)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=cuda)
+
+    o, d, tr = t(3, m), t(3, m), t(12, sm.SUBT)
+    before = sm.edgemat.launches
+    e_k = sm.edgemat(o, d, tr, reps, 1e-3)
+    assert sm.edgemat.launches == before + 1
+    e_p = sm.edgemat_plain(o, d, tr, reps, 1e-3)
+    assert (e_p < BIG_T).float().mean().item() > 0.2
+    assert torch.equal(e_k.view(torch.int32), e_p.view(torch.int32))
+
+
+@pytest.fixture(scope='module')
+def probe_packets():
+    """Three packets of every 1350th camera ray over the probe's terrain
+    at G = 40 in 256-triangle clusters, so that a packet sees more than
+    SLOTS clusters; packet 1's count is set to 0."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    dev = torch.device('cuda')
+    cm = tc.build_clustered(ablate.terrain(40), tris_c=tc.SUBT, dev=dev)
+    n = 3 * tc.BLOCK
+    o, d = (torch.as_tensor(np.ascontiguousarray(x[::1350][:n]), device=dev)
+            for x in ablate.camera_rays(ablate.H * ablate.W))
+    tmax = torch.full((n,), BIG_T, device=dev)
+    ids, count, _ = tc.cluster_cull(cm, o, d, tmax)
+    assert int(count.max()) > sa.SLOTS
+    count[1] = 0
+    return cm, ids, count, o, d, tmax, torch.full((n,), -1.0, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('variant', sa.VARIANTS)
+def test_ablate_matches_plain_in_any_order(probe_packets, variant):
+    """Every variant equals its plain version under heaviest first and a
+    shuffled order, at SWEEP_GROUP and at 32 and 512, with a packet of
+    count 0 and packets of more than SLOTS slots; the counters' subtiles
+    swept equal the plain version's."""
+    args = probe_packets
+    out_p = sa.sweep_ablate_plain(*args, variant)
+    rng = np.random.default_rng(25)
+    for g in sorted({tc.SWEEP_GROUP, 32, tc.BLOCK}):
+        nu = args[1].shape[0] * (tc.BLOCK // g)
+        shuffled = torch.as_tensor(rng.permutation(nu).astype(np.int32),
+                                   device=args[3].device)
+        for order in (None, shuffled):
+            st_k = torch.zeros((nu, sa.STATS), dtype=torch.int64,
+                               device=args[3].device)
+            st_p = torch.zeros_like(st_k)
+            out_k = sa.sweep_ablate(*args, variant, group=g, order=order,
+                                    stats=st_k)
+            sa.sweep_ablate_plain(*args, variant, group=g, stats=st_p)
+            for a, b in zip(out_k, out_p):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(st_k[:, 0], st_p[:, 0])
+            assert bool((st_k[:, 1] > 0).all())
 
 
 @pytest.mark.gpu
