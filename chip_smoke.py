@@ -193,13 +193,14 @@ _SASS_FP32 = ('FADD', 'FMUL', 'FFMA', 'FSETP', 'FMNMX', 'FSEL', 'FCHK',
               'MUFU')
 
 
-def sass_loop(lib, key):
-    """The innermost pair loop of the kernel whose mangled name contains
-    `key`, from `cuobjdump -sass` of the built library `lib`: the shortest
-    backward branch whose body holds a MUFU.RCP (the IEEE divide's
-    reciprocal, one per ray x triangle pair).  Returns its instruction
-    count, the divides in it, instructions per pair, the fp32-pipe share
-    and the opcodes, and the body's text."""
+def sass_loop(lib, key, marker='MUFU.RCP'):
+    """The innermost loop of the kernel whose mangled name contains `key`,
+    from `cuobjdump -sass` of the built library `lib`: the shortest
+    backward branch whose body holds an instruction whose opcode starts
+    with `marker` (the default, MUFU.RCP, is the IEEE divide's reciprocal,
+    one per ray x triangle pair; HGMMA is one wgmma).  Returns its
+    instruction count, the markers in it, instructions per marker, the
+    fp32-pipe share and the opcodes, and the body's text."""
     from pathtracer_tpu_torch import device
     tool = os.path.join(os.path.dirname(device.nvcc_path()), 'cuobjdump')
     out = subprocess.run([tool, '-sass', lib], check=True,
@@ -217,16 +218,16 @@ def sass_loop(lib, key):
         if hit is None or int(hit.group(1), 16) > addr:
             continue
         loop = [x for x in ins if int(hit.group(1), 16) <= x[0] <= addr]
-        if any(x[1].startswith('MUFU.RCP') for x in loop) and (
+        if any(x[1].startswith(marker) for x in loop) and (
                 best is None or len(loop) < len(best)):
             best = loop
     if best is None:
-        raise AssertionError(f'no loop with a divide in {key}')
+        raise AssertionError(f'no loop with a {marker} in {key}')
     ops = collections.Counter(x[1].split('.')[0] for x in best)
-    div = sum(1 for x in best if x[1].startswith('MUFU.RCP'))
+    n = sum(1 for x in best if x[1].startswith(marker))
     fp32 = sum(v for k, v in ops.items() if k in _SASS_FP32)
-    return dict(instructions=len(best), divides=div,
-                per_pair=len(best) / div, fp32_share=fp32 / len(best),
+    return dict(instructions=len(best), marker=marker, markers=n,
+                per_marker=len(best) / n, fp32_share=fp32 / len(best),
                 opcodes=dict(ops.most_common()),
                 text='\n'.join(f'{a:05x} {p}{o}{r}' for a, o, r, p in best))
 
@@ -1265,9 +1266,9 @@ def occupancy(info):
                 warps_per_sm=blocks * threads // 32)
 
 
-def sass(lib, key):
+def sass(lib, key, marker='MUFU.RCP'):
     """sass_loop without the loop's text."""
-    out = sass_loop(lib, key)
+    out = sass_loop(lib, key, marker)
     del out['text']
     return out
 

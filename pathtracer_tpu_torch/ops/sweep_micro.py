@@ -89,7 +89,12 @@ def epilogue_plain(p, tn, reps: int, eps: float):
     """The sweep epilogue of tpu_prof_sweep.epilogue_kernel: p (M, 6*SUBT),
     tn (1, M); per rep prod = p + i*eps split into on, oU, oV, dn, dU, dV,
     t = -(on / dn), acceptance, the lowest index j with t <= min t, and
-    (tbest, tri) updated where that min beats tbest.  (2, M) f32."""
+    (tbest, tri) updated where t[j] beats tbest.  (2, M) f32.
+
+    -0.0 and +0.0 compare equal, and the result keeps the first such pair
+    in (rep, tri) order with its own sign: a rep's t is that of its pair
+    j, not `amin`'s, whose choice between -0.0 and +0.0 differs between
+    the CPU and a card, and a later rep wins only with a smaller t."""
     m = p.shape[0]
     steps = _steps(reps, eps, p.device)
     tnr = tn[0][:, None]
@@ -104,8 +109,9 @@ def epilogue_plain(p, tn, reps: int, eps: float):
         ok = ((t >= 0.0) & (t > tnr) & (beta >= 0.0) & (gamma >= 0.0)
               & (beta + gamma <= 1.0))
         t = torch.where(ok, t, torch.full_like(t, BIG_T))
-        tj = t.amin(dim=-1)
-        j = torch.where(t <= tj[:, None], lane, SUBT).amin(dim=-1)
+        j = torch.where(t <= t.amin(dim=-1, keepdim=True), lane,
+                        SUBT).amin(dim=-1)
+        tj = t.gather(-1, j[:, None].long())[:, 0]
         win = tj < tbest
         tbest = torch.where(win, tj, tbest)
         tri = torch.where(win, j, tri)

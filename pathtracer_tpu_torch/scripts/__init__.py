@@ -17,6 +17,8 @@ import time
 
 import torch
 
+from ..ops import sweep_micro as sm
+
 
 def resolve_device(name: str) -> torch.device:
     """The device an entry point runs on: 'cuda' (the default) needs a card
@@ -91,3 +93,20 @@ def matmul_us(x, w, tf32: bool, launches: int) -> float:
         return time_us(lambda: torch.matmul(x, w), launches, x.device)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def concat_operands(x, w, reps: int, eps: float):
+    """(X_cat (M, 8 * reps), W_cat (8 * reps, N)) whose one product is the
+    probes' sum_{i < reps} (x + i*eps) @ w: block i of X_cat is x + i*eps,
+    rounded as the kernels round it, and every block of W_cat is w."""
+    steps = sm._steps(reps, eps, x.device)
+    x_cat = (x[:, None, :] + steps[None, :, None]).reshape(x.shape[0], -1)
+    return x_cat, w.repeat(reps, 1)
+
+
+def matmul_same_us(x, w, reps: int, eps: float, tf32: bool,
+                   launches: int) -> float:
+    """Microseconds of the one torch.matmul that computes what a product
+    probe computes, X_cat @ W_cat of `concat_operands` (built once, outside
+    the timed region): the library yardstick of a whole launch."""
+    return matmul_us(*concat_operands(x, w, reps, eps), tf32, launches)

@@ -8,8 +8,9 @@ subtile, each kernel running `reps` iterations of one subtile so that the
 launch amortizes (the time of a launch divided by reps):
   * the (1024, 8) x (8, 6*256) product in TF32 on the tensor cores (the
     counterpart of Precision.DEFAULT) and in strict fp32 on the CUDA cores
-    (Precision.HIGHEST), and torch.matmul of one such product with TF32
-    off and on, as the library's yardstick;
+    (Precision.HIGHEST); as the library's yardstick, the one torch.matmul
+    that computes a launch's sum (scripts.matmul_same_us, microseconds per
+    launch), TF32 off and on, and beside it torch.matmul of one product;
   * the epilogue alone (t / beta / gamma, acceptance, winner extraction);
   * the edge-matrix ray x triangle test.
 """
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from ..ops import sweep_micro as sm
-from . import device_line, matmul_us, resolve_device, time_us
+from . import (device_line, matmul_same_us, matmul_us, resolve_device,
+               time_us)
 
 BLOCK, SUBT, AR = 1024, 256, 8
 NS = 6 * SUBT
@@ -47,10 +49,37 @@ def inputs(dev) -> dict:
     return dict(r=r, a=a, p=p, tn=tn, ov=ov, dv=dv, tr=tr)
 
 
+# (triangle, rep, sign of t) of the two pairs that meet t = -0.0 and +0.0
+# in a signed-zero ray, by ray % 4: in one rep (the lower triangle first),
+# and in two reps (the earlier rep's triangle the higher one).  The
+# epilogue's result is the first pair of each ray in (rep, tri) order.
+SIGNED_ZERO_PAIRS = (((5, 1, -1), (9, 1, 1)), ((5, 1, 1), (9, 1, -1)),
+                     ((200, 1, -1), (3, 2, 1)), ((200, 1, 1), (3, 2, -1)))
+
+
+def signed_zero_inputs(dev, m: int, reps: int, eps: float = EPS,
+                       seed: int = 3):
+    """Epilogue inputs (p (m, 6*SUBT), tn (1, m)) with tn < 0, so that t =
+    -0.0 and t = +0.0 are accepted, and ray r meets both at the pairs of
+    SIGNED_ZERO_PAIRS[r % 4] (reps >= 3).  A pair's `on` is -step(rep), so
+    in its rep on + step = +0.0 exactly and t = -(on / dn) takes the sign
+    opposite to dn's; beta = gamma = 1/4.  The other values are random:
+    their t, where accepted, is not 0."""
+    steps = sm._steps(max(reps, 3), eps, 'cpu').numpy()
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((m, 6, SUBT)).astype(np.float32)
+    for r in range(m):
+        for tri, rep, sign in SIGNED_ZERO_PAIRS[r % 4]:
+            p[r, :, tri] = (-steps[rep], 0.25, 0.25, -sign, 0.0, 0.0)
+    return (torch.as_tensor(p.reshape(m, NS), device=dev),
+            torch.full((1, m), -1.0, device=dev))
+
+
 def run(dev, reps: int = REPS, log=print) -> dict:
     """Time every probe; returns microseconds per subtile by probe name
     ('tf32', 'fp32', 'epilogue', 'edgemat', and on a card
-    'torch.matmul fp32' / 'torch.matmul tf32' per product)."""
+    'torch.matmul fp32' / 'torch.matmul tf32' per product and 'library
+    fp32' / 'library tf32' per launch)."""
     x = inputs(dev)
     log(device_line(dev))
     prod = f'(1024x8)x(8x{NS})'
@@ -70,10 +99,17 @@ def run(dev, reps: int = REPS, log=print) -> dict:
         log(f'{name}: {out[key]:.2f}us per subtile ({desc})')
     if dev.type == 'cuda':
         for tf32 in (False, True):
-            key = f'torch.matmul {"tf32" if tf32 else "fp32"}'
+            route = 'tf32' if tf32 else 'fp32'
+            key = f'torch.matmul {route}'
             out[key] = matmul_us(x['r'], x['a'], tf32, LAUNCHES * 10)
             log(f'{key} (allow_tf32={tf32}): {out[key]:.2f}us per product '
-                f'({prod}, library yardstick)')
+                f'({prod})')
+            same = f'library {route}'
+            out[same] = matmul_same_us(x['r'], x['a'], reps, EPS, tf32,
+                                       LAUNCHES)
+            log(f'{same}: {out[same]:.2f}us per launch, one torch.matmul '
+                f'(1024x{8 * reps})x({8 * reps}x{NS}) computing the '
+                f'{route} probe\'s sum over {reps} reps (library yardstick)')
     return out
 
 

@@ -7,9 +7,10 @@ product on the card.
 Counterpart of scripts/tpu_proto_mxu.py (MXU `jnp.dot` against the
 unrolled VPU form): out (1024, 768) = sum_{i < reps} (rays + i*1e-7) @
 tris, once through TF32 mma.sync on the tensor cores and once in strict
-fp32 on the CUDA cores, with torch.matmul of one product (TF32 off and
-on) as the library's yardstick.  Prints microseconds per product and the
-rate, then the largest difference between the two routes.
+fp32 on the CUDA cores.  The library's yardstick, TF32 off and on, is the
+one torch.matmul that computes a launch's sum (scripts.matmul_same_us),
+and beside it torch.matmul of one product.  Prints microseconds per
+product and the rate, then the largest difference between the two routes.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from ..ops import sweep_micro as sm
-from . import device_line, matmul_us, resolve_device, time_us
+from . import (device_line, matmul_same_us, matmul_us, resolve_device,
+               time_us)
 
 BLOCK = 1024
 SUBT = 256
@@ -42,7 +44,8 @@ def inputs(dev):
 def run(dev, reps: int = REPS, log=print) -> dict:
     """Time both routes; returns microseconds per product by route
     ('tf32', 'fp32', and on a card 'torch.matmul fp32' / 'torch.matmul
-    tf32'), and 'max diff' between the routes' outputs."""
+    tf32'), microseconds per launch of the one-call yardstick ('library
+    fp32' / 'library tf32'), and 'max diff' between the routes' outputs."""
     rays, tris = inputs(dev)
     log(device_line(dev))
     desc = f'(1024x8)x(8x{NS})'
@@ -58,10 +61,17 @@ def run(dev, reps: int = REPS, log=print) -> dict:
         log(f'{name}: {out[key]:.2f}us per {desc}{rate}')
     if dev.type == 'cuda':
         for tf32 in (False, True):
-            key = f'torch.matmul {"tf32" if tf32 else "fp32"}'
+            route = 'tf32' if tf32 else 'fp32'
+            key = f'torch.matmul {route}'
             out[key] = matmul_us(rays, tris, tf32, LAUNCHES * 10)
             log(f'{key} (allow_tf32={tf32}): {out[key]:.2f}us per {desc} -> '
-                f'{FLOPS / out[key] / 1e6:.2f} TFLOP/s (library yardstick)')
+                f'{FLOPS / out[key] / 1e6:.2f} TFLOP/s')
+            same = f'library {route}'
+            out[same] = matmul_same_us(rays, tris, reps, EPS, tf32, LAUNCHES)
+            log(f'{same}: {out[same]:.2f}us per launch, one torch.matmul '
+                f'(1024x{8 * reps})x({8 * reps}x{NS}) -> '
+                f'{FLOPS * reps / out[same] / 1e6:.2f} TFLOP/s (library '
+                f'yardstick)')
     out['max diff'] = float((res['tf32'] - res['fp32']).abs().max())
     log(f'max diff {out["max diff"]}')
     return out
