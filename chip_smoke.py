@@ -63,7 +63,11 @@
    against its plain version: the fp32 product, the epilogue, the
    edge-matrix test and every ablation variant bit-equal (bits of t,
    tri, beta, gamma), the TF32 product within sweep_micro.TF32_TOL of the
-   absolute-value bound; the ablation's `full` bit-equal and timed at
+   absolute-value bound at both scripts' shapes; the epilogue also on
+   prof_sweep.signed_zero_inputs (tn < 0, t = -0.0 and +0.0 accepted in
+   one rep and across reps), where the kernel, the plain version on the
+   card and the plain version on the CPU must give the same bits; the
+   ablation's `full` bit-equal and timed at
    every lane group size, and against the production cluster_sweep on
    the same clamped inputs by check_hits (and timed there, in ps per
    pair, beside the main path's first round); and the fp32 product must
@@ -71,10 +75,15 @@
    product is computed.  Counters: each probe kernel's registers and
    resident warps per SM; for the epilogue, the edge-matrix test and the
    ablation's `full`, the SASS instructions per ray x triangle pair of
-   the pair loop (sass_loop, cuobjdump); the ablation's cycles and
-   subtiles per lane group.  Times are the entry points' CUDA-event
-   times; torch.matmul of one product is the library yardstick of the
-   products.
+   the pair loop (sass_loop, cuobjdump); for the TF32 product its tile
+   width and count, the instructions of its rep loop per HGMMA (one
+   wgmma a rep; the run fails if the loop has none) and the tensor rate
+   it reaches; the ablation's cycles and subtiles per lane group.  Times
+   are the entry points' CUDA-event times.  A product's `library_ms` is
+   the one torch.matmul that computes the launch's whole sum
+   (scripts.matmul_same_us, K-concatenated operands), the library
+   yardstick; `one_product_ms` beside it times one (1024, 8) x (8, N)
+   product.
 
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
@@ -1308,6 +1317,8 @@ def probe_phase(dev):
          proto_mxu.EPS, proto_mxu.NS,
          {'tf32': 'scripts/tpu_proto_mxu.py:24',
           'fp32': 'scripts/tpu_proto_mxu.py:34'}))
+    lib = device.build_cuda('sweep_micro')
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for script, res, counts, (xx, ww), reps, eps, cols, replaces in shapes:
         m, n = xx.shape[0], ww.shape[1]
         for route in ('fp32', 'tf32'):
@@ -1316,23 +1327,36 @@ def probe_phase(dev):
                                    cols)
             ms_p = cuda_ms(lambda: sm.dot_plain(xx, ww, reps, eps, cols,
                                                 route == 'tf32'), reps=1)
+            ms = res[route] * reps / 1e3
             rec = entry(
                 f'dot_{route}[{script}]', src, replaces[route], err, 1.0,
-                res[route] * reps / 1e3, ms_p, reps * 2 * m * 8 * n,
+                ms, ms_p, reps * 2 * m * 8 * n,
                 4 * (m * 8 + 8 * n + m * cols + m * n // 2),
                 peak=PEAK_TF32 if route == 'tf32' else None,
                 us_per_rep=res[route], reps=reps, shape=f'({m}x8)x(8x{n})',
                 err_over_bound=ratio,
-                library_ms_per_rep=res[f'torch.matmul {route}'] / 1e3)
+                one_product_ms=res[f'torch.matmul {route}'] / 1e3,
+                tflops=reps * 2 * m * 8 * n / ms / 1e9)
             rec['launches'] = counts[f'dot_{route}']
-            rec['counters'] = occupancy(sm.kernel_info()[f'dot_{route}'])
-            rec['library_ms'] = res[f'torch.matmul {route}'] * reps / 1e3
+            rec['library_ms'] = res[f'library {route}'] / 1e3
+            if route == 'tf32':
+                # one HGMMA (wgmma) a rep: the loop's instructions per rep
+                tile = sm.dot_tile(m, n, sms)
+                rec['counters'] = dict(
+                    occupancy(sm.kernel_info()[f'dot_tf32_{tile}']),
+                    tile=tile, tiles=-(-m // sm.WG_ROWS) * (n // tile),
+                    sass=sass(lib, f'dot_tf32_kernelILi{tile}E', 'HGMMA'))
+            else:
+                rec['counters'] = occupancy(sm.kernel_info()['dot_fp32'])
             recs.append(rec)
-            log(f'dot_{route} at {script} shape: {res[route]:.3f} us/rep, '
-                f'bound {rec["bound_ms"] * 1e3 / reps:.4f} us/rep, '
-                f'torch.matmul {res["torch.matmul " + route]:.3f} us, plain '
-                f'{ms_p:.3f} ms per launch; max |diff| {err:.3g} '
-                f'({ratio:.3g} of the bound)')
+            log(f'dot_{route} at {script} shape: {res[route]:.4f} us/rep '
+                f'({ms * 1e3:.2f} us per launch, {rec["tflops"]:.1f} '
+                f'TFLOP/s), bound {rec["bound_ms"] * 1e3 / reps:.4f} us/rep '
+                f'({rec["share"]:.3f} of it); one torch.matmul of the same '
+                f'sum {rec["library_ms"] * 1e3:.2f} us, of one product '
+                f'{res["torch.matmul " + route]:.3f} us; plain {ms_p:.3f} ms '
+                f'per launch; max |diff| {err:.3g} ({ratio:.3g} of the '
+                f'bound); counters {rec["counters"]}')
     narrow = x['a'][:, :prof_sweep.NS // 4].contiguous()
     t_narrow = time_us(lambda: sm.dot_fp32(x['r'], narrow, prof_sweep.REPS,
                                            prof_sweep.EPS, 128), 20, dev)
@@ -1346,6 +1370,17 @@ def probe_phase(dev):
     # ---- epilogue and edge-matrix test ----
     reps, eps = prof_sweep.REPS, prof_sweep.EPS
     m, s = prof_sweep.BLOCK, prof_sweep.SUBT
+    zp, ztn = prof_sweep.signed_zero_inputs(dev, m, 7)
+    z_k = sm.epilogue(zp, ztn, 7, eps)
+    z_p = sm.epilogue_plain(zp, ztn, 7, eps)
+    z_cpu = sm.epilogue_plain(zp.cpu(), ztn.cpu(), 7, eps)
+    if not (same_bits(z_k, z_p) and same_bits(z_p.cpu(), z_cpu)):
+        raise AssertionError('epilogue with tn < 0 and t = -0.0 and +0.0 '
+                             'accepted: kernel, plain version on the card '
+                             'and on the CPU differ')
+    log(f'epilogue, signed zeros (tn < 0, {m} rays): kernel, plain version '
+        f'on the card and on the CPU bit-equal; first rays\' t sign bits '
+        f'{torch.signbit(z_k[0][:4]).tolist()}, tri {z_k[1][:4].tolist()}')
     for name, fn, plain, args, ops, nbytes, line in (
             ('epilogue', sm.epilogue, sm.epilogue_plain, (x['p'], x['tn']),
              reps * m * s * EPI_PAIR_OPS, 4 * (m * 6 * s + m + 2 * m), 57),
@@ -1363,7 +1398,7 @@ def probe_phase(dev):
                     hit_share=float((out_k[0] < BIG_T).float().mean()))
         rec['launches'] = n_prof[name]
         rec['counters'] = dict(occupancy(sm.kernel_info()[name]), sass=sass(
-            device.build_cuda('sweep_micro'), f'{name}_kernel'))
+            lib, f'{name}_kernel'))
         recs.append(rec)
         log(f'{name}: {prof[name]:.3f} us/rep, bound '
             f'{rec["bound_ms"] * 1e3 / reps:.4f} us/rep '

@@ -16,14 +16,20 @@
 //     kernel): one thread per 4 x 4 output tile, x rows and w columns in
 //     registers, the eight products summed in k order with every product
 //     and sum rounded on its own (_rn intrinsics, -fmad=false), as the
-//     sweep rounds.  Bound: fp32 instruction throughput; 16 instructions
-//     per output per rep (no FMA), so at least 2 * M * N * 8 / 67e12 s per
-//     rep, doubled.
+//     sweep rounds.  Bound: fp32 instruction throughput (16 instructions
+//     per output per rep, no FMA).
 //   * TF32 route (the counterpart of Precision.DEFAULT and of the MXU
-//     kernel): one warp per 16 x 64 output tile, eight
-//     mma.sync.m16n8k8 TF32 products per rep with the fp32 accumulator
-//     kept in the tensor core's C operand; operands rounded by
-//     cvt.rna.tf32.f32.  Bound: TF32 tensor-core rate.
+//     kernel): one warpgroup per 64 x NT output tile, NT (64, 96 or 192)
+//     chosen by the wrapper so that about one tile lands on each SM.  w's
+//     tile is rounded to TF32 and written once into shared memory,
+//     transposed to the K-major layout that TF32 wgmma takes; each rep
+//     rounds x + i*eps (cvt.rna.tf32.f32) into a register A fragment and
+//     issues one wgmma.m64nNTk8 into the fp32 accumulator, which stays in
+//     registers for all reps.  A_SETS fragments rotate so that wgmmas
+//     stay in flight back to back.  Bound: the dense TF32 tensor rate.
+//     This replaced one warp per 16 x 64 tile issuing eight dependent
+//     mma.sync.m16n8k8 a rep: 11.6 warps per SM at 1536 columns, 5.8 at
+//     768, with the tensor pipe waiting on latency (PERF.md, section 6).
 //   The TPU kernel of tpu_prof_sweep keeps only out[:, :128]; a compiler
 //   would drop the other columns, so every thread also writes the sums of
 //   adjacent column pairs of its accumulators (`pairs`, (M, N/2)), which
@@ -31,11 +37,15 @@
 //
 // epilogue: p (M, 6*256), tn (M,) f32; per rep the six-way split, t, beta,
 //   gamma, acceptance, first-index argmin and best-t update of the sweep's
-//   epilogue.  One warp per ray, each lane holding eight triangles' six
-//   values in registers (p is read once); a lane keeps its best (t, rep,
-//   tri) in (rep, tri) order, and one lexicographic warp reduction at the
-//   end gives exactly the per-rep update's result.  Bound: fp32
-//   instructions.
+//   epilogue.  One block per ray and one thread per triangle, its six
+//   values in registers (p is read once), the reps' shifts computed once
+//   per block into shared memory; a thread keeps its first least accepted
+//   t in rep order, and the block's threads combine their (t, rep, tri)
+//   by the 64-bit key of pair_key, which gives exactly the per-rep
+//   update's result, signed zeros included.  1,024 rays give 64 warps per
+//   SM where registers allow.  Bound: fp32 instructions.  This replaced
+//   one warp per ray with eight triangles a lane: under eight warps per SM,
+//   too few to hide the divide's latency (PERF.md, section 6).
 //
 // edgemat: o, d (3, M), tr (12, 256) f32; per rep the edge-matrix ray x
 //   triangle test and a min of t.  The result, the least accepted t over
@@ -44,12 +54,9 @@
 //   about four waves): one thread per triangle, eight rays per block read
 //   from shared memory, tr + i*eps computed in registers once per rep for
 //   the eight rays, no barrier per rep.  Partial minima are combined
-//   exactly by a key of (|t|, rep, triangle, sign): -0.0 and +0.0 compare
-//   equal and the first pair in (rep, triangle) order gives the sign, as
-//   the plain version keeps the earlier rep on a tie (torch.minimum on
-//   the CPU).  A second small kernel reduces the ranges' keys.  Bound:
-//   fp32 instructions (41 counted operations a pair, the divide several
-//   instructions).
+//   exactly by pair_key, and a second small kernel reduces the ranges'
+//   keys.  Bound: fp32 instructions (41 counted operations a pair, the
+//   divide several instructions).
 //
 //   This replaced one warp per ray, four rays per block, writing tr +
 //   i*eps into shared memory every rep behind a block barrier: 1,024 rays
@@ -57,18 +64,45 @@
 //   twelve shared loads' latency (PERF.md, section 6).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int K = 8;              // depth of the ray matrix (the scripts' AR)
 constexpr float BIG_T = 1e30f;
+constexpr int SUBT = 256;         // triangles per subtile
+constexpr unsigned long long NONE = ~0ull;
 
 constexpr int TR = 4, TC = 4;     // FP32 route: rows x columns per thread
 constexpr int DOT_THREADS = 256;
-constexpr int WARP_COLS = 64;     // TF32 route: columns per warp (8 mma)
-constexpr int TF32_WARPS = 4;
+constexpr int WG_ROWS = 64;       // TF32 route: rows of a tile (wgmma's M)
+constexpr int WG_THREADS = 128;   // one warpgroup
+constexpr int A_SETS = 3;         // A fragments whose wgmmas may be in flight
+
+// The combine key of an accepted t (>= 0, so -0.0 or positive) at (rep,
+// tri): |t|'s bits, then the pair's place in (rep, tri) order, then t's
+// sign.  The least key is the least t, -0.0 and +0.0 equal as floats,
+// and among equal t the first pair in (rep, tri) order, whose sign it
+// keeps.  NONE when no pair was accepted.
+__device__ __forceinline__ unsigned long long pair_key(float t, int rep,
+                                                       int tri) {
+  if (!(t < BIG_T)) return NONE;
+  const unsigned b = __float_as_uint(t);
+  return ((unsigned long long)(b & 0x7fffffffu) << 32) |
+         ((unsigned long long)(rep * SUBT + tri) << 1) | (b >> 31);
+}
+
+// The t of a key, its sign restored (BIG_T for NONE).
+__device__ __forceinline__ float key_to_t(unsigned long long v) {
+  return v == NONE ? BIG_T
+                   : __uint_as_float((unsigned)(v >> 32) |
+                                     ((unsigned)(v & 1) << 31));
+}
+
+__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
+                                                     unsigned long long b) {
+  return b < a ? b : a;
+}
 
 __global__ void __launch_bounds__(DOT_THREADS)
 dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -117,119 +151,272 @@ __device__ __forceinline__ uint32_t to_tf32(float f) {
   return r;
 }
 
-// D = A (16x8, row) * B (8x8, col) + D, TF32 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// D (64 x 64) += A (64 x 8, registers) * B (8 x 64, shared memory)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// Fragment layout of m16n8k8 .tf32 (PTX ISA), lane = 4 * grp + tig:
-//   A: a0 (grp, tig), a1 (grp + 8, tig), a2 (grp, tig + 4), a3 (grp + 8,
-//      tig + 4);  B: b0 (k = tig, n = grp), b1 (k = tig + 4, n = grp);
-//   C/D: c0 (grp, 2 tig), c1 (grp, 2 tig + 1), c2 (grp + 8, 2 tig),
-//        c3 (grp + 8, 2 tig + 1).
-__global__ void __launch_bounds__(32 * TF32_WARPS)
+// D (64 x 96) += A (64 x 8, registers) * B (8 x 96, shared memory)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47},"
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 192) += A (64 x 8, registers) * B (8 x 192, shared memory)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95},"
+      "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of r across a wgmma boundary.
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// Matrix descriptor of a K-major wgmma operand in shared memory with no
+// swizzle: core matrices of 8 rows x 16 bytes (128 contiguous bytes), the
+// next along K `lbo` bytes on, the next along N `sbo` bytes on.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// One rep: the A fragment of x + i*eps in TF32, then one wgmma into acc.
+// Waiting for all but A_SETS - 1 groups leaves the fragment that the next
+// rep overwrites free.
+template <int NT>
+__device__ __forceinline__ void tf32_rep(float (&acc)[NT / 2],
+                                         uint32_t (&a)[4],
+                                         const float (&xa)[4], int i,
+                                         float eps, uint64_t desc) {
+  const float step = __fmul_rn((float)i, eps);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) a[q] = to_tf32(__fadd_rn(xa[q], step));
+  wgmma_fence();
+  wgmma_tf32(acc, a, desc);
+  wgmma_commit();
+  wgmma_wait<A_SETS - 1>();
+}
+
+// Block (column tile, row tile): rows row0 .. row0 + 63 (rows >= m read
+// zeros and are not written) x columns col0 .. col0 + NT - 1.  Warp w of
+// the warpgroup owns rows 16 w .. 16 w + 15 of the tile.  Fragments of
+// wgmma .m64nNk8 .tf32 (PTX ISA), lane = 4 * grp + tig:
+//   A: a0 (grp, tig), a1 (grp + 8, tig), a2 (grp, tig + 4),
+//      a3 (grp + 8, tig + 4);
+//   D: d[4 j + 2 h + c] at (grp + 8 h, 8 j + 2 tig + c).
+// B (8 x NT) in shared memory, K-major: core matrix (g, h) holds columns
+// 8 g .. 8 g + 7 x k = 4 h .. 4 h + 3, column 8 g + r at byte 16 r, and
+// lies at byte 256 g + 128 h (lbo 128, sbo 256).
+template <int NT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
 dot_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
-  constexpr int NT = WARP_COLS / 8;
-  const int nwc = n / WARP_COLS;
-  const int wg = blockIdx.x * TF32_WARPS + (threadIdx.x >> 5);
-  if (wg >= (m / 16) * nwc) return;
-  const int row0 = (wg / nwc) * 16, col0 = (wg % nwc) * WARP_COLS;
+  __shared__ __align__(256) uint32_t bs[NT * K];
+  const int col0 = blockIdx.x * NT, row0 = blockIdx.y * WG_ROWS;
+  for (int e = threadIdx.x; e < NT * K; e += WG_THREADS) {
+    const int k = e / NT, c = e - k * NT;
+    bs[(c >> 3) * 64 + (k >> 2) * 32 + (c & 7) * 4 + (k & 3)] =
+        to_tf32(w[k * n + col0 + c]);
+  }
+  // generic-proxy writes, read by wgmma through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const uint64_t desc = smem_desc(bs, 128, 256);
   const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
-  const float xa[4] = {x[(row0 + grp) * K + tig], x[(row0 + grp + 8) * K + tig],
-                       x[(row0 + grp) * K + tig + 4],
-                       x[(row0 + grp + 8) * K + tig + 4]};
-  uint32_t b0[NT], b1[NT];
-  float acc[NT][4];
-  for (int t = 0; t < NT; ++t) {
-    const int col = col0 + t * 8 + grp;
-    b0[t] = to_tf32(w[tig * n + col]);
-    b1[t] = to_tf32(w[(tig + 4) * n + col]);
-    for (int q = 0; q < 4; ++q) acc[t][q] = 0.f;
-  }
-  for (int i = 0; i < reps; ++i) {
-    const float step = __fmul_rn((float)i, eps);
-    uint32_t a[4];
+  const int r0 = row0 + 16 * (threadIdx.x >> 5) + grp, r1 = r0 + 8;
+  const float xa[4] = {r0 < m ? x[r0 * K + tig] : 0.f,
+                       r1 < m ? x[r1 * K + tig] : 0.f,
+                       r0 < m ? x[r0 * K + tig + 4] : 0.f,
+                       r1 < m ? x[r1 * K + tig + 4] : 0.f};
+  float acc[NT / 2];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) a[q] = to_tf32(__fadd_rn(xa[q], step));
-#pragma unroll
-    for (int t = 0; t < NT; ++t) mma_tf32(acc[t], a, b0[t], b1[t]);
+  for (int q = 0; q < NT / 2; ++q) {
+    acc[q] = 0.f;
+    fence_operand(acc[q]);
   }
-  for (int t = 0; t < NT; ++t) {
-    const int col = col0 + t * 8 + 2 * tig;
+  uint32_t a[A_SETS][4];
+  int i = 0;
+  for (; i + A_SETS <= reps; i += A_SETS) {
+#pragma unroll
+    for (int s = 0; s < A_SETS; ++s)
+      tf32_rep<NT>(acc, a[s], xa, i + s, eps, desc);
+  }
+#pragma unroll
+  for (int s = 0; s < A_SETS; ++s)
+    if (i + s < reps) tf32_rep<NT>(acc, a[s], xa, i + s, eps, desc);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int q = 0; q < NT / 2; ++q) fence_operand(acc[q]);
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const int col = col0 + 8 * j + 2 * tig;
+#pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + grp + 8 * h;
-      const float c0 = acc[t][2 * h], c1 = acc[t][2 * h + 1];
-      if (col < out_cols) out[row * out_cols + col] = c0;
-      if (col + 1 < out_cols) out[row * out_cols + col + 1] = c1;
-      pairs[row * (n / 2) + col / 2] = __fadd_rn(c0, c1);
+      const int row = h ? r1 : r0;
+      if (row >= m) continue;
+      const float c0 = acc[4 * j + 2 * h], c1 = acc[4 * j + 2 * h + 1];
+      if (col < out_cols) out[(size_t)row * out_cols + col] = c0;
+      if (col + 1 < out_cols) out[(size_t)row * out_cols + col + 1] = c1;
+      pairs[(size_t)row * (n / 2) + col / 2] = __fadd_rn(c0, c1);
     }
   }
 }
 
 // ---- epilogue ----
-constexpr int SUBT = 256;
-constexpr int PER_LANE = SUBT / 32;
-constexpr int EPI_WARPS = 4;
+constexpr int EPI_THREADS = SUBT;        // one thread per triangle
+constexpr int EPI_WARPS = EPI_THREADS / 32;
+constexpr int EPI_CHUNK = EPI_THREADS;   // reps whose shifts a block stages
 
-// (t, rep, tri) lexicographic less-than.
-__device__ __forceinline__ bool lex_less(float t, int i, int j, float bt,
-                                         int bi, int bj) {
-  return t < bt || (t == bt && (i < bi || (i == bi && j < bj)));
-}
-
-__global__ void __launch_bounds__(32 * EPI_WARPS)
+// Block `ray`: thread j owns triangle j's six values.  The shifts i*eps of
+// EPI_CHUNK reps at a time are computed once, one per thread, into shared
+// memory and read four at a time.  A thread meets its pairs in rep order
+// and keeps the first least accepted t; a warp shuffle and a pass over the
+// block's warps take the least pair_key.
+__global__ void __launch_bounds__(EPI_THREADS, 8)
 epilogue_kernel(const float* __restrict__ p, const float* __restrict__ tn,
                 int m, int reps, float eps, float* __restrict__ out) {
-  const int ray = blockIdx.x * EPI_WARPS + (threadIdx.x >> 5);
-  if (ray >= m) return;
-  const int lane = threadIdx.x & 31;
-  const float* row = p + (size_t)ray * 6 * SUBT;
-  float pv[6][PER_LANE];
-  for (int f = 0; f < 6; ++f)
-    for (int q = 0; q < PER_LANE; ++q) pv[f][q] = row[f * SUBT + lane + 32 * q];
+  __shared__ float4 steps[EPI_CHUNK / 4];
+  __shared__ unsigned long long red[EPI_WARPS];
+  const int j = threadIdx.x, ray = blockIdx.x;
+  const float* row = p + (size_t)ray * 6 * SUBT + j;
+  const float pn = row[0], pu = row[SUBT], pv = row[2 * SUBT];
+  const float qn = row[3 * SUBT], qu = row[4 * SUBT], qv = row[5 * SUBT];
   const float tnr = tn[ray];
   float bt = BIG_T;
-  int bi = INT_MAX, bj = INT_MAX;
-  for (int i = 0; i < reps; ++i) {
-    const float step = __fmul_rn((float)i, eps);
+  int bi = 0;
+  const auto test_pair = [&](float step, int i) {
+    const float on = __fadd_rn(pn, step), ou = __fadd_rn(pu, step);
+    const float ov = __fadd_rn(pv, step), dn = __fadd_rn(qn, step);
+    const float du = __fadd_rn(qu, step), dv = __fadd_rn(qv, step);
+    const float t = -__fdiv_rn(on, dn);
+    const float beta = __fadd_rn(ou, __fmul_rn(t, du));
+    const float gamma = __fadd_rn(ov, __fmul_rn(t, dv));
+    const bool ok = (t >= 0.f) && (t > tnr) && (beta >= 0.f) &&
+                    (gamma >= 0.f) && (__fadd_rn(beta, gamma) <= 1.f);
+    if (ok && t < bt) {
+      bt = t;
+      bi = i;
+    }
+  };
+  const float* st = reinterpret_cast<const float*>(steps);
+  for (int c0 = 0; c0 < reps; c0 += EPI_CHUNK) {
+    const int nc = min(EPI_CHUNK, reps - c0);
+    __syncthreads();   // every thread is done with the last chunk's shifts
+    reinterpret_cast<float*>(steps)[j] = __fmul_rn((float)(c0 + j), eps);
+    __syncthreads();
+    int i = 0;
+    for (; i + 4 <= nc; i += 4) {
+      const float4 s = steps[i >> 2];
+      test_pair(s.x, c0 + i);
+      test_pair(s.y, c0 + i + 1);
+      test_pair(s.z, c0 + i + 2);
+      test_pair(s.w, c0 + i + 3);
+    }
+    for (; i < nc; ++i) test_pair(st[i], c0 + i);
+  }
+  unsigned long long v = pair_key(bt, bi, j);
+  for (int k = 16; k > 0; k >>= 1)
+    v = umin64(v, __shfl_xor_sync(0xffffffffu, v, k));
+  if ((j & 31) == 0) red[j >> 5] = v;
+  __syncthreads();
+  if (j == 0) {
 #pragma unroll
-    for (int q = 0; q < PER_LANE; ++q) {
-      const float on = __fadd_rn(pv[0][q], step), ou = __fadd_rn(pv[1][q], step);
-      const float ov = __fadd_rn(pv[2][q], step), dn = __fadd_rn(pv[3][q], step);
-      const float du = __fadd_rn(pv[4][q], step), dv = __fadd_rn(pv[5][q], step);
-      const float t = -__fdiv_rn(on, dn);
-      const float beta = __fadd_rn(ou, __fmul_rn(t, du));
-      const float gamma = __fadd_rn(ov, __fmul_rn(t, dv));
-      const bool ok = (t >= 0.f) && (t > tnr) && (beta >= 0.f) &&
-                      (gamma >= 0.f) && (__fadd_rn(beta, gamma) <= 1.f);
-      // a lane meets its (rep, tri) pairs in increasing order
-      if (ok && t < bt) {
-        bt = t;
-        bi = i;
-        bj = lane + 32 * q;
-      }
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float t2 = __shfl_xor_sync(0xffffffffu, bt, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, bi, o);
-    const int j2 = __shfl_xor_sync(0xffffffffu, bj, o);
-    if (lex_less(t2, i2, j2, bt, bi, bj)) {
-      bt = t2;
-      bi = i2;
-      bj = j2;
-    }
-  }
-  if (lane == 0) {
-    const bool hit = bt < BIG_T;
-    out[ray] = hit ? bt : BIG_T;
-    out[m + ray] = hit ? (float)bj : 0.f;
+    for (int w = 1; w < EPI_WARPS; ++w) v = umin64(v, red[w]);
+    out[ray] = key_to_t(v);
+    out[m + ray] = v == NONE ? 0.f : (float)((v >> 1) & (SUBT - 1));
   }
 }
 
@@ -237,25 +424,6 @@ epilogue_kernel(const float* __restrict__ p, const float* __restrict__ tn,
 constexpr int EDGE_THREADS = SUBT;   // one thread per triangle
 constexpr int EDGE_WARPS = EDGE_THREADS / 32;
 constexpr int EDGE_RAYS = 8;         // rays per block (ops/sweep_micro.py)
-constexpr unsigned long long NONE = ~0ull;
-
-// The combine key of an accepted t (>= 0, so -0.0 or positive) at (rep,
-// tri): |t|'s bits, then the pair's place in (rep, tri) order, then t's
-// sign.  The least key is the least t, -0.0 and +0.0 equal as floats,
-// and among equal t the first pair in (rep, tri) order, whose sign it
-// keeps.  NONE when no pair was accepted.
-__device__ __forceinline__ unsigned long long edge_key(float t, int rep,
-                                                       int tri) {
-  if (!(t < BIG_T)) return NONE;
-  const unsigned b = __float_as_uint(t);
-  return ((unsigned long long)(b & 0x7fffffffu) << 32) |
-         ((unsigned long long)(rep * SUBT + tri) << 1) | (b >> 31);
-}
-
-__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
-                                                     unsigned long long b) {
-  return b < a ? b : a;
-}
 
 // Block (tile, split): EDGE_RAYS rays x all SUBT triangles x the reps of
 // range `split` (split * reps / splits up to the next).  Thread j owns
@@ -332,7 +500,7 @@ edgemat_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 #pragma unroll
   for (int r = 0; r < EDGE_RAYS; ++r) {
-    unsigned long long v = edge_key(best[r], brep[r], j);
+    unsigned long long v = pair_key(best[r], brep[r], j);
     for (int k = 16; k > 0; k >>= 1)
       v = umin64(v, __shfl_xor_sync(0xffffffffu, v, k));
     if ((j & 31) == 0) red[j >> 5][r] = v;
@@ -354,28 +522,42 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
   if (ray >= m) return;
   unsigned long long v = NONE;
   for (int s = 0; s < splits; ++s) v = umin64(v, partial[(size_t)s * m + ray]);
-  out[ray] = v == NONE ? BIG_T
-                       : __uint_as_float((unsigned)(v >> 32) |
-                                         ((unsigned)(v & 1) << 31));
+  out[ray] = key_to_t(v);
 }
 
 }  // namespace
 
-// x (m, 8), w (8, n) f32; m % 16 == 0, n % 64 == 0; out (m, out_cols),
-// pairs (m, n / 2).  tf32 != 0 takes the tensor-core route.  Returns
-// cudaGetLastError() after the launch.
+// x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
+// takes the FP32 route (m % 4 == 0, n % 4 == 0), tile 64, 96 or 192 the
+// TF32 route with tiles of 64 rows x `tile` columns (n % tile == 0).
+// Returns cudaGetLastError() after the launch.
 extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
-                         int reps, float eps, int out_cols, int tf32,
+                         int reps, float eps, int out_cols, int tile,
                          float* out, float* pairs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (tf32) {
-    const int warps = (m / 16) * (n / WARP_COLS);
-    dot_tf32_kernel<<<(warps + TF32_WARPS - 1) / TF32_WARPS, 32 * TF32_WARPS,
-                      0, s>>>(x, w, m, n, reps, eps, out_cols, out, pairs);
-  } else {
-    const int threads = (m / TR) * (n / TC);
-    dot_fp32_kernel<<<(threads + DOT_THREADS - 1) / DOT_THREADS, DOT_THREADS,
-                      0, s>>>(x, w, m, n, reps, eps, out_cols, out, pairs);
+  const dim3 grid(tile ? n / tile : 0, (m + WG_ROWS - 1) / WG_ROWS);
+  switch (tile) {
+    case 0: {
+      const int threads = (m / TR) * (n / TC);
+      dot_fp32_kernel<<<(threads + DOT_THREADS - 1) / DOT_THREADS,
+                        DOT_THREADS, 0, s>>>(x, w, m, n, reps, eps,
+                                             out_cols, out, pairs);
+      break;
+    }
+    case 64:
+      dot_tf32_kernel<64><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
+                                                      out_cols, out, pairs);
+      break;
+    case 96:
+      dot_tf32_kernel<96><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
+                                                      out_cols, out, pairs);
+      break;
+    case 192:
+      dot_tf32_kernel<192><<<grid, WG_THREADS, 0, s>>>(
+          x, w, m, n, reps, eps, out_cols, out, pairs);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
@@ -383,8 +565,8 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
 // p (m, 6 * 256), tn (m,) f32; out (2, m) f32 = [tbest, tri].
 extern "C" int sweep_epilogue(const float* p, const float* tn, int m,
                               int reps, float eps, float* out, void* stream) {
-  epilogue_kernel<<<(m + EPI_WARPS - 1) / EPI_WARPS, 32 * EPI_WARPS, 0,
-                    (cudaStream_t)stream>>>(p, tn, m, reps, eps, out);
+  epilogue_kernel<<<m, EPI_THREADS, 0, (cudaStream_t)stream>>>(p, tn, m, reps,
+                                                               eps, out);
   return (int)cudaGetLastError();
 }
 
@@ -406,16 +588,19 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 }
 
 // Registers per thread, resident blocks per SM and threads per block of
-// one probe kernel (0 dot_fp32, 1 dot_tf32, 2 epilogue, 3 edgemat), into
-// out[0..2].  Returns a CUDA error code.
+// one probe kernel (0 dot_fp32, 1-3 dot_tf32 at tiles of 64, 96 and 192
+// columns, 4 epilogue, 5 edgemat), into out[0..2].  Returns a CUDA error
+// code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
   const void* fns[] = {(const void*)dot_fp32_kernel,
-                       (const void*)dot_tf32_kernel,
+                       (const void*)dot_tf32_kernel<64>,
+                       (const void*)dot_tf32_kernel<96>,
+                       (const void*)dot_tf32_kernel<192>,
                        (const void*)epilogue_kernel,
                        (const void*)edgemat_kernel};
-  const int threads[] = {DOT_THREADS, 32 * TF32_WARPS, 32 * EPI_WARPS,
-                         EDGE_THREADS};
-  if (kernel < 0 || kernel > 3) return (int)cudaErrorInvalidValue;
+  const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, WG_THREADS,
+                         EPI_THREADS, EDGE_THREADS};
+  if (kernel < 0 || kernel > 5) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

@@ -14,16 +14,19 @@ tensors, and a wrapper that launches a hand-written CUDA kernel
     (M, 8) and w (8, N), on the CUDA cores in strict fp32 (the
     counterpart of Precision.HIGHEST and of the VPU kernel; bit-equal to
     `dot_plain`) or on the tensor cores in TF32 (Precision.DEFAULT and the
-    MXU kernel; `dot_plain(tf32=True)` rounds the operands to TF32 the same
-    way and sums in fp32, so the two agree within TF32_TOL of the
-    absolute-value bound, not bit for bit: the tensor core adds in its own
-    order).  Both return (out (M, out_cols), pairs (M, N / 2)): out is the
-    TPU kernel's output, its first out_cols columns; pairs holds the sums
-    of adjacent column pairs of the whole accumulator, which keeps every
-    column of the product live in the kernel.
+    MXU kernel, by wgmma in tiles of 64 rows x `dot_tile` columns;
+    `dot_plain(tf32=True)` rounds the operands to TF32 the same way and
+    sums in fp32, so the two agree within TF32_TOL of the absolute-value
+    bound, not bit for bit: the tensor core adds in its own order).  Both
+    return (out (M, out_cols), pairs (M, N / 2)): out is the TPU kernel's
+    output, its first out_cols columns; pairs holds the sums of adjacent
+    column pairs of the whole accumulator, which keeps every column of the
+    product live in the kernel.
   * `epilogue`: per rep the sweep's six-way split, t, beta, gamma,
     acceptance, first-index argmin and best-t update; (2, M) f32
-    [tbest, tri].  Bit-equal to `epilogue_plain`.
+    [tbest, tri].  Bit-equal to `epilogue_plain`, signed zeros included
+    (one thread per ray x triangle; the threads' bests are combined by
+    the same exact key as the edge-matrix kernel's ranges).
   * `edgemat`: per rep the edge-matrix ray x triangle test and a min of
     t; (1, M) f32.  Bit-equal to `edgemat_plain`.  The kernel cuts the
     reps into ranges (`edgemat_ranges`) and combines the ranges' minima
@@ -47,7 +50,11 @@ AR = 8            # depth of the ray matrix
 SUBT = 256        # triangles per subtile
 TF32_TOL = 2.0 ** -14   # |dot_tf32 - dot_plain(tf32=True)| <= TF32_TOL * bound
 EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
-EDGE_MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernel's 31-bit key
+MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
+DOT_TILES = (64, 96, 192)   # the TF32 kernel's tile widths (sweep_micro.cu)
+WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
+KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'dot_tf32_192',
+           'epilogue', 'edgemat')   # sweep_micro_info's order
 
 
 def _steps(reps: int, eps: float, dev) -> torch.Tensor:
@@ -178,8 +185,7 @@ def kernel_info() -> dict:
         return _info
     lib = load_kernels()
     out = _info
-    for i, name in enumerate(('dot_fp32', 'dot_tf32', 'epilogue',
-                              'edgemat')):
+    for i, name in enumerate(KERNELS):
         buf = (ctypes.c_int * 3)()
         rc = lib.sweep_micro_info(i, buf)
         if rc != 0:
@@ -211,6 +217,18 @@ def _check(name, rc):
         raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
 
 
+def dot_tile(m: int, n: int, sms: int) -> int:
+    """The TF32 kernel's tile width for an (m, 8) x (8, n) product on a
+    card of `sms` SMs: among DOT_TILES that divide n, the one whose 64-row
+    tiles put the least work on the busiest SM, ceil(tiles / sms) x width;
+    on a tie the widest (fewer tiles, fewer wgmmas)."""
+    rows = -(-m // WG_ROWS)
+    fits = [t for t in DOT_TILES if n % t == 0]
+    if not fits:
+        raise ValueError(f'dot_tf32 needs N divisible by one of {DOT_TILES}')
+    return min(fits, key=lambda t: (-(-rows * (n // t) // sms) * t, -t))
+
+
 def _dot(x, w, reps, eps, out_cols, tf32):
     name = 'dot_tf32' if tf32 else 'dot_fp32'
     m, n = x.shape[0], w.shape[1]
@@ -221,8 +239,11 @@ def _dot(x, w, reps, eps, out_cols, tf32):
                          f'0 < out_cols <= N')
     out = torch.empty((m, out_cols), device=x.device)
     pairs = torch.empty((m, n // 2), device=x.device)
+    tile = dot_tile(m, n, torch.cuda.get_device_properties(
+        x.device).multi_processor_count) if tf32 else 0
     _check(name, load_kernels().sweep_dot(
-        x.data_ptr(), w.data_ptr(), m, n, reps, eps, out_cols, int(tf32), out.data_ptr(), pairs.data_ptr(),
+        x.data_ptr(), w.data_ptr(), m, n, reps, eps, out_cols, tile,
+        out.data_ptr(), pairs.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream))
     return out, pairs
 
@@ -242,8 +263,8 @@ dot_fp32.launches = 0
 
 
 def dot_tf32(x, w, reps: int, eps: float, out_cols: int):
-    """sum_{i < reps} (x + i*eps) @ w in TF32 on the tensor cores
-    (mma.sync m16n8k8).  CPU tensors take dot_plain(tf32=True); CUDA
+    """sum_{i < reps} (x + i*eps) @ w in TF32 on the tensor cores (wgmma
+    m64nNk8, N = dot_tile).  CPU tensors take dot_plain(tf32=True); CUDA
     tensors launch the hand-written kernel (replaces the TPU kernels
     tpu_prof_sweep.matmul_kernel(DEFAULT) and tpu_proto_mxu.mxu_kernel) or
     raise."""
@@ -263,9 +284,14 @@ def epilogue(p, tn, reps: int, eps: float):
     m = p.shape[0]
     if _takes_plain('epilogue', (p, tn), ((m, 6 * SUBT), (1, m))):
         return epilogue_plain(p, tn, reps, eps)
+    if not 0 <= reps <= MAX_REPS:
+        raise ValueError(f'epilogue takes 0 <= reps <= {MAX_REPS}')
     out = torch.empty((2, m), device=p.device)
+    if m == 0:
+        return out
     _check('sweep_epilogue', load_kernels().sweep_epilogue(
-        p.data_ptr(), tn.data_ptr(), m, reps, eps, out.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream))
+        p.data_ptr(), tn.data_ptr(), m, reps, eps, out.data_ptr(),
+        torch.cuda.current_stream(p.device).cuda_stream))
     epilogue.launches += 1
     return out
 
@@ -301,8 +327,8 @@ def edgemat(o, d, tr, reps: int, eps: float):
     m = o.shape[1]
     if _takes_plain('edgemat', (o, d, tr), ((3, m), (3, m), (12, SUBT))):
         return edgemat_plain(o, d, tr, reps, eps)
-    if not 0 <= reps <= EDGE_MAX_REPS:
-        raise ValueError(f'edgemat takes 0 <= reps <= {EDGE_MAX_REPS}')
+    if not 0 <= reps <= MAX_REPS:
+        raise ValueError(f'edgemat takes 0 <= reps <= {MAX_REPS}')
     out = torch.empty((1, m), device=o.device)
     if m == 0:
         return out

@@ -6,7 +6,7 @@ product on the card.
 
 Counterpart of scripts/tpu_proto_mxu.py (MXU `jnp.dot` against the
 unrolled VPU form): out (1024, 768) = sum_{i < reps} (rays + i*1e-7) @
-tris, once through TF32 mma.sync on the tensor cores and once in strict
+tris, once through TF32 wgmma on the tensor cores and once in strict
 fp32 on the CUDA cores.  The library's yardstick, TF32 off and on, is the
 one torch.matmul that computes a launch's sum (scripts.matmul_same_us),
 and beside it torch.matmul of one product.  Prints microseconds per
@@ -50,7 +50,7 @@ def run(dev, reps: int = REPS, log=print) -> dict:
     log(device_line(dev))
     desc = f'(1024x8)x(8x{NS})'
     out, res = {}, {}
-    for key, name, fn in (('tf32', 'tf32 mma.sync (mxu jnp.dot)', sm.dot_tf32),
+    for key, name, fn in (('tf32', 'tf32 wgmma (mxu jnp.dot)', sm.dot_tf32),
                           ('fp32', 'fp32 CUDA cores (vpu unrolled)',
                            sm.dot_fp32)):
         call = lambda fn=fn: fn(rays, tris, reps, EPS, NS)   # noqa: E731

@@ -39,6 +39,7 @@ from pathtracer_tpu_torch.ops import traverse as tt
 from pathtracer_tpu_torch.render import renderer as rnd
 from pathtracer_tpu_torch.scene import scene as scn
 from pathtracer_tpu_torch.scripts import ablate_sweep as ablate
+from pathtracer_tpu_torch.scripts import prof_sweep
 from pathtracer_tpu_torch.utils import procgen
 
 BIG_T = float(np.float32(1e30))
@@ -535,6 +536,71 @@ def test_dot_matches_plain(cuda, route, out_cols):
     assert bool(((pairs_k - pairs_p).abs()
                  <= sm.TF32_TOL * (bound[:, 0::2] + bound[:, 1::2])).all())
     assert float((out_k - full[0][:, :out_cols]).abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,n,reps,eps,tile', [
+    (64, 128, 8, 1e-3, 64), (1024, 1536, 256, 1e-9, 192),
+    (1024, 768, 64, 1e-7, 96), (208, 576, 9, 1e-3, 64),
+    (208, 576, 9, 1e-3, 96), (208, 576, 9, 1e-3, 192)])
+def test_dot_tf32_matches_plain_at_every_tile(cuda, monkeypatch, m, n,
+                                              reps, eps, tile):
+    """The wgmma product within TF32_TOL of the absolute-value bound at
+    every tile width: the wrapper's own choice at (64, 128) and at the two
+    scripts' shapes, and each width forced where M = 208 leaves a partial
+    64-row tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if m == 208:
+        monkeypatch.setattr(sm, 'dot_tile', lambda m, n, sms: tile)
+    assert sm.dot_tile(m, n, sms) == tile
+    x, w = _probe_inputs(cuda, m, n, seed=26)
+    before = sm.dot_tf32.launches
+    out_k, pairs_k = sm.dot_tf32(x, w, reps, eps, n)
+    assert sm.dot_tf32.launches == before + 1
+    out_p, pairs_p = sm.dot_plain(x, w, reps, eps, n, tf32=True)
+    bound = sm.dot_plain(x.abs(), w.abs(), reps, eps, n)[0]
+    assert bool(((out_k - out_p).abs() <= sm.TF32_TOL * bound).all())
+    assert bool(((pairs_k - pairs_p).abs()
+                 <= sm.TF32_TOL * (bound[:, 0::2] + bound[:, 1::2])).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,reps', [(97, 1), (97, 7), (97, 256), (1024, 7)])
+def test_epilogue_matches_plain(cuda, m, reps):
+    """One thread per ray x triangle, the threads' bests combined by the
+    exact key: bit-equal to the plain version."""
+    rng = np.random.default_rng(27 + reps)
+    p = torch.as_tensor(rng.standard_normal((m, 6 * sm.SUBT))
+                        .astype(np.float32), device=cuda)
+    tn = torch.as_tensor(np.abs(rng.standard_normal((1, m)))
+                         .astype(np.float32) * 0.1, device=cuda)
+    before = sm.epilogue.launches
+    out_k = sm.epilogue(p, tn, reps, 1e-3)
+    assert sm.epilogue.launches == before + 1
+    out_p = sm.epilogue_plain(p, tn, reps, 1e-3)
+    assert (out_p[0] < BIG_T).float().mean().item() > 0.3
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('m,reps', [(8, 3), (97, 7), (1024, 7)])
+def test_epilogue_keeps_the_first_signed_zero(cuda, m, reps):
+    """tn < 0 and t = -0.0 and +0.0 accepted, in one rep and in two: the
+    kernel, the plain version on the card and on the CPU give the same
+    bits, the first pair in (rep, tri) order with its own sign."""
+    p, tn = prof_sweep.signed_zero_inputs(cuda, m, reps, 1e-3)
+    out_k = sm.epilogue(p, tn, reps, 1e-3)
+    out_p = sm.epilogue_plain(p, tn, reps, 1e-3)
+    out_c = sm.epilogue_plain(p.cpu(), tn.cpu(), reps, 1e-3)
+    assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
+    assert torch.equal(out_p.cpu().view(torch.int32), out_c.view(torch.int32))
+    first = [min(pairs, key=lambda q: (q[1], q[0]))
+             for pairs in prof_sweep.SIGNED_ZERO_PAIRS]
+    for r in range(m):
+        tri, _, sign = first[r % 4]
+        assert float(out_k[0, r]) == 0.0
+        assert bool(torch.signbit(out_k[0, r])) == (sign < 0)
+        assert int(out_k[1, r]) == tri
 
 
 @pytest.mark.gpu
