@@ -77,8 +77,10 @@
    ablation's `full`, the SASS instructions per ray x triangle pair of
    the pair loop (sass_loop, cuobjdump); for the TF32 product its tile
    width and count, the instructions of its rep loop per HGMMA (one
-   wgmma a rep; the run fails if the loop has none) and the tensor rate
-   it reaches; the ablation's cycles and subtiles per lane group.  Times
+   wgmma a rep; the run fails if the loop has none), the tensor rate it
+   reaches, and its launch of 0 reps beside a one-element add (what the
+   rep loop does not account for); the ablation's cycles and subtiles per
+   lane group.  Times
    are the entry points' CUDA-event times.  A product's `library_ms` is
    the one torch.matmul that computes the launch's whole sum
    (scripts.matmul_same_us, K-concatenated operands), the library
@@ -1319,6 +1321,9 @@ def probe_phase(dev):
           'fp32': 'scripts/tpu_proto_mxu.py:34'}))
     lib = device.build_cuda('sweep_micro')
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    one = torch.zeros(1, device=dev)
+    floor_us = time_us(lambda: one.add_(1.0), 200, dev)
+    log(f'launch floor (one-element add, launches queued): {floor_us:.4f} us')
     for script, res, counts, (xx, ww), reps, eps, cols, replaces in shapes:
         m, n = xx.shape[0], ww.shape[1]
         for route in ('fp32', 'tf32'):
@@ -1340,12 +1345,17 @@ def probe_phase(dev):
             rec['launches'] = counts[f'dot_{route}']
             rec['library_ms'] = res[f'library {route}'] / 1e3
             if route == 'tf32':
-                # one HGMMA (wgmma) a rep: the loop's instructions per rep
+                # one HGMMA (wgmma) a rep: the loop's instructions per rep;
+                # a launch of 0 reps prices what the rep loop does not
                 tile = sm.dot_tile(m, n, sms)
+                fixed_us = time_us(lambda: kern(xx, ww, 0, eps, cols), 50,
+                                   dev)
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()[f'dot_tf32_{tile}']),
                     tile=tile, tiles=-(-m // sm.WG_ROWS) * (n // tile),
-                    sass=sass(lib, f'dot_tf32_kernelILi{tile}E', 'HGMMA'))
+                    sass=sass(lib, f'dot_tf32_kernelILi{tile}E', 'HGMMA'),
+                    launch_floor_us=floor_us, zero_reps_us=fixed_us,
+                    loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             else:
                 rec['counters'] = occupancy(sm.kernel_info()['dot_fp32'])
             recs.append(rec)

@@ -25,8 +25,11 @@
 //     transposed to the K-major layout that TF32 wgmma takes; each rep
 //     rounds x + i*eps (cvt.rna.tf32.f32) into a register A fragment and
 //     issues one wgmma.m64nNTk8 into the fp32 accumulator, which stays in
-//     registers for all reps.  A_SETS fragments rotate so that wgmmas
-//     stay in flight back to back.  Bound: the dense TF32 tensor rate.
+//     registers for all reps.  The reps' wgmmas are committed REP_GROUP at
+//     a time with A_SETS groups in flight, so the tensor pipe is fed back
+//     to back.  The accumulator leaves through shared memory, each warp
+//     storing whole row segments 16 bytes a lane.  Bound: the dense TF32
+//     tensor rate.
 //     This replaced one warp per 16 x 64 tile issuing eight dependent
 //     mma.sync.m16n8k8 a rep: 11.6 warps per SM at 1536 columns, 5.8 at
 //     768, with the tensor pipe waiting on latency (PERF.md, section 6).
@@ -77,7 +80,10 @@ constexpr int TR = 4, TC = 4;     // FP32 route: rows x columns per thread
 constexpr int DOT_THREADS = 256;
 constexpr int WG_ROWS = 64;       // TF32 route: rows of a tile (wgmma's M)
 constexpr int WG_THREADS = 128;   // one warpgroup
-constexpr int A_SETS = 3;         // A fragments whose wgmmas may be in flight
+constexpr int REP_GROUP = 4;      // reps whose wgmmas are committed together
+constexpr int A_SETS = 3;         // groups whose wgmmas may be in flight
+constexpr int STAGE_COLS = 32;    // columns a warp stages at a time to store
+constexpr int STAGE_ROW = STAGE_COLS + 4;   // padded, 16-byte aligned
 
 // The combine key of an accepted t (>= 0, so -0.0 or positive) at (rep,
 // tri): |t|'s bits, then the pair's place in (rep, tri) order, then t's
@@ -272,19 +278,28 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32);
 }
 
-// One rep: the A fragment of x + i*eps in TF32, then one wgmma into acc.
-// Waiting for all but A_SETS - 1 groups leaves the fragment that the next
-// rep overwrites free.
+// Reps i .. i + cnt - 1 (cnt <= REP_GROUP): their A fragments of x +
+// i*eps in TF32, then a wgmma each into acc, committed as one group.
+// Waiting for all but A_SETS - 1 groups leaves the fragments that the next
+// group overwrites free.
 template <int NT>
-__device__ __forceinline__ void tf32_rep(float (&acc)[NT / 2],
-                                         uint32_t (&a)[4],
-                                         const float (&xa)[4], int i,
-                                         float eps, uint64_t desc) {
-  const float step = __fmul_rn((float)i, eps);
+__device__ __forceinline__ void tf32_group(float (&acc)[NT / 2],
+                                           uint32_t (&a)[REP_GROUP][4],
+                                           const float (&xa)[4], int i,
+                                           int cnt, float eps,
+                                           uint64_t desc) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) a[q] = to_tf32(__fadd_rn(xa[q], step));
+  for (int g = 0; g < REP_GROUP; ++g) {
+    if (g < cnt) {
+      const float step = __fmul_rn((float)(i + g), eps);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[g][q] = to_tf32(__fadd_rn(xa[q], step));
+    }
+  }
   wgmma_fence();
-  wgmma_tf32(acc, a, desc);
+#pragma unroll
+  for (int g = 0; g < REP_GROUP; ++g)
+    if (g < cnt) wgmma_tf32(acc, a[g], desc);
   wgmma_commit();
   wgmma_wait<A_SETS - 1>();
 }
@@ -305,7 +320,15 @@ dot_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
   __shared__ __align__(256) uint32_t bs[NT * K];
+  __shared__ __align__(16) float stage[WG_THREADS / 32][16][STAGE_ROW];
   const int col0 = blockIdx.x * NT, row0 = blockIdx.y * WG_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int r0 = row0 + 16 * warp + grp, r1 = r0 + 8;
+  const float xa[4] = {r0 < m ? x[r0 * K + tig] : 0.f,
+                       r1 < m ? x[r1 * K + tig] : 0.f,
+                       r0 < m ? x[r0 * K + tig + 4] : 0.f,
+                       r1 < m ? x[r1 * K + tig + 4] : 0.f};
   for (int e = threadIdx.x; e < NT * K; e += WG_THREADS) {
     const int k = e / NT, c = e - k * NT;
     bs[(c >> 3) * 64 + (k >> 2) * 32 + (c & 7) * 4 + (k & 3)] =
@@ -315,43 +338,66 @@ dot_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   const uint64_t desc = smem_desc(bs, 128, 256);
-  const int lane = threadIdx.x & 31, grp = lane >> 2, tig = lane & 3;
-  const int r0 = row0 + 16 * (threadIdx.x >> 5) + grp, r1 = r0 + 8;
-  const float xa[4] = {r0 < m ? x[r0 * K + tig] : 0.f,
-                       r1 < m ? x[r1 * K + tig] : 0.f,
-                       r0 < m ? x[r0 * K + tig + 4] : 0.f,
-                       r1 < m ? x[r1 * K + tig + 4] : 0.f};
   float acc[NT / 2];
 #pragma unroll
   for (int q = 0; q < NT / 2; ++q) {
     acc[q] = 0.f;
     fence_operand(acc[q]);
   }
-  uint32_t a[A_SETS][4];
+  uint32_t a[A_SETS][REP_GROUP][4];
+  constexpr int ROUND = REP_GROUP * A_SETS;
   int i = 0;
-  for (; i + A_SETS <= reps; i += A_SETS) {
+  for (; i + ROUND <= reps; i += ROUND) {
 #pragma unroll
     for (int s = 0; s < A_SETS; ++s)
-      tf32_rep<NT>(acc, a[s], xa, i + s, eps, desc);
+      tf32_group<NT>(acc, a[s], xa, i + REP_GROUP * s, REP_GROUP, eps, desc);
   }
 #pragma unroll
-  for (int s = 0; s < A_SETS; ++s)
-    if (i + s < reps) tf32_rep<NT>(acc, a[s], xa, i + s, eps, desc);
+  for (int s = 0; s < A_SETS; ++s) {
+    const int cnt = min(REP_GROUP, reps - i - REP_GROUP * s);
+    if (cnt > 0) tf32_group<NT>(acc, a[s], xa, i + REP_GROUP * s, cnt, eps,
+                                desc);
+  }
   wgmma_wait<0>();
 #pragma unroll
   for (int q = 0; q < NT / 2; ++q) fence_operand(acc[q]);
+  // Each warp stages its 16 rows x STAGE_COLS columns at a time in shared
+  // memory and stores them back 16 bytes a lane, 8 lanes a row segment.
+  float* st = &stage[warp][0][0];
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-    const int col = col0 + 8 * j + 2 * tig;
+  for (int c = 0; c < NT / STAGE_COLS; ++c) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h ? r1 : r0;
-      if (row >= m) continue;
-      const float c0 = acc[4 * j + 2 * h], c1 = acc[4 * j + 2 * h + 1];
-      if (col < out_cols) out[(size_t)row * out_cols + col] = c0;
-      if (col + 1 < out_cols) out[(size_t)row * out_cols + col + 1] = c1;
-      pairs[(size_t)row * (n / 2) + col / 2] = __fadd_rn(c0, c1);
+    for (int jj = 0; jj < STAGE_COLS / 8; ++jj) {
+      const int j = STAGE_COLS / 8 * c + jj;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(st + (grp + 8 * h) * STAGE_ROW + 8 * jj +
+                                   2 * tig) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = (lane >> 3) + 4 * k, q = lane & 7;
+      const int row = row0 + 16 * warp + r;
+      const int col = col0 + STAGE_COLS * c + 4 * q;
+      if (row < m) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(st + r * STAGE_ROW + 4 * q);
+        float* o = out + (size_t)row * out_cols + col;
+        if (out_cols % 4 == 0 && col + 3 < out_cols) {
+          *reinterpret_cast<float4*>(o) = v;
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (col + u < out_cols) o[u] = e[u];
+        }
+        *reinterpret_cast<float2*>(pairs + (size_t)row * (n / 2) + col / 2) =
+            make_float2(__fadd_rn(v.x, v.y), __fadd_rn(v.z, v.w));
+      }
+    }
+    __syncwarp();
   }
 }
 

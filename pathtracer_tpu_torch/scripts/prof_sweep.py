@@ -96,7 +96,7 @@ def run(dev, reps: int = REPS, log=print) -> dict:
     out = {}
     for key, name, desc, fn in probes:
         out[key] = time_us(fn, LAUNCHES, dev) / reps
-        log(f'{name}: {out[key]:.2f}us per subtile ({desc})')
+        log(f'{name}: {out[key]:.4f}us per subtile ({desc})')
     if dev.type == 'cuda':
         for tf32 in (False, True):
             route = 'tf32' if tf32 else 'fp32'

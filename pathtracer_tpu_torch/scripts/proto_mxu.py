@@ -58,7 +58,7 @@ def run(dev, reps: int = REPS, log=print) -> dict:
         res[key] = call()[0]
         rate = (f' -> {FLOPS / out[key] / 1e6:.2f} TFLOP/s'
                 if dev.type == 'cuda' else '')
-        log(f'{name}: {out[key]:.2f}us per {desc}{rate}')
+        log(f'{name}: {out[key]:.4f}us per {desc}{rate}')
     if dev.type == 'cuda':
         for tf32 in (False, True):
             route = 'tf32' if tf32 else 'fp32'
