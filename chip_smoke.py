@@ -76,11 +76,12 @@
    resident warps per SM; for the epilogue, the edge-matrix test and the
    ablation's `full`, the SASS instructions per ray x triangle pair of
    the pair loop (sass_loop, cuobjdump); for the TF32 product its tile
-   width and count, the instructions of its rep loop per HGMMA (one
-   wgmma a rep; the run fails if the loop has none), the tensor rate it
-   reaches, and its launch of 0 reps beside a one-element add (what the
-   rep loop does not account for); the ablation's cycles and subtiles per
-   lane group.  Times
+   width and count, its launch at every tile width that divides N
+   (three alternated timings each, `tile_us`), the instructions of its
+   rep loop per HGMMA (one wgmma a rep; the run fails if the loop has
+   none), the tensor rate it reaches, and its launch of 0 reps beside a
+   one-element add (what the rep loop does not account for); the
+   ablation's cycles and subtiles per lane group.  Times
    are the entry points' CUDA-event times.  A product's `library_ms` is
    the one torch.matmul that computes the launch's whole sum
    (scripts.matmul_same_us, K-concatenated operands), the library
@@ -90,8 +91,9 @@
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
-is one instruction), or over the dense TF32 rate for the tensor-core
-product.
+is one instruction), or over the card's dense TF32 rate for the
+tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2 x the same
+clock), both printed after the card line.
 
 Every failure raises.  The last three lines are the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
@@ -115,13 +117,13 @@ import numpy as np
 W, H, BOUNCES = 1920, 1080, 3
 TIE = 2.0 ** -16
 BIG_T = float(np.float32(1e30))
-# roofline of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and dense
-# TF32 on the tensor cores (mma counts two flops per FMA).  The operations
-# bound of the CUDA-core kernels is the card's fp32 issue rate, read on
-# the card (issue_rate): they are built with -fmad=false, so each counted
-# single-rounded operation is one instruction.
+# roofline of one H100 SXM: HBM3 bandwidth (NVIDIA data sheet).  The
+# operations bounds are read on the card: the fp32 issue rate of the
+# CUDA-core kernels (issue_rate; they are built with -fmad=false, so each
+# counted single-rounded operation is one instruction) and the dense TF32
+# rate of the tensor cores (tf32_rate).
 PEAK_BYTES = 3.35e12
-PEAK_TF32 = 494.7e12
+TF32_MACS_PER_SM = 1024   # dense TF32 multiply-adds per SM and cycle
 # fp32 operations (products, sums, divides, min / max) per unit of work,
 # counted in the kernel sources
 SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
@@ -157,6 +159,14 @@ def issue_rate():
                          capture_output=True, text=True, timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
     return sms * 128 * mhz * 1e6, sms, mhz
+
+
+def tf32_rate():
+    """Dense TF32 flops per second of card 0, counted as issue_rate counts:
+    SMs x TF32_MACS_PER_SM x 2 flops x the maximum SM clock (the data
+    sheet's 494.7 TFLOP/s is the same count at 1830 MHz)."""
+    _, sms, mhz = issue_rate()
+    return sms * TF32_MACS_PER_SM * 2 * mhz * 1e6
 
 
 def bound(ops, nbytes, peak=None):
@@ -210,8 +220,10 @@ def sass_loop(lib, key, marker='MUFU.RCP'):
     backward branch whose body holds an instruction whose opcode starts
     with `marker` (the default, MUFU.RCP, is the IEEE divide's reciprocal,
     one per ray x triangle pair; HGMMA is one wgmma).  Returns its
-    instruction count, the markers in it, instructions per marker, the
-    fp32-pipe share and the opcodes, and the body's text."""
+    instruction count, the markers in it and instructions per marker
+    (`divides` and `per_pair` for MUFU.RCP, `markers` and `per_marker`
+    otherwise), the fp32-pipe share and the opcodes, and the body's
+    text."""
     from pathtracer_tpu_torch import device
     tool = os.path.join(os.path.dirname(device.nvcc_path()), 'cuobjdump')
     out = subprocess.run([tool, '-sass', lib], check=True,
@@ -237,9 +249,11 @@ def sass_loop(lib, key, marker='MUFU.RCP'):
     ops = collections.Counter(x[1].split('.')[0] for x in best)
     n = sum(1 for x in best if x[1].startswith(marker))
     fp32 = sum(v for k, v in ops.items() if k in _SASS_FP32)
-    return dict(instructions=len(best), marker=marker, markers=n,
-                per_marker=len(best) / n, fp32_share=fp32 / len(best),
-                opcodes=dict(ops.most_common()),
+    count = (dict(divides=n, per_pair=len(best) / n)
+             if marker == 'MUFU.RCP' else
+             dict(marker=marker, markers=n, per_marker=len(best) / n))
+    return dict(instructions=len(best), **count,
+                fp32_share=fp32 / len(best), opcodes=dict(ops.most_common()),
                 text='\n'.join(f'{a:05x} {p}{o}{r}' for a, o, r, p in best))
 
 
@@ -1320,7 +1334,6 @@ def probe_phase(dev):
          {'tf32': 'scripts/tpu_proto_mxu.py:24',
           'fp32': 'scripts/tpu_proto_mxu.py:34'}))
     lib = device.build_cuda('sweep_micro')
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     one = torch.zeros(1, device=dev)
     floor_us = time_us(lambda: one.add_(1.0), 200, dev)
     log(f'launch floor (one-element add, launches queued): {floor_us:.4f} us')
@@ -1337,7 +1350,7 @@ def probe_phase(dev):
                 f'dot_{route}[{script}]', src, replaces[route], err, 1.0,
                 ms, ms_p, reps * 2 * m * 8 * n,
                 4 * (m * 8 + 8 * n + m * cols + m * n // 2),
-                peak=PEAK_TF32 if route == 'tf32' else None,
+                peak=tf32_rate() if route == 'tf32' else None,
                 us_per_rep=res[route], reps=reps, shape=f'({m}x8)x(8x{n})',
                 err_over_bound=ratio,
                 one_product_ms=res[f'torch.matmul {route}'] / 1e3,
@@ -1346,13 +1359,21 @@ def probe_phase(dev):
             rec['library_ms'] = res[f'library {route}'] / 1e3
             if route == 'tf32':
                 # one HGMMA (wgmma) a rep: the loop's instructions per rep;
-                # a launch of 0 reps prices what the rep loop does not
-                tile = sm.dot_tile(m, n, sms)
+                # a launch of 0 reps prices what the rep loop does not; the
+                # launch at every tile width that divides N, alternated
+                tile = sm.dot_tile(n)
                 fixed_us = time_us(lambda: kern(xx, ww, 0, eps, cols), 50,
                                    dev)
+                widths = [t for t in sm.DOT_TILES if n % t == 0]
+                tile_us = {t: [] for t in widths}
+                for _ in range(3):
+                    for t in widths:
+                        tile_us[t].append(time_us(lambda t=t: kern(
+                            xx, ww, reps, eps, cols, t), 50, dev))
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()[f'dot_tf32_{tile}']),
                     tile=tile, tiles=-(-m // sm.WG_ROWS) * (n // tile),
+                    tile_us=tile_us,
                     sass=sass(lib, f'dot_tf32_kernelILi{tile}E', 'HGMMA'),
                     launch_floor_us=floor_us, zero_reps_us=fixed_us,
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
@@ -1532,6 +1553,9 @@ def main():
     rate, sms, mhz = issue_rate()
     log(f'fp32 issue rate {rate:.5g} /s = {sms} SMs x 128 x {mhz:.0f} MHz '
         f'(clocks.max.sm): the operations bound of the CUDA-core kernels')
+    log(f'dense TF32 rate {tf32_rate():.5g} flop/s = {sms} SMs x '
+        f'{TF32_MACS_PER_SM} MACs x 2 x {mhz:.0f} MHz: the TF32 product\'s '
+        f'operations bound')
     dev = torch.device('cuda:0')
     import pathtracer_tpu_torch as pt
 

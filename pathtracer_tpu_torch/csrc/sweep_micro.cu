@@ -19,8 +19,8 @@
 //     sweep rounds.  Bound: fp32 instruction throughput (16 instructions
 //     per output per rep, no FMA).
 //   * TF32 route (the counterpart of Precision.DEFAULT and of the MXU
-//     kernel): one warpgroup per 64 x NT output tile, NT (64, 96 or 192)
-//     chosen by the wrapper so that about one tile lands on each SM.  w's
+//     kernel): one warpgroup per 64 x NT output tile, NT = 96 where it
+//     divides N, else 64 (ops/sweep_micro.dot_tile, PERF.md section 6).  w's
 //     tile is rounded to TF32 and written once into shared memory,
 //     transposed to the K-major layout that TF32 wgmma takes; each rep
 //     rounds x + i*eps (cvt.rna.tf32.f32) into a register A fragment and
@@ -157,96 +157,50 @@ __device__ __forceinline__ uint32_t to_tf32(float f) {
   return r;
 }
 
-// D (64 x 64) += A (64 x 8, registers) * B (8 x 64, shared memory)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+// One wgmma.m64nNk8.f32.tf32.tf32: D (64 x N, the N / 2 registers of d)
+// += A (64 x 8, the four registers of a) * B (8 x N, shared memory, by
+// descriptor b).  DREGS names the accumulators %0 .. %(N/2 - 1); A's
+// registers, b and the scale-d flag (1: accumulate) follow them.
+#define WGMMA_TF32(N, DREGS, A0, A1, A2, A3, B, SCALE, ...)                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SCALE ", 0;\n"        \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {"  \
+               DREGS "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B    \
+               ", p, 1, 1;\n}\n"                                            \
+               : __VA_ARGS__                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+// eight accumulators d[o] .. d[o + 7], and their operand numbers
+#define ACC8(o)                                                             \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),              \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define REGS_0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define REGS_8 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define REGS_16 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define REGS_24 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define REGS_32 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define REGS_40 "%40, %41, %42, %43, %44, %45, %46, %47"
+
+// D (64 x N) += A (64 x 8, registers) * B (8 x N, shared memory), for the
+// tile widths N of the TF32 route.
+template <int N>
+__device__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                           uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  WGMMA_TF32(64, REGS_0 ", " REGS_8 ", " REGS_16 ", " REGS_24,
+             32, 33, 34, 35, 36, 37, ACC8(0), ACC8(8), ACC8(16), ACC8(24));
 }
 
-// D (64 x 96) += A (64 x 8, registers) * B (8 x 96, shared memory)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[48],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47},"
-      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D (64 x 192) += A (64 x 8, registers) * B (8 x 192, shared memory)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[96],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95},"
-      "{%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+template <>
+__device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b) {
+  WGMMA_TF32(96, REGS_0 ", " REGS_8 ", " REGS_16 ", " REGS_24 ", " REGS_32
+                     ", " REGS_40,
+             48, 49, 50, 51, 52, 53, ACC8(0), ACC8(8), ACC8(16), ACC8(24),
+             ACC8(32), ACC8(40));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -299,7 +253,7 @@ __device__ __forceinline__ void tf32_group(float (&acc)[NT / 2],
   wgmma_fence();
 #pragma unroll
   for (int g = 0; g < REP_GROUP; ++g)
-    if (g < cnt) wgmma_tf32(acc, a[g], desc);
+    if (g < cnt) wgmma_tf32<NT>(acc, a[g], desc);
   wgmma_commit();
   wgmma_wait<A_SETS - 1>();
 }
@@ -574,8 +528,8 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
 }  // namespace
 
 // x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
-// takes the FP32 route (m % 4 == 0, n % 4 == 0), tile 64, 96 or 192 the
-// TF32 route with tiles of 64 rows x `tile` columns (n % tile == 0).
+// takes the FP32 route (m % 4 == 0, n % 4 == 0), tile 64 or 96 the TF32
+// route with tiles of 64 rows x `tile` columns (n % tile == 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
                          int reps, float eps, int out_cols, int tile,
@@ -597,10 +551,6 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
     case 96:
       dot_tf32_kernel<96><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
                                                       out_cols, out, pairs);
-      break;
-    case 192:
-      dot_tf32_kernel<192><<<grid, WG_THREADS, 0, s>>>(
-          x, w, m, n, reps, eps, out_cols, out, pairs);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -634,19 +584,18 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 }
 
 // Registers per thread, resident blocks per SM and threads per block of
-// one probe kernel (0 dot_fp32, 1-3 dot_tf32 at tiles of 64, 96 and 192
-// columns, 4 epilogue, 5 edgemat), into out[0..2].  Returns a CUDA error
+// one probe kernel (0 dot_fp32, 1-2 dot_tf32 at tiles of 64 and 96
+// columns, 3 epilogue, 4 edgemat), into out[0..2].  Returns a CUDA error
 // code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
   const void* fns[] = {(const void*)dot_fp32_kernel,
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
-                       (const void*)dot_tf32_kernel<192>,
                        (const void*)epilogue_kernel,
                        (const void*)edgemat_kernel};
-  const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, WG_THREADS,
-                         EPI_THREADS, EDGE_THREADS};
-  if (kernel < 0 || kernel > 5) return (int)cudaErrorInvalidValue;
+  const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
+                         EDGE_THREADS};
+  if (kernel < 0 || kernel > 4) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

@@ -51,13 +51,13 @@ SUBT = 256        # triangles per subtile
 TF32_TOL = 2.0 ** -14   # |dot_tf32 - dot_plain(tf32=True)| <= TF32_TOL * bound
 EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
-DOT_TILES = (64, 96, 192)   # the TF32 kernel's tile widths (sweep_micro.cu)
+DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
-KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'dot_tf32_192',
-           'epilogue', 'edgemat')   # sweep_micro_info's order
+KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
+           'edgemat')   # sweep_micro_info's order
 
 
-def _steps(reps: int, eps: float, dev) -> torch.Tensor:
+def rep_steps(reps: int, eps: float, dev) -> torch.Tensor:
     """f32(i) * f32(eps) for i < reps, rounded in fp32 as the TPU kernels'
     `i.astype(f32) * eps` and the CUDA kernels' __fmul_rn."""
     return (torch.arange(reps, dtype=torch.float32, device=dev)
@@ -77,7 +77,7 @@ def dot_plain(x, w, reps: int, eps: float, out_cols: int, tf32=False):
     with every product and sum rounded on its own; with tf32, both
     operands rounded to TF32 first.  Returns (out (M, out_cols), pairs
     (M, N / 2))."""
-    steps = _steps(reps, eps, x.device)
+    steps = rep_steps(reps, eps, x.device)
     if tf32:
         w = round_tf32(w)
     acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
@@ -103,7 +103,7 @@ def epilogue_plain(p, tn, reps: int, eps: float):
     j, not `amin`'s, whose choice between -0.0 and +0.0 differs between
     the CPU and a card, and a later rep wins only with a smaller t."""
     m = p.shape[0]
-    steps = _steps(reps, eps, p.device)
+    steps = rep_steps(reps, eps, p.device)
     tnr = tn[0][:, None]
     lane = torch.arange(SUBT, dtype=torch.int32, device=p.device)
     tbest = torch.full((m,), BIG_T, device=p.device)
@@ -130,7 +130,7 @@ def edgemat_plain(o, d, tr, reps: int, eps: float, rep0: int = 0):
     tr (12, SUBT) = [a | n | u | v] x xyz rows; per rep tr + i*eps, t, the
     barycentric acceptance, and the min accepted t, over the reps rep0 <=
     i < reps.  (1, M) f32."""
-    steps = _steps(reps, eps, o.device)
+    steps = rep_steps(reps, eps, o.device)
     ox, oy, oz = (o[k][:, None] for k in range(3))
     dx, dy, dz = (d[k][:, None] for k in range(3))
     tbest = torch.full((o.shape[1],), BIG_T, device=o.device)
@@ -217,19 +217,18 @@ def _check(name, rc):
         raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
 
 
-def dot_tile(m: int, n: int, sms: int) -> int:
-    """The TF32 kernel's tile width for an (m, 8) x (8, n) product on a
-    card of `sms` SMs: among DOT_TILES that divide n, the one whose 64-row
-    tiles put the least work on the busiest SM, ceil(tiles / sms) x width;
-    on a tie the widest (fewer tiles, fewer wgmmas)."""
-    rows = -(-m // WG_ROWS)
+def dot_tile(n: int) -> int:
+    """The TF32 kernel's tile width for an (m, 8) x (8, n) product: 96
+    where it divides n, else 64 (the wrapper takes N % 64 == 0).  At both
+    probe scripts' shapes 96 is faster than 64, and at 1536 columns no
+    slower than the 192 it replaced (PERF.md, section 6)."""
     fits = [t for t in DOT_TILES if n % t == 0]
     if not fits:
         raise ValueError(f'dot_tf32 needs N divisible by one of {DOT_TILES}')
-    return min(fits, key=lambda t: (-(-rows * (n // t) // sms) * t, -t))
+    return max(fits)
 
 
-def _dot(x, w, reps, eps, out_cols, tf32):
+def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
     name = 'dot_tf32' if tf32 else 'dot_fp32'
     m, n = x.shape[0], w.shape[1]
     if _takes_plain(name, (x, w), ((m, AR), (AR, n))):
@@ -237,10 +236,15 @@ def _dot(x, w, reps, eps, out_cols, tf32):
     if m % 16 or n % 64 or not 0 < out_cols <= n:
         raise ValueError(f'{name} needs M % 16 == 0, N % 64 == 0 and '
                          f'0 < out_cols <= N')
+    if not tf32:
+        tile = 0
+    elif tile is None:
+        tile = dot_tile(n)
+    elif tile not in DOT_TILES or n % tile:
+        raise ValueError(f'{name} takes a tile width of {DOT_TILES} that '
+                         f'divides N')
     out = torch.empty((m, out_cols), device=x.device)
     pairs = torch.empty((m, n // 2), device=x.device)
-    tile = dot_tile(m, n, torch.cuda.get_device_properties(
-        x.device).multi_processor_count) if tf32 else 0
     _check(name, load_kernels().sweep_dot(
         x.data_ptr(), w.data_ptr(), m, n, reps, eps, out_cols, tile,
         out.data_ptr(), pairs.data_ptr(),
@@ -262,13 +266,14 @@ def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
 dot_fp32.launches = 0
 
 
-def dot_tf32(x, w, reps: int, eps: float, out_cols: int):
+def dot_tf32(x, w, reps: int, eps: float, out_cols: int,
+             tile: int | None = None):
     """sum_{i < reps} (x + i*eps) @ w in TF32 on the tensor cores (wgmma
-    m64nNk8, N = dot_tile).  CPU tensors take dot_plain(tf32=True); CUDA
-    tensors launch the hand-written kernel (replaces the TPU kernels
-    tpu_prof_sweep.matmul_kernel(DEFAULT) and tpu_proto_mxu.mxu_kernel) or
-    raise."""
-    out = _dot(x, w, reps, eps, out_cols, True)
+    m64nNk8, N = `tile`, by default dot_tile(N)).  CPU tensors take
+    dot_plain(tf32=True); CUDA tensors launch the hand-written kernel
+    (replaces the TPU kernels tpu_prof_sweep.matmul_kernel(DEFAULT) and
+    tpu_proto_mxu.mxu_kernel) or raise."""
+    out = _dot(x, w, reps, eps, out_cols, True, tile)
     if x.device.type == 'cuda':
         dot_tf32.launches += 1
     return out

@@ -99,7 +99,7 @@ def concat_operands(x, w, reps: int, eps: float):
     """(X_cat (M, 8 * reps), W_cat (8 * reps, N)) whose one product is the
     probes' sum_{i < reps} (x + i*eps) @ w: block i of X_cat is x + i*eps,
     rounded as the kernels round it, and every block of W_cat is w."""
-    steps = sm._steps(reps, eps, x.device)
+    steps = sm.rep_steps(reps, eps, x.device)
     x_cat = (x[:, None, :] + steps[None, :, None]).reshape(x.shape[0], -1)
     return x_cat, w.repeat(reps, 1)
 

@@ -65,7 +65,7 @@ def signed_zero_inputs(dev, m: int, reps: int, eps: float = EPS,
     in its rep on + step = +0.0 exactly and t = -(on / dn) takes the sign
     opposite to dn's; beta = gamma = 1/4.  The other values are random:
     their t, where accepted, is not 0."""
-    steps = sm._steps(max(reps, 3), eps, 'cpu').numpy()
+    steps = sm.rep_steps(max(reps, 3), eps, 'cpu').numpy()
     rng = np.random.default_rng(seed)
     p = rng.standard_normal((m, 6, SUBT)).astype(np.float32)
     for r in range(m):

@@ -540,23 +540,22 @@ def test_dot_matches_plain(cuda, route, out_cols):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('m,n,reps,eps,tile,cols', [
-    (64, 128, 8, 1e-3, 64, 128), (1024, 1536, 256, 1e-9, 192, 128),
+    (64, 128, 8, 1e-3, 64, 128), (1024, 1536, 256, 1e-9, 96, 128),
     (1024, 768, 64, 1e-7, 96, 768), (208, 576, 9, 1e-3, 64, 570),
-    (208, 576, 5, 1e-3, 96, 576), (208, 576, 7, 1e-3, 192, 570)])
-def test_dot_tf32_matches_plain_at_every_tile(cuda, monkeypatch, m, n,
-                                              reps, eps, tile, cols):
+    (208, 576, 5, 1e-3, 96, 576), (208, 576, 7, 1e-3, 64, 576)])
+def test_dot_tf32_matches_plain_at_every_tile(cuda, m, n, reps, eps, tile,
+                                              cols):
     """The wgmma product within TF32_TOL of the absolute-value bound at
     every tile width: the wrapper's own choice at (64, 128) and at the two
-    scripts' shapes, and each width forced where M = 208 leaves a partial
-    64-row tile, with rep counts that leave partial groups of reps and
-    with out_cols not a multiple of 4."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    if m == 208:
-        monkeypatch.setattr(sm, 'dot_tile', lambda m, n, sms: tile)
-    assert sm.dot_tile(m, n, sms) == tile
+    scripts' shapes, and each width asked for where M = 208 leaves a
+    partial 64-row tile, with rep counts that leave partial groups of reps
+    and with out_cols not a multiple of 4."""
+    if m != 208:
+        assert sm.dot_tile(n) == tile
     x, w = _probe_inputs(cuda, m, n, seed=26)
     before = sm.dot_tf32.launches
-    out_k, pairs_k = sm.dot_tf32(x, w, reps, eps, cols)
+    out_k, pairs_k = sm.dot_tf32(x, w, reps, eps, cols,
+                                 tile if m == 208 else None)
     assert sm.dot_tf32.launches == before + 1
     out_p, pairs_p = sm.dot_plain(x, w, reps, eps, cols, tf32=True)
     bound = sm.dot_plain(x.abs(), w.abs(), reps, eps, n)[0]

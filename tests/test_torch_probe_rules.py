@@ -29,7 +29,6 @@ from pathtracer_tpu_torch.scripts import concat_operands, prof_sweep
 from test_torch_cluster import one_torch_thread  # noqa: F401
 from test_torch_probes import _interpret, _load_script
 
-H100_SMS = 132
 NONE = torch.iinfo(torch.int64).max
 
 
@@ -78,7 +77,7 @@ def _kernel_rule(p, tn, reps, eps):
     (|t|'s bits, then rep * SUBT + tri, then t's sign; t < BIG_T only),
     the least key per ray, decoded into (tbest, tri)."""
     m = p.shape[0]
-    steps = sm._steps(reps, eps, 'cpu')
+    steps = sm.rep_steps(reps, eps, 'cpu')
     on, ou, ov, dn, du, dv = (p[None] + steps[:, None, None]).split(
         sm.SUBT, dim=2)
     t = -(on / dn)
@@ -130,7 +129,7 @@ def test_concat_operands_compute_the_probe_sum(tf32, m, n, reps, eps):
     x_cat, w_cat = concat_operands(x, w, reps, eps)
     assert x_cat.shape == (m, sm.AR * reps) and w_cat.shape == (sm.AR * reps,
                                                                 n)
-    steps = sm._steps(reps, eps, 'cpu')
+    steps = sm.rep_steps(reps, eps, 'cpu')
     for i in range(reps):
         assert torch.equal(x_cat[:, i * sm.AR:(i + 1) * sm.AR], x + steps[i])
         assert torch.equal(w_cat[i * sm.AR:(i + 1) * sm.AR], w)
@@ -146,24 +145,17 @@ def test_concat_operands_compute_the_probe_sum(tf32, m, n, reps, eps):
                  ).all())
 
 
-@pytest.mark.parametrize('m,n,sms,tile', [
-    (1024, 1536, H100_SMS, 192), (1024, 768, H100_SMS, 96),
-    (64, 128, H100_SMS, 64), (97, 64, H100_SMS, 64), (16, 192, H100_SMS, 64),
-    (208, 576, H100_SMS, 64), (4096, 1536, H100_SMS, 192),
-    (1024, 1536, 16, 192), (1024, 960, H100_SMS, 64)])
-def test_dot_tile_covers_its_shapes(m, n, sms, tile):
-    """The width divides N, and no other width puts less work on the
-    busiest SM (ceil(tiles / sms) x width); ties go to the widest."""
-    got = sm.dot_tile(m, n, sms)
-    assert got == tile and n % got == 0
-
-    def load(t):
-        tiles = -(-m // sm.WG_ROWS) * (n // t)
-        return -(-tiles // sms) * t
-
-    assert all(load(got) <= load(t) for t in sm.DOT_TILES if n % t == 0)
+@pytest.mark.parametrize('n,tile', [
+    (1536, 96), (768, 96), (128, 64), (64, 64), (192, 96), (576, 96),
+    (960, 96), (320, 64), (1024, 64)])
+def test_dot_tile_covers_its_shapes(n, tile):
+    """The two scripts' widths, N = 64 and the other multiples of 64: the
+    width divides N, 96 where it does, else 64."""
+    got = sm.dot_tile(n)
+    assert got == tile and n % got == 0 and got in sm.DOT_TILES
+    assert got == max(t for t in sm.DOT_TILES if n % t == 0)
 
 
 def test_dot_tile_refuses_a_width_it_has_no_tile_for():
     with pytest.raises(ValueError):
-        sm.dot_tile(64, 40, H100_SMS)
+        sm.dot_tile(40)

@@ -87,7 +87,7 @@ def _signed_zeros(minus_rep, plus_rep):
     so beta = gamma = 0 and every t >= 0 is accepted; in its other reps a
     triangle's t is small and nonzero.  The other triangles are far off
     the ray."""
-    steps = sm._steps(max(minus_rep, plus_rep) + 2, EPS, 'cpu').numpy()
+    steps = sm.rep_steps(max(minus_rep, plus_rep) + 2, EPS, 'cpu').numpy()
     o = np.array([0.3, 0.6, 0.7], np.float32)
     tr = np.random.default_rng(9).uniform(20.0, 30.0, (12, sm.SUBT)) \
         .astype(np.float32)

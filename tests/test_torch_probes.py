@@ -94,7 +94,7 @@ def test_matmul_matches_jax(tps, prof_inputs, monkeypatch, prec):
 
 def test_tf32_plain_matches_float64(prof_inputs):
     x, w = prof_inputs['r'], prof_inputs['a']
-    steps = sm._steps(REPS, prof_sweep.EPS, 'cpu').numpy()
+    steps = sm.rep_steps(REPS, prof_sweep.EPS, 'cpu').numpy()
     wt = sm.round_tf32(torch.as_tensor(w)).numpy().astype(np.float64)
     ref = np.zeros((x.shape[0], w.shape[1]))
     bound = np.zeros_like(ref)
