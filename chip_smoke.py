@@ -1357,13 +1357,12 @@ def probe_phase(dev):
                 tflops=reps * 2 * m * 8 * n / ms / 1e9)
             rec['launches'] = counts[f'dot_{route}']
             rec['library_ms'] = res[f'library {route}'] / 1e3
+            # a launch of 0 reps prices what the rep loop does not
+            fixed_us = time_us(lambda: kern(xx, ww, 0, eps, cols), 50, dev)
             if route == 'tf32':
                 # one HGMMA (wgmma) a rep: the loop's instructions per rep;
-                # a launch of 0 reps prices what the rep loop does not; the
-                # launch at every tile width that divides N, alternated
+                # the launch at every tile width that divides N, alternated
                 tile = sm.dot_tile(n)
-                fixed_us = time_us(lambda: kern(xx, ww, 0, eps, cols), 50,
-                                   dev)
                 widths = [t for t in sm.DOT_TILES if n % t == 0]
                 tile_us = {t: [] for t in widths}
                 for _ in range(3):
@@ -1378,7 +1377,16 @@ def probe_phase(dev):
                     launch_floor_us=floor_us, zero_reps_us=fixed_us,
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             else:
-                rec['counters'] = occupancy(sm.kernel_info()['dot_fp32'])
+                # one I2F ((float)i, the rep's shift) a rep and thread: the
+                # loop's instructions per rep, over a thread's outputs
+                loop = sass(lib, 'dot_fp32_kernel', 'I2F')
+                rec['counters'] = dict(
+                    occupancy(sm.kernel_info()['dot_fp32']),
+                    tile=sm.FP32_TILE, sass=loop,
+                    sass_per_output=loop['per_marker'] / (
+                        sm.FP32_TILE[0] * sm.FP32_TILE[1]),
+                    launch_floor_us=floor_us, zero_reps_us=fixed_us,
+                    loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             recs.append(rec)
             log(f'dot_{route} at {script} shape: {res[route]:.4f} us/rep '
                 f'({ms * 1e3:.2f} us per launch, {rec["tflops"]:.1f} '

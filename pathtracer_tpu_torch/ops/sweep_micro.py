@@ -53,6 +53,7 @@ EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
 DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
+FP32_TILE = (4, 4)   # rows x columns of a thread's fp32 tile (sweep_micro.cu)
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
            'edgemat')   # sweep_micro_info's order
 
