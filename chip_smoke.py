@@ -130,6 +130,9 @@ SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
 SLAB_OPS = 23           # one ray x box slab test
 TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
 EPI_PAIR_OPS = 20       # one lane x triangle of the probe epilogue
+DOT_OUT_OPS = 9         # one output of the fp32 probe product a rep: an
+                        # FMUL, seven FFMAs (one instruction each) and an FADD
+DOT_ROW_OPS = 8         # one row's shifts x + i*eps a rep (sweep_micro.cu)
 EDGE_PAIR_OPS = 41      # one probe edge-matrix test (sweep_micro.cu)
 RADIANCE = 196964.7     # the gradient loss's scale (tests/test_gradients.py)
 DESCENT_TARGET = [0.8, 0.3, 0.2]   # g_kd of the descent's target image
@@ -1266,7 +1269,7 @@ def check_dot(kern, tf32, x, w, reps, eps, out_cols):
     out_k = kern(x, w, reps, eps, out_cols)
     out_p = sm.dot_plain(x, w, reps, eps, out_cols, tf32)
     if not tf32:
-        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        if not same_bits(out_k, out_p):
             raise AssertionError('fp32 product differs from its plain '
                                  'version')
         return 0.0, 0.0
@@ -1281,6 +1284,41 @@ def check_dot(kern, tf32, x, w, reps, eps, out_cols):
         raise AssertionError(f'TF32 product off its plain version by '
                              f'{ratio:.3g} of the bound (> {sm.TF32_TOL})')
     return err, ratio
+
+
+def check_fma(dev):
+    """sweep_micro.fma_rn on the card and on the CPU give the same bits on
+    prof_sweep.fma_cases, and the fp32 product's kernel computes the same
+    FMAs (prof_sweep.fma_dot_inputs, 64 cases a launch, each launch also
+    bit-equal to dot_plain on the card).  Returns a summary."""
+    import torch
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    from pathtracer_tpu_torch.scripts import prof_sweep
+    a, b, c = prof_sweep.fma_cases()
+    want = sm.fma_rn(a, b, c)
+    if not same_bits(sm.fma_rn(a.to(dev), b.to(dev), c.to(dev)).cpu(), want):
+        raise AssertionError('fma_rn differs between the card and the CPU')
+    once = (a.double() * b.double() + c.double()).float()
+    n = -(-a.numel() // 64) * 64
+    pad = [torch.cat([v, v.new_zeros(n - v.numel())]).to(dev)
+           for v in (a, b, c)]
+    diag = []
+    for j in range(0, n, 64):
+        x, w = prof_sweep.fma_dot_inputs(*(v[j:j + 64] for v in pad))
+        out_k = sm.dot_fp32(x, w, 1, -1.0, 64)
+        if not same_bits(out_k, sm.dot_plain(x, w, 1, -1.0, 64)):
+            raise AssertionError('fp32 product on fma_dot_inputs differs '
+                                 'from dot_plain')
+        diag.append(out_k[0].diagonal())
+    got = torch.cat(diag)[:a.numel()].cpu()
+    if not same_bits(got, want + 0.0):
+        raise AssertionError('the fp32 product\'s FMA differs from fma_rn')
+    return dict(cases=a.numel(), launches=n // 64,
+                float64_once_wrong=int((once.view(torch.int32)
+                                        != want.view(torch.int32)).sum()),
+                subnormal=int(((want != 0) & (want.abs() < 2.0 ** -126))
+                              .sum()),
+                inf=int(want.isinf().sum()))
 
 
 def occupancy(info):
@@ -1346,9 +1384,11 @@ def probe_phase(dev):
             ms_p = cuda_ms(lambda: sm.dot_plain(xx, ww, reps, eps, cols,
                                                 route == 'tf32'), reps=1)
             ms = res[route] * reps / 1e3
+            ops = (reps * 2 * m * 8 * n if route == 'tf32' else
+                   reps * (DOT_OUT_OPS * m * n + DOT_ROW_OPS * m))
             rec = entry(
                 f'dot_{route}[{script}]', src, replaces[route], err, 1.0,
-                ms, ms_p, reps * 2 * m * 8 * n,
+                ms, ms_p, ops,
                 4 * (m * 8 + 8 * n + m * cols + m * n // 2),
                 peak=tf32_rate() if route == 'tf32' else None,
                 us_per_rep=res[route], reps=reps, shape=f'({m}x8)x(8x{n})',
@@ -1378,13 +1418,28 @@ def probe_phase(dev):
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             else:
                 # one I2F ((float)i, the rep's shift) a rep and thread: the
-                # loop's instructions per rep, over a thread's outputs
-                loop = sass(lib, 'dot_fp32_kernel', 'I2F')
+                # loop's instructions per rep, over a thread's outputs; each
+                # tile bit-equal, its launch timed, alternated
+                out_p = sm.dot_plain(xx, ww, reps, eps, cols)
+                tile_us = {t: [] for t in sm.FP32_TILES}
+                for t in sm.FP32_TILES:
+                    if not same_bits(kern(xx, ww, reps, eps, cols, t), out_p):
+                        raise AssertionError(f'fp32 product at tile {t} '
+                                             f'differs from dot_plain')
+                for _ in range(3):
+                    for t in sm.FP32_TILES:
+                        tile_us[t].append(time_us(lambda t=t: kern(
+                            xx, ww, reps, eps, cols, t), 20, dev))
+                tiles = {}
+                for (tr, tc) in sm.FP32_TILES:
+                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}E', 'I2F')
+                    tiles[f'{tr}x{tc}'] = dict(
+                        occupancy(sm.kernel_info()[f'dot_fp32_{tr}x{tc}']),
+                        sass=loop, sass_per_output=loop['per_marker']
+                        / (tr * tc), us=tile_us[(tr, tc)])
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()['dot_fp32']),
-                    tile=sm.FP32_TILE, sass=loop,
-                    sass_per_output=loop['per_marker'] / (
-                        sm.FP32_TILE[0] * sm.FP32_TILE[1]),
+                    tile=sm.FP32_TILE, tiles=tiles,
                     launch_floor_us=floor_us, zero_reps_us=fixed_us,
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             recs.append(rec)
@@ -1396,6 +1451,12 @@ def probe_phase(dev):
                 f'{res["torch.matmul " + route]:.3f} us; plain {ms_p:.3f} ms '
                 f'per launch; max |diff| {err:.3g} ({ratio:.3g} of the '
                 f'bound); counters {rec["counters"]}')
+    fma = check_fma(dev)
+    log(f'fma_rn: card and CPU bit-equal on {fma["cases"]} cases ('
+        f'{fma["float64_once_wrong"]} of them wrong when the float64 sum is '
+        f'rounded straight to fp32, {fma["subnormal"]} subnormal, '
+        f'{fma["inf"]} infinite); the fp32 kernel\'s FMA equal to them in '
+        f'{fma["launches"]} launches, each bit-equal to dot_plain')
     narrow = x['a'][:, :prof_sweep.NS // 4].contiguous()
     t_narrow = time_us(lambda: sm.dot_fp32(x['r'], narrow, prof_sweep.REPS,
                                            prof_sweep.EPS, 128), 20, dev)

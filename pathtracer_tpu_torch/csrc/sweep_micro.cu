@@ -13,11 +13,17 @@
 //
 // dot: out = sum_{i < reps} (x + i*eps) @ w, x (M, 8), w (8, N) f32.
 //   * FP32 route (the counterpart of Precision.HIGHEST and of the VPU
-//     kernel): one thread per 4 x 4 output tile, x rows and w columns in
-//     registers, the eight products summed in k order with every product
-//     and sum rounded on its own (_rn intrinsics, -fmad=false), as the
-//     sweep rounds.  Bound: fp32 instruction throughput (16 instructions
-//     per output per rep, no FMA).
+//     kernel): per rep r = x + i*eps, s = r[0] * w[0] rounded, then s =
+//     fma(r[k], w[k], s) for k = 1..7 in order, each rounded once
+//     (__fmaf_rn, an FFMA even under -fmad=false), and acc = acc + s; the
+//     plain version states each FMA through ops/sweep_micro.fma_rn, so the
+//     two agree bit for bit.  Bound: fp32 instruction issue, 9 instructions
+//     per output per rep (FMUL, seven FFMA, FADD) and 8 per row (the
+//     shifts).  acc is summed in rep order, so the reps stay in one
+//     thread and the parallelism is the outputs': one thread per TR x TC
+//     tile, its x rows, w columns and accumulators in registers for the
+//     whole launch; a thread's shifts are TR x 8 FADDs a rep for TR x TC
+//     outputs, 8 / (9 TC) of the counted work.
 //   * TF32 route (the counterpart of Precision.DEFAULT and of the MXU
 //     kernel): one warpgroup per 64 x NT output tile, NT = 96 where it
 //     divides N, else 64 (ops/sweep_micro.dot_tile, PERF.md section 6).  w's
@@ -76,8 +82,7 @@ constexpr float BIG_T = 1e30f;
 constexpr int SUBT = 256;         // triangles per subtile
 constexpr unsigned long long NONE = ~0ull;
 
-constexpr int TR = 4, TC = 4;     // FP32 route: rows x columns per thread
-constexpr int DOT_THREADS = 256;
+constexpr int DOT_THREADS = 64;   // FP32 route: threads per block
 constexpr int WG_ROWS = 64;       // TF32 route: rows of a tile (wgmma's M)
 constexpr int WG_THREADS = 128;   // one warpgroup
 constexpr int REP_GROUP = 4;      // reps whose wgmmas are committed together
@@ -110,7 +115,11 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return b < a ? b : a;
 }
 
-__global__ void __launch_bounds__(DOT_THREADS)
+// Thread g owns rows row0 .. row0 + TR - 1 x columns col0 .. col0 + TC - 1
+// (consecutive threads along a row).  MINB blocks per SM bound the
+// registers (65,536 / (MINB * DOT_THREADS)).
+template <int TR, int TC, int MINB>
+__global__ void __launch_bounds__(DOT_THREADS, MINB)
 dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
@@ -119,12 +128,19 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (g >= (m / TR) * ncg) return;
   const int row0 = (g / ncg) * TR, col0 = (g % ncg) * TC;
   float xr[TR][K], wr[K][TC], acc[TR][TC];
+#pragma unroll
   for (int r = 0; r < TR; ++r)
+#pragma unroll
     for (int k = 0; k < K; ++k) xr[r][k] = x[(row0 + r) * K + k];
+#pragma unroll
   for (int k = 0; k < K; ++k)
+#pragma unroll
     for (int c = 0; c < TC; ++c) wr[k][c] = w[k * n + col0 + c];
+#pragma unroll
   for (int r = 0; r < TR; ++r)
+#pragma unroll
     for (int c = 0; c < TC; ++c) acc[r][c] = 0.f;
+#pragma unroll 2
   for (int i = 0; i < reps; ++i) {
     const float step = __fmul_rn((float)i, eps);
 #pragma unroll
@@ -136,19 +152,51 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int c = 0; c < TC; ++c) {
         float s = __fmul_rn(rr[0], wr[0][c]);
 #pragma unroll
-        for (int k = 1; k < K; ++k) s = __fadd_rn(s, __fmul_rn(rr[k], wr[k][c]));
+        for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[k], wr[k][c], s);
         acc[r][c] = __fadd_rn(acc[r][c], s);
       }
     }
   }
+  // out and pairs come from the wrapper's torch.empty (16-byte aligned);
+  // rows of out take 16-byte stores where out_cols % 4 == 0
+#pragma unroll
   for (int r = 0; r < TR; ++r) {
     const int row = row0 + r;
-    for (int c = 0; c < TC; ++c)
-      if (col0 + c < out_cols) out[row * out_cols + col0 + c] = acc[r][c];
-    for (int c = 0; c < TC; c += 2)
-      pairs[row * (n / 2) + (col0 + c) / 2] = __fadd_rn(acc[r][c],
-                                                        acc[r][c + 1]);
+    float* o = out + (size_t)row * out_cols + col0;
+    if (out_cols % 4 == 0 && col0 + TC <= out_cols) {
+#pragma unroll
+      for (int c = 0; c < TC; c += 4)
+        *reinterpret_cast<float4*>(o + c) = make_float4(
+            acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < TC; ++c)
+        if (col0 + c < out_cols) o[c] = acc[r][c];
+    }
+    float* q = pairs + (size_t)row * (n / 2) + col0 / 2;
+#pragma unroll
+    for (int c = 0; c < TC; c += 8)
+      *reinterpret_cast<float4*>(q + c / 2) = make_float4(
+          __fadd_rn(acc[r][c], acc[r][c + 1]),
+          __fadd_rn(acc[r][c + 2], acc[r][c + 3]),
+          __fadd_rn(acc[r][c + 4], acc[r][c + 5]),
+          __fadd_rn(acc[r][c + 6], acc[r][c + 7]));
   }
+}
+
+// The FP32 route's tiles (rows x columns a thread, blocks per SM), by the
+// `tile` code of sweep_dot: 0 the default, 116 and 208 each by name.
+#define FP32_TILE_1x16 1, 16, 6
+#define FP32_TILE_2x8 2, 8, 8
+
+template <int TR, int TC, int MINB>
+static void launch_fp32(const float* x, const float* w, int m, int n,
+                        int reps, float eps, int out_cols, float* out,
+                        float* pairs, cudaStream_t s) {
+  const int threads = (m / TR) * (n / TC);
+  dot_fp32_kernel<TR, TC, MINB>
+      <<<(threads + DOT_THREADS - 1) / DOT_THREADS, DOT_THREADS, 0, s>>>(
+          x, w, m, n, reps, eps, out_cols, out, pairs);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -528,8 +576,9 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
 }  // namespace
 
 // x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
-// takes the FP32 route (m % 4 == 0, n % 4 == 0), tile 64 or 96 the TF32
-// route with tiles of 64 rows x `tile` columns (n % tile == 0).
+// (or 116, 208: 1 x 16, 2 x 8) takes the FP32 route (m % 2 == 0, n % 16 ==
+// 0), tile 64 or 96 the TF32 route with tiles of 64 rows x `tile` columns
+// (n % tile == 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
                          int reps, float eps, int out_cols, int tile,
@@ -537,13 +586,15 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(tile ? n / tile : 0, (m + WG_ROWS - 1) / WG_ROWS);
   switch (tile) {
-    case 0: {
-      const int threads = (m / TR) * (n / TC);
-      dot_fp32_kernel<<<(threads + DOT_THREADS - 1) / DOT_THREADS,
-                        DOT_THREADS, 0, s>>>(x, w, m, n, reps, eps,
-                                             out_cols, out, pairs);
+    case 0:
+    case 116:
+      launch_fp32<FP32_TILE_1x16>(x, w, m, n, reps, eps, out_cols, out, pairs,
+                                  s);
       break;
-    }
+    case 208:
+      launch_fp32<FP32_TILE_2x8>(x, w, m, n, reps, eps, out_cols, out, pairs,
+                                 s);
+      break;
     case 64:
       dot_tf32_kernel<64><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
                                                       out_cols, out, pairs);
@@ -585,17 +636,19 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 
 // Registers per thread, resident blocks per SM and threads per block of
 // one probe kernel (0 dot_fp32, 1-2 dot_tf32 at tiles of 64 and 96
-// columns, 3 epilogue, 4 edgemat), into out[0..2].  Returns a CUDA error
-// code.
+// columns, 3 epilogue, 4 edgemat, 5-6 dot_fp32 at tiles of 1 x 16 and
+// 2 x 8), into out[0..2].  Returns a CUDA error code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
-  const void* fns[] = {(const void*)dot_fp32_kernel,
+  const void* fns[] = {(const void*)dot_fp32_kernel<FP32_TILE_1x16>,
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
                        (const void*)epilogue_kernel,
-                       (const void*)edgemat_kernel};
+                       (const void*)edgemat_kernel,
+                       (const void*)dot_fp32_kernel<FP32_TILE_1x16>,
+                       (const void*)dot_fp32_kernel<FP32_TILE_2x8>};
   const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
-                         EDGE_THREADS};
-  if (kernel < 0 || kernel > 4) return (int)cudaErrorInvalidValue;
+                         EDGE_THREADS, DOT_THREADS, DOT_THREADS};
+  if (kernel < 0 || kernel > 6) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

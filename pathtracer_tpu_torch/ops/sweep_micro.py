@@ -53,9 +53,10 @@ EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
 DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
-FP32_TILE = (4, 4)   # rows x columns of a thread's fp32 tile (sweep_micro.cu)
+FP32_TILE = (1, 16)  # rows x columns of a thread's fp32 tile (sweep_micro.cu)
+FP32_TILES = {(1, 16): 116, (2, 8): 208}   # sweep_dot's codes of the tiles
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
-           'edgemat')   # sweep_micro_info's order
+           'edgemat', 'dot_fp32_1x16', 'dot_fp32_2x8')   # sweep_micro_info's order
 
 
 def rep_steps(reps: int, eps: float, dev) -> torch.Tensor:
@@ -73,11 +74,39 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors (broadcast), rounded once to float32
+    to nearest even, as CUDA's __fmaf_rn: the same bits on any device,
+    signed zeros, subnormal results and overflow to +-inf included.
+
+    The product of two float32 values is exact in float64 and so is the
+    error e of the float64 sum s = p + c (TwoSum).  Rounding s straight to
+    float32 would round twice and miss the nearest float32 where the
+    exact sum lies just off a float32 midpoint; rounded to odd instead (s
+    moved one float64 step toward e where e != 0 and s's last bit is
+    even), s has 53 >= 24 + 2 bits and its rounding to float32 is the
+    correct one (Boldo and Melquiond, "Emulation of FMA and correctly
+    rounded sums: proved algorithms using rounding to odd", IEEE Trans.
+    Computers 57(4), 2008)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, torch.inf), e)
+    s = torch.where((e != 0) & even & torch.isfinite(s),
+                    torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def dot_plain(x, w, reps: int, eps: float, out_cols: int, tf32=False):
-    """sum_{i < reps} (x + i*eps) @ w, each product summed over k in order
-    with every product and sum rounded on its own; with tf32, both
-    operands rounded to TF32 first.  Returns (out (M, out_cols), pairs
-    (M, N / 2))."""
+    """sum_{i < reps} (x + i*eps) @ w as the kernels state it: per rep, r =
+    x + i*eps in fp32, s = r[:, 0] * w[0] rounded, then s = fma(r[:, k],
+    w[k], s) for k = 1..7 in order, each rounded once (fma_rn), and acc =
+    acc + s in fp32 in rep order.  With tf32, r and w are rounded to TF32
+    first (their products are then exact in fp32, so the chain rounds as
+    the unfused one would).  Returns (out (M, out_cols), pairs (M, N / 2))."""
     steps = rep_steps(reps, eps, x.device)
     if tf32:
         w = round_tf32(w)
@@ -88,7 +117,7 @@ def dot_plain(x, w, reps: int, eps: float, out_cols: int, tf32=False):
             r = round_tf32(r)
         s = r[:, 0:1] * w[0]
         for k in range(1, AR):
-            s = s + r[:, k:k + 1] * w[k]
+            s = fma_rn(r[:, k:k + 1], w[k], s)
         acc = acc + s
     return acc[:, :out_cols].contiguous(), acc[:, 0::2] + acc[:, 1::2]
 
@@ -238,7 +267,7 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
         raise ValueError(f'{name} needs M % 16 == 0, N % 64 == 0 and '
                          f'0 < out_cols <= N')
     if not tf32:
-        tile = 0
+        tile = 0 if tile is None else FP32_TILES[tile]
     elif tile is None:
         tile = dot_tile(n)
     elif tile not in DOT_TILES or n % tile:
@@ -253,12 +282,14 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
     return out, pairs
 
 
-def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
-    """sum_{i < reps} (x + i*eps) @ w in strict fp32.  CPU tensors take
-    dot_plain; CUDA tensors launch the hand-written kernel (replaces the
-    TPU kernels tpu_prof_sweep.matmul_kernel(HIGHEST) and
-    tpu_proto_mxu.vpu_kernel) or raise."""
-    out = _dot(x, w, reps, eps, out_cols, False)
+def dot_fp32(x, w, reps: int, eps: float, out_cols: int, tile=None):
+    """sum_{i < reps} (x + i*eps) @ w in fp32, as dot_plain states it (an
+    FMA chain in k order per rep).  CPU tensors take dot_plain; CUDA
+    tensors launch the hand-written kernel (replaces the TPU kernels
+    tpu_prof_sweep.matmul_kernel(HIGHEST) and tpu_proto_mxu.vpu_kernel),
+    with a thread's tile `tile` of FP32_TILES (default FP32_TILE), or
+    raise."""
+    out = _dot(x, w, reps, eps, out_cols, False, tile)
     if x.device.type == 'cuda':
         dot_fp32.launches += 1
     return out

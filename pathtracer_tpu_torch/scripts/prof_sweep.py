@@ -75,6 +75,58 @@ def signed_zero_inputs(dev, m: int, reps: int, eps: float = EPS,
             torch.full((1, m), -1.0, device=dev))
 
 
+def fma_cases(n_random: int = 4096, seed: int = 7):
+    """float32 triples (a, b, c) that check an fp32 FMA, on the CPU:
+      * the 6,224 double-rounding cases a = f32(1 + i 2^-23) 2^-12, b =
+        f32(1 / (1 + i 2^-23)) 2^-12, c = 1 for i < 200,000 where a * b =
+        2^-24 (1 + t), 0 < t < 2^-29 (a = A 2^-35, b = B 2^-36, 0 < A B -
+        2^47 < 2^18): the exact sum lies just above the midpoint 1 + 2^-24,
+        and rounding its float64 sum to float32 rounds down;
+      * n_random normal triples, as many with c cancelling the rounded a *
+        b to a few ulps, and as many with subnormal results;
+      * signed zeros and overflow to +-inf."""
+    i = np.arange(200_000)
+    one = np.float32(1) + i.astype(np.float32) * np.float32(2.0 ** -23)
+    a = one * np.float32(2.0 ** -12)
+    b = (np.float32(1) / one) * np.float32(2.0 ** -12)
+    ab = ((a.astype(np.float64) * 2.0 ** 35).astype(np.int64)
+          * (b.astype(np.float64) * 2.0 ** 36).astype(np.int64) - 2 ** 47)
+    keep = (ab > 0) & (ab < 2 ** 18)
+    parts = [(a[keep], b[keep], np.ones(int(keep.sum()), np.float32))]
+    rng = np.random.default_rng(seed)
+
+    def normal(scale=1.0):
+        return (rng.standard_normal(n_random) * scale).astype(np.float32)
+
+    a, b = normal(), normal()
+    parts.append((a, b, normal()))
+    parts.append((a, b, -(a * b) + (rng.integers(-4, 5, n_random)
+                                     * np.spacing(a * b)).astype(np.float32)))
+    parts.append((normal(2.0 ** -70), normal(2.0 ** -62),
+                  normal(2.0 ** -133)))
+    big, top = 2.0 ** 127, float(np.finfo(np.float32).max)
+    parts.append(tuple(np.array(v, np.float32) for v in zip(
+        (0.0, 3.0, 0.0), (-0.0, 3.0, 0.0), (-0.0, 3.0, -0.0),
+        (0.0, -3.0, -0.0), (2.0, 3.0, -6.0), (big, 2.0, 0.0),
+        (-big, 2.0, 0.0), (big, 3.0, -top), (top, 1.0, 2.0 ** 103),
+        (top, 1.0, 2.0 ** 102))))
+    return tuple(torch.as_tensor(np.concatenate(p)) for p in zip(*parts))
+
+
+def fma_dot_inputs(a, b, c):
+    """(x (64, 8), w (8, 64)) whose fp32 product over one rep at eps = -1
+    (a shift of -0.0, which leaves every r = x bit for bit) has out[j, j]
+    = fma(a[j], b[j], c[j]) + 0.0 for j < 64 (acc starts at +0.0): x[j] =
+    (c[j], a[j], 0, ...), w[0] = 1, w[1] = b, w[2:] = -0.0, so s = c[j],
+    then the FMA, then six FMAs that add -0.0."""
+    n = a.shape[0]
+    x = torch.zeros((n, AR), device=a.device)
+    x[:, 0], x[:, 1] = c, a
+    w = torch.full((AR, n), -0.0, device=a.device)
+    w[0], w[1] = 1.0, b
+    return x, w
+
+
 def run(dev, reps: int = REPS, log=print) -> dict:
     """Time every probe; returns microseconds per subtile by probe name
     ('tf32', 'fp32', 'epilogue', 'edgemat', and on a card

@@ -513,6 +513,11 @@ def _probe_inputs(cuda, m, n, seed):
     return t(m, 8), t(8, n)
 
 
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('route', ['fp32', 'tf32'])
 @pytest.mark.parametrize('out_cols', [64, 128])
@@ -527,7 +532,7 @@ def test_dot_matches_plain(cuda, route, out_cols):
     out_p, pairs_p = sm.dot_plain(x, w, 8, 1e-3, out_cols,
                                   tf32=route == 'tf32')
     if route == 'fp32':
-        assert torch.equal(out_k, out_p) and torch.equal(pairs_k, pairs_p)
+        assert _same_bits(out_k, out_p) and _same_bits(pairs_k, pairs_p)
         return
     bound = sm.dot_plain(x.abs(), w.abs(), 8, 1e-3, 128)[0]
     assert bool(((out_k - out_p).abs()
@@ -536,6 +541,50 @@ def test_dot_matches_plain(cuda, route, out_cols):
     assert bool(((pairs_k - pairs_p).abs()
                  <= sm.TF32_TOL * (bound[:, 0::2] + bound[:, 1::2])).all())
     assert float((out_k - full[0][:, :out_cols]).abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('tile', list(sm.FP32_TILES))
+@pytest.mark.parametrize('m,n,reps,eps,cols,scale', [
+    (1024, 1536, 256, 1e-9, 128, 1.0), (1024, 768, 64, 1e-7, 768, 1.0),
+    (16, 64, 1, 1e-3, 64, 1.0), (16, 64, 0, 1e-3, 60, 1.0),
+    (208, 576, 1, 1e-3, 570, 1.0), (64, 128, 5, 2.0 ** -80, 128, 2.0 ** -66)])
+def test_dot_fp32_matches_plain(cuda, tile, m, n, reps, eps, cols, scale):
+    """The FMA-chain kernel bit-equal to dot_plain (out and pairs, signed
+    zeros included): at both scripts' shapes, the smallest M and N of the
+    contract (M % 16 == 0, N % 64 == 0), 0 and 1 reps, out_cols not a
+    multiple of 4, and operands scaled so that the results are subnormal."""
+    x, w = _probe_inputs(cuda, m, n, seed=28)
+    x, w = x * scale, w * scale
+    before = sm.dot_fp32.launches
+    out_k = sm.dot_fp32(x, w, reps, eps, cols, tile)
+    assert sm.dot_fp32.launches == before + 1
+    out_p = sm.dot_plain(x, w, reps, eps, cols)
+    assert _same_bits(out_k[0], out_p[0]) and _same_bits(out_k[1], out_p[1])
+    if scale < 1.0:
+        tiny = (out_p[0] != 0) & (out_p[0].abs() < 2.0 ** -126)
+        assert tiny.float().mean().item() > 0.5
+    if reps == 0:
+        assert not out_k[0].any() and not out_k[1].any()
+
+
+@pytest.mark.gpu
+def test_fma_rn_card_equals_cpu(cuda):
+    """fma_rn gives the same bits on the card as on the CPU on
+    prof_sweep.fma_cases (double-rounding cases, cancelling, subnormal,
+    signed zeros, overflow), and the fp32 kernel's FMA equals it."""
+    a, b, c = prof_sweep.fma_cases(n_random=1024)
+    want = sm.fma_rn(a, b, c)
+    assert _same_bits(sm.fma_rn(a.to(cuda), b.to(cuda), c.to(cuda)).cpu(),
+                      want)
+    x, w = prof_sweep.fma_dot_inputs(*(v[:64].to(cuda) for v in (a, b, c)))
+    out_k = sm.dot_fp32(x, w, 1, -1.0, 64)
+    assert _same_bits(out_k[0], sm.dot_plain(x, w, 1, -1.0, 64)[0])
+    assert _same_bits(out_k[0].diagonal().cpu(), want[:64] + 0.0)
+    tail = slice(a.numel() - 64, a.numel())        # subnormal, zeros, inf
+    x, w = prof_sweep.fma_dot_inputs(*(v[tail].to(cuda) for v in (a, b, c)))
+    assert _same_bits(sm.dot_fp32(x, w, 1, -1.0, 64)[0].diagonal().cpu(),
+                      want[tail] + 0.0)
 
 
 @pytest.mark.gpu
