@@ -1431,12 +1431,13 @@ def probe_phase(dev):
                         tile_us[t].append(time_us(lambda t=t: kern(
                             xx, ww, reps, eps, cols, t), 20, dev))
                 tiles = {}
-                for (tr, tc) in sm.FP32_TILES:
-                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}E', 'I2F')
-                    tiles[f'{tr}x{tc}'] = dict(
-                        occupancy(sm.kernel_info()[f'dot_fp32_{tr}x{tc}']),
+                for (tr, tc, sp) in sm.FP32_TILES:
+                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}ELi{sp}E',
+                                'I2F')
+                    tiles[f'{tr}x{tc}_{sp}'] = dict(occupancy(
+                        sm.kernel_info()[f'dot_fp32_{tr}x{tc}_{sp}']),
                         sass=loop, sass_per_output=loop['per_marker']
-                        / (tr * tc), us=tile_us[(tr, tc)])
+                        / (tr * tc), us=tile_us[(tr, tc, sp)])
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()['dot_fp32']),
                     tile=sm.FP32_TILE, tiles=tiles,

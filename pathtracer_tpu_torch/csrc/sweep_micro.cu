@@ -115,18 +115,25 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return b < a ? b : a;
 }
 
-// Thread g owns rows row0 .. row0 + TR - 1 x columns col0 .. col0 + TC - 1
-// (consecutive threads along a row).  MINB blocks per SM bound the
-// registers (65,536 / (MINB * DOT_THREADS)).
-template <int TR, int TC, int MINB>
+// Thread g owns rows row0 .. row0 + TR - 1 and TC columns in TC / 4
+// groups of four: with SPLIT, group j at columns j * n / (TC / 4) + 4 t
+// (t = g % (n / TC)), so a warp's 16-byte stores of one group are
+// contiguous; without, columns t * TC .. t * TC + TC - 1.  MINB blocks per
+// SM bound the registers (65,536 / (MINB * DOT_THREADS)).
+template <int TR, int TC, int SPLIT, int MINB>
 __global__ void __launch_bounds__(DOT_THREADS, MINB)
 dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
+  constexpr int G = TC / 4;
   const int ncg = n / TC;
   const int g = blockIdx.x * DOT_THREADS + threadIdx.x;
   if (g >= (m / TR) * ncg) return;
-  const int row0 = (g / ncg) * TR, col0 = (g % ncg) * TC;
+  const int row0 = (g / ncg) * TR, t = g % ncg;
+  int col[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    col[j] = SPLIT ? j * (n / G) + 4 * t : t * TC + 4 * j;
   float xr[TR][K], wr[K][TC], acc[TR][TC];
 #pragma unroll
   for (int r = 0; r < TR; ++r)
@@ -135,7 +142,7 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
-    for (int c = 0; c < TC; ++c) wr[k][c] = w[k * n + col0 + c];
+    for (int c = 0; c < TC; ++c) wr[k][c] = w[k * n + col[c / 4] + c % 4];
 #pragma unroll
   for (int r = 0; r < TR; ++r)
 #pragma unroll
@@ -157,44 +164,43 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  // out and pairs come from the wrapper's torch.empty (16-byte aligned);
-  // rows of out take 16-byte stores where out_cols % 4 == 0
+  // out and pairs come from the wrapper's torch.empty (16-byte aligned):
+  // a group of out takes one 16-byte store where out_cols % 4 == 0, its
+  // two pair sums one 8-byte store
 #pragma unroll
   for (int r = 0; r < TR; ++r) {
     const int row = row0 + r;
-    float* o = out + (size_t)row * out_cols + col0;
-    if (out_cols % 4 == 0 && col0 + TC <= out_cols) {
 #pragma unroll
-      for (int c = 0; c < TC; c += 4)
-        *reinterpret_cast<float4*>(o + c) = make_float4(
-            acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
-    } else {
+    for (int j = 0; j < G; ++j) {
+      const float4 a = make_float4(acc[r][4 * j], acc[r][4 * j + 1],
+                                   acc[r][4 * j + 2], acc[r][4 * j + 3]);
+      float* o = out + (size_t)row * out_cols + col[j];
+      if (out_cols % 4 == 0 && col[j] + 4 <= out_cols) {
+        *reinterpret_cast<float4*>(o) = a;
+      } else {
+        const float e[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int c = 0; c < TC; ++c)
-        if (col0 + c < out_cols) o[c] = acc[r][c];
+        for (int q = 0; q < 4; ++q)
+          if (col[j] + q < out_cols) o[q] = e[q];
+      }
+      *reinterpret_cast<float2*>(pairs + (size_t)row * (n / 2) + col[j] / 2) =
+          make_float2(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w));
     }
-    float* q = pairs + (size_t)row * (n / 2) + col0 / 2;
-#pragma unroll
-    for (int c = 0; c < TC; c += 8)
-      *reinterpret_cast<float4*>(q + c / 2) = make_float4(
-          __fadd_rn(acc[r][c], acc[r][c + 1]),
-          __fadd_rn(acc[r][c + 2], acc[r][c + 3]),
-          __fadd_rn(acc[r][c + 4], acc[r][c + 5]),
-          __fadd_rn(acc[r][c + 6], acc[r][c + 7]));
   }
 }
 
-// The FP32 route's tiles (rows x columns a thread, blocks per SM), by the
-// `tile` code of sweep_dot: 0 the default, 116 and 208 each by name.
-#define FP32_TILE_1x16 1, 16, 6
-#define FP32_TILE_2x8 2, 8, 8
+// The FP32 route's tiles (rows x columns a thread, split, blocks per SM),
+// by the `tile` code of sweep_dot: 0 the default.
+#define FP32_TILE_2x8 2, 8, 0, 8
+#define FP32_TILE_2x8s 2, 8, 1, 8
+#define FP32_TILE_1x16s 1, 16, 1, 1
 
-template <int TR, int TC, int MINB>
+template <int TR, int TC, int SPLIT, int MINB>
 static void launch_fp32(const float* x, const float* w, int m, int n,
                         int reps, float eps, int out_cols, float* out,
                         float* pairs, cudaStream_t s) {
   const int threads = (m / TR) * (n / TC);
-  dot_fp32_kernel<TR, TC, MINB>
+  dot_fp32_kernel<TR, TC, SPLIT, MINB>
       <<<(threads + DOT_THREADS - 1) / DOT_THREADS, DOT_THREADS, 0, s>>>(
           x, w, m, n, reps, eps, out_cols, out, pairs);
 }
@@ -576,7 +582,7 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
 }  // namespace
 
 // x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
-// (or 116, 208: 1 x 16, 2 x 8) takes the FP32 route (m % 2 == 0, n % 16 ==
+// (or 116, 208, 218: 1 x 16 split, 2 x 8, 2 x 8 split) takes the FP32 route (m % 2 == 0, n % 16 ==
 // 0), tile 64 or 96 the TF32 route with tiles of 64 rows x `tile` columns
 // (n % tile == 0).
 // Returns cudaGetLastError() after the launch.
@@ -587,13 +593,17 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
   const dim3 grid(tile ? n / tile : 0, (m + WG_ROWS - 1) / WG_ROWS);
   switch (tile) {
     case 0:
-    case 116:
-      launch_fp32<FP32_TILE_1x16>(x, w, m, n, reps, eps, out_cols, out, pairs,
+    case 218:
+      launch_fp32<FP32_TILE_2x8s>(x, w, m, n, reps, eps, out_cols, out, pairs,
                                   s);
       break;
     case 208:
       launch_fp32<FP32_TILE_2x8>(x, w, m, n, reps, eps, out_cols, out, pairs,
                                  s);
+      break;
+    case 116:
+      launch_fp32<FP32_TILE_1x16s>(x, w, m, n, reps, eps, out_cols, out,
+                                   pairs, s);
       break;
     case 64:
       dot_tf32_kernel<64><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
@@ -636,19 +646,20 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 
 // Registers per thread, resident blocks per SM and threads per block of
 // one probe kernel (0 dot_fp32, 1-2 dot_tf32 at tiles of 64 and 96
-// columns, 3 epilogue, 4 edgemat, 5-6 dot_fp32 at tiles of 1 x 16 and
-// 2 x 8), into out[0..2].  Returns a CUDA error code.
+// columns, 3 epilogue, 4 edgemat, 5-7 dot_fp32 at tiles 2 x 8, 2 x 8
+// split and 1 x 16 split), into out[0..2].  Returns a CUDA error code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
-  const void* fns[] = {(const void*)dot_fp32_kernel<FP32_TILE_1x16>,
+  const void* fns[] = {(const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
                        (const void*)epilogue_kernel,
                        (const void*)edgemat_kernel,
-                       (const void*)dot_fp32_kernel<FP32_TILE_1x16>,
-                       (const void*)dot_fp32_kernel<FP32_TILE_2x8>};
+                       (const void*)dot_fp32_kernel<FP32_TILE_2x8>,
+                       (const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
+                       (const void*)dot_fp32_kernel<FP32_TILE_1x16s>};
   const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
-                         EDGE_THREADS, DOT_THREADS, DOT_THREADS};
-  if (kernel < 0 || kernel > 6) return (int)cudaErrorInvalidValue;
+                         EDGE_THREADS, DOT_THREADS, DOT_THREADS, DOT_THREADS};
+  if (kernel < 0 || kernel > 7) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

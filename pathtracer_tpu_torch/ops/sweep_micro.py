@@ -53,10 +53,10 @@ EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
 DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
-FP32_TILE = (1, 16)  # rows x columns of a thread's fp32 tile (sweep_micro.cu)
-FP32_TILES = {(1, 16): 116, (2, 8): 208}   # sweep_dot's codes of the tiles
+FP32_TILE = (2, 8, 1)  # rows x columns of a thread's fp32 tile, split (sweep_micro.cu)
+FP32_TILES = {(2, 8, 0): 208, (2, 8, 1): 218, (1, 16, 1): 116}   # sweep_dot's codes
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
-           'edgemat', 'dot_fp32_1x16', 'dot_fp32_2x8')   # sweep_micro_info's order
+           'edgemat', 'dot_fp32_2x8_0', 'dot_fp32_2x8_1', 'dot_fp32_1x16_1')   # sweep_micro_info's order
 
 
 def rep_steps(reps: int, eps: float, dev) -> torch.Tensor:

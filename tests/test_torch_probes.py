@@ -8,8 +8,11 @@ scripts/tpu_proto_mxu.py, imported by path and left as they are) through
 runs the plain PyTorch versions (CPU tensors).  Tolerances:
   * products: on the CPU, JAX's DEFAULT and HIGHEST precision and the MXU
     and VPU kernels are all fp32, so each is held to the port's fp32 route
-    within 1e-6 of the largest |value| (XLA's CPU dot sums in its own
-    order);
+    within 1e-6 of the largest |value|; XLA's CPU dot over K = 8 is the
+    same FMA chain in k order as the port's, so the matmul kernel at both
+    precisions and the MXU kernel are also bit-equal to it (the VPU
+    kernel's unrolled sums are contracted otherwise: about 85% of its
+    elements are);
   * the TF32 plain version against a float64 product of the TF32-rounded
     operands: within 2^-20 of the absolute-value bound (fp32 accumulation
     of 16 products per element);
@@ -89,6 +92,8 @@ def test_matmul_matches_jax(tps, prof_inputs, monkeypatch, prec):
     out, pairs = sm.dot_fp32(torch.as_tensor(x['r']), torch.as_tensor(x['a']),
                              REPS, prof_sweep.EPS, prof_sweep.OUT_COLS)
     _close_to_max(out.numpy(), ref, 1e-6)
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  ref.view(np.int32))
     assert pairs.shape == (prof_sweep.BLOCK, prof_sweep.NS // 2)
 
 
@@ -148,6 +153,9 @@ def test_proto_mxu_matches_jax(tpm, monkeypatch, kernel):
     out, _ = sm.dot_fp32(torch.as_tensor(rays), torch.as_tensor(tris), REPS,
                          proto_mxu.EPS, proto_mxu.NS)
     _close_to_max(out.numpy(), ref, 1e-6)
+    if kernel == 'mxu_kernel':
+        np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                      ref.view(np.int32))
 
 
 def test_probe_entry_points(capsys, monkeypatch):
