@@ -72,7 +72,10 @@
    the same clamped inputs by check_hits (and timed there, in ps per
    pair, beside the main path's first round); and the fp32 product must
    take at least twice as long at 1536 columns as at 384, so the whole
-   product is computed.  Counters: each probe kernel's registers and
+   product is computed.  sweep_micro.fma_rn must give the same bits on
+   the card and on the CPU on prof_sweep.fma_cases (the double-rounding
+   cases that float64 rounding alone gets wrong among them), and the fp32
+   product's FMA must equal it (check_fma).  Counters: each probe kernel's registers and
    resident warps per SM; for the epilogue, the edge-matrix test and the
    ablation's `full`, the SASS instructions per ray x triangle pair of
    the pair loop (sass_loop, cuobjdump); for the TF32 product its tile
@@ -91,7 +94,9 @@
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
-is one instruction), or over the card's dense TF32 rate for the
+is one instruction, and the fp32 product's explicit FMAs, __fmaf_rn, are
+one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
+rate for the
 tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2 x the same
 clock), both printed after the card line.
 
@@ -1432,8 +1437,8 @@ def probe_phase(dev):
                             xx, ww, reps, eps, cols, t), 20, dev))
                 tiles = {}
                 for (tr, tc, sp) in sm.FP32_TILES:
-                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}ELi{sp}E',
-                                'I2F')
+                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}ELi1ELi'
+                                f'{sp}E', 'I2F')
                     tiles[f'{tr}x{tc}_{sp}'] = dict(occupancy(
                         sm.kernel_info()[f'dot_fp32_{tr}x{tc}_{sp}']),
                         sass=loop, sass_per_output=loop['per_marker']

@@ -118,27 +118,46 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
 // Thread g owns rows row0 .. row0 + TR - 1 and TC columns in TC / 4
 // groups of four: with SPLIT, group j at columns j * n / (TC / 4) + 4 t
 // (t = g % (n / TC)), so a warp's 16-byte stores of one group are
-// contiguous; without, columns t * TC .. t * TC + TC - 1.  MINB blocks per
+// contiguous; without, columns t * TC .. t * TC + TC - 1.  With SHARE a
+// warp computes the shifted rows r = x + i*eps of the row groups its
+// lanes cover once a rep, one value a lane, into shared memory (two
+// buffers, one __syncwarp a rep), and each lane reads its rows' r back 16
+// bytes at a time; without, each thread adds the shift to its own rows.
+// The grid has exactly (m / TR) * (n / TC) threads, a multiple of 64
+// under the wrapper's contract, so every warp is whole.  MINB blocks per
 // SM bound the registers (65,536 / (MINB * DOT_THREADS)).
-template <int TR, int TC, int SPLIT, int MINB>
+template <int TR, int TC, int SPLIT, int SHARE, int MINB>
 __global__ void __launch_bounds__(DOT_THREADS, MINB)
 dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
   constexpr int G = TC / 4;
+  // row groups a warp can meet: n >= 64 gives >= 64 / TC threads a group
+  constexpr int MAXG = 32 / (64 / TC) + 1;
+  constexpr int TAB = MAXG * TR * K;          // shifted values a warp needs
+  constexpr int NE = (TAB + 31) / 32;         // of them a lane computes
+  __shared__ __align__(16) float rtab[DOT_THREADS / 32][2][SHARE ? TAB : 4];
   const int ncg = n / TC;
   const int g = blockIdx.x * DOT_THREADS + threadIdx.x;
-  if (g >= (m / TR) * ncg) return;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int row0 = (g / ncg) * TR, t = g % ncg;
+  const int rg0 = (g - lane) / ncg;           // the warp's first row group
+  const int nval = ((g - lane + 31) / ncg - rg0 + 1) * TR * K;
   int col[G];
 #pragma unroll
   for (int j = 0; j < G; ++j)
     col[j] = SPLIT ? j * (n / G) + 4 * t : t * TC + 4 * j;
-  float xr[TR][K], wr[K][TC], acc[TR][TC];
+  float xr[SHARE ? NE : TR * K], wr[K][TC], acc[TR][TC];
+  if (SHARE) {
 #pragma unroll
-  for (int r = 0; r < TR; ++r)
+    for (int e = 0; e < NE; ++e) {
+      const int v = lane + 32 * e;   // row rg0 * TR + v / K, column v % K
+      xr[e] = v < nval ? x[rg0 * TR * K + v] : 0.f;
+    }
+  } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) xr[r][k] = x[(row0 + r) * K + k];
+    for (int v = 0; v < TR * K; ++v) xr[v] = x[row0 * K + v];
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -147,19 +166,46 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int r = 0; r < TR; ++r)
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[r][c] = 0.f;
+  const int mine = (row0 / TR - rg0) * TR * K;   // this lane's rows in rtab
 #pragma unroll 2
   for (int i = 0; i < reps; ++i) {
     const float step = __fmul_rn((float)i, eps);
+    float rr[TR][K];
+    if (SHARE) {
+      float* tab = rtab[wid][i & 1];
+      if (lane < nval) tab[lane] = __fadd_rn(xr[0], step);
+      if (nval > 32) {   // warp-uniform: only where n / TC < 32
+#pragma unroll
+        for (int e = 1; e < NE; ++e)
+          if (lane + 32 * e < nval)
+            tab[lane + 32 * e] = __fadd_rn(xr[e], step);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int k = 0; k < K; k += 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(tab + mine + r * K + k);
+          rr[r][k] = v.x;
+          rr[r][k + 1] = v.y;
+          rr[r][k + 2] = v.z;
+          rr[r][k + 3] = v.w;
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          rr[r][k] = __fadd_rn(xr[r * K + k], step);
+    }
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
-      float rr[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) rr[k] = __fadd_rn(xr[r][k], step);
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
-        float s = __fmul_rn(rr[0], wr[0][c]);
+        float s = __fmul_rn(rr[r][0], wr[0][c]);
 #pragma unroll
-        for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[k], wr[k][c], s);
+        for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[r][k], wr[k][c], s);
         acc[r][c] = __fadd_rn(acc[r][c], s);
       }
     }
@@ -189,20 +235,20 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The FP32 route's tiles (rows x columns a thread, split, blocks per SM),
-// by the `tile` code of sweep_dot: 0 the default.
-#define FP32_TILE_2x8 2, 8, 0, 8
-#define FP32_TILE_2x8s 2, 8, 1, 8
-#define FP32_TILE_1x16s 1, 16, 1, 1
+// The FP32 route's tiles (rows x columns a thread, split, shared shifts,
+// blocks per SM), by the `tile` code of sweep_dot: 0 the default.
+#define FP32_TILE_2x8s 2, 8, 1, 0, 8
+#define FP32_TILE_2x8w 2, 8, 1, 1, 8
+#define FP32_TILE_1x16w 1, 16, 1, 1, 6
 
-template <int TR, int TC, int SPLIT, int MINB>
+template <int TR, int TC, int SPLIT, int SHARE, int MINB>
 static void launch_fp32(const float* x, const float* w, int m, int n,
                         int reps, float eps, int out_cols, float* out,
                         float* pairs, cudaStream_t s) {
   const int threads = (m / TR) * (n / TC);
-  dot_fp32_kernel<TR, TC, SPLIT, MINB>
-      <<<(threads + DOT_THREADS - 1) / DOT_THREADS, DOT_THREADS, 0, s>>>(
-          x, w, m, n, reps, eps, out_cols, out, pairs);
+  dot_fp32_kernel<TR, TC, SPLIT, SHARE, MINB>
+      <<<threads / DOT_THREADS, DOT_THREADS, 0, s>>>(x, w, m, n, reps, eps,
+                                                     out_cols, out, pairs);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -582,7 +628,8 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
 }  // namespace
 
 // x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
-// (or 116, 208, 218: 1 x 16 split, 2 x 8, 2 x 8 split) takes the FP32 route (m % 2 == 0, n % 16 ==
+// (or 218, 228, 126: 2 x 8 split, 2 x 8 shared, 1 x 16 shared) takes the
+// FP32 route (m % 2 == 0, n % 16 ==
 // 0), tile 64 or 96 the TF32 route with tiles of 64 rows x `tile` columns
 // (n % tile == 0).
 // Returns cudaGetLastError() after the launch.
@@ -597,12 +644,12 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
       launch_fp32<FP32_TILE_2x8s>(x, w, m, n, reps, eps, out_cols, out, pairs,
                                   s);
       break;
-    case 208:
-      launch_fp32<FP32_TILE_2x8>(x, w, m, n, reps, eps, out_cols, out, pairs,
-                                 s);
+    case 228:
+      launch_fp32<FP32_TILE_2x8w>(x, w, m, n, reps, eps, out_cols, out, pairs,
+                                  s);
       break;
-    case 116:
-      launch_fp32<FP32_TILE_1x16s>(x, w, m, n, reps, eps, out_cols, out,
+    case 126:
+      launch_fp32<FP32_TILE_1x16w>(x, w, m, n, reps, eps, out_cols, out,
                                    pairs, s);
       break;
     case 64:
@@ -646,17 +693,17 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 
 // Registers per thread, resident blocks per SM and threads per block of
 // one probe kernel (0 dot_fp32, 1-2 dot_tf32 at tiles of 64 and 96
-// columns, 3 epilogue, 4 edgemat, 5-7 dot_fp32 at tiles 2 x 8, 2 x 8
-// split and 1 x 16 split), into out[0..2].  Returns a CUDA error code.
+// columns, 3 epilogue, 4 edgemat, 5-7 dot_fp32 at tiles 2 x 8 split,
+// 2 x 8 shared and 1 x 16 shared), into out[0..2].  Returns a CUDA error code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
   const void* fns[] = {(const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
                        (const void*)epilogue_kernel,
                        (const void*)edgemat_kernel,
-                       (const void*)dot_fp32_kernel<FP32_TILE_2x8>,
                        (const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
-                       (const void*)dot_fp32_kernel<FP32_TILE_1x16s>};
+                       (const void*)dot_fp32_kernel<FP32_TILE_2x8w>,
+                       (const void*)dot_fp32_kernel<FP32_TILE_1x16w>};
   const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
                          EDGE_THREADS, DOT_THREADS, DOT_THREADS, DOT_THREADS};
   if (kernel < 0 || kernel > 7) return (int)cudaErrorInvalidValue;

@@ -11,17 +11,20 @@ Each function has a plain PyTorch version (`*_plain`), which serves CPU
 tensors, and a wrapper that launches a hand-written CUDA kernel
 (csrc/sweep_micro.cu) on CUDA tensors or raises:
   * `dot_fp32` / `dot_tf32`: out = sum_{i < reps} (x + i*eps) @ w with x
-    (M, 8) and w (8, N), on the CUDA cores in strict fp32 (the
-    counterpart of Precision.HIGHEST and of the VPU kernel; bit-equal to
-    `dot_plain`) or on the tensor cores in TF32 (Precision.DEFAULT and the
-    MXU kernel, by wgmma in tiles of 64 rows x `dot_tile` columns;
-    `dot_plain(tf32=True)` rounds the operands to TF32 the same way and
-    sums in fp32, so the two agree within TF32_TOL of the absolute-value
-    bound, not bit for bit: the tensor core adds in its own order).  Both
-    return (out (M, out_cols), pairs (M, N / 2)): out is the TPU kernel's
-    output, its first out_cols columns; pairs holds the sums of adjacent
-    column pairs of the whole accumulator, which keeps every column of the
-    product live in the kernel.
+    (M, 8) and w (8, N).  `dot_plain` states the function: per rep r = x
+    + i*eps, s = r[:, 0] * w[0], s = fma(r[:, k], w[k], s) for k = 1..7
+    in order, each FMA rounded once (`fma_rn`), acc = acc + s, all fp32.
+    `dot_fp32` computes it on the CUDA cores, bit-equal to `dot_plain`
+    (the counterpart of Precision.HIGHEST and of the VPU kernel, whose
+    contracts fix no rounding order); `dot_tf32` on the tensor cores in
+    TF32 (Precision.DEFAULT and the MXU kernel, by wgmma in tiles of 64
+    rows x `dot_tile` columns; `dot_plain(tf32=True)` takes the same
+    chain over TF32-rounded operands, and the two agree within TF32_TOL
+    of the absolute-value bound, not bit for bit: the tensor core adds in
+    its own order).  Both return (out (M, out_cols), pairs (M, N / 2)):
+    out is the TPU kernel's output, its first out_cols columns; pairs
+    holds the sums of adjacent column pairs of the whole accumulator,
+    which keeps every column of the product live in the kernel.
   * `epilogue`: per rep the sweep's six-way split, t, beta, gamma,
     acceptance, first-index argmin and best-t update; (2, M) f32
     [tbest, tri].  Bit-equal to `epilogue_plain`, signed zeros included
@@ -53,8 +56,8 @@ EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
 DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
-FP32_TILE = (2, 8, 1)  # rows x columns of a thread's fp32 tile, split (sweep_micro.cu)
-FP32_TILES = {(2, 8, 0): 208, (2, 8, 1): 218, (1, 16, 1): 116}   # sweep_dot's codes
+FP32_TILE = (2, 8, 0)  # rows x columns of a thread's fp32 tile, shared (sweep_micro.cu)
+FP32_TILES = {(2, 8, 0): 218, (2, 8, 1): 228, (1, 16, 1): 126}   # sweep_dot's codes
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
            'edgemat', 'dot_fp32_2x8_0', 'dot_fp32_2x8_1', 'dot_fp32_1x16_1')   # sweep_micro_info's order
 
