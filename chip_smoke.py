@@ -75,11 +75,13 @@
    product is computed.  sweep_micro.fma_rn must give the same bits on
    the card and on the CPU on prof_sweep.fma_cases (the double-rounding
    cases that float64 rounding alone gets wrong among them), and the fp32
-   product's FMA must equal it (check_fma).  Counters: each probe kernel's registers and
-   resident warps per SM; for the epilogue, the edge-matrix test and the
-   ablation's `full`, the SASS instructions per ray x triangle pair of
-   the pair loop (sass_loop, cuobjdump); for the TF32 product its tile
-   width and count, its launch at every tile width that divides N
+   product's FMA must equal it (check_fma).  Counters: each probe
+   kernel's registers and resident warps per SM; for the epilogue, the
+   edge-matrix test and the ablation's `full`, the SASS instructions per
+   ray x triangle pair of the pair loop (sass_loop, cuobjdump); for the
+   fp32 product its tile, the SASS instructions of its rep loop per
+   output (one I2F a rep) and its launch of 0 reps; for the TF32 product
+   its tile width and count, its launch at every tile width that divides N
    (three alternated timings each, `tile_us`), the instructions of its
    rep loop per HGMMA (one wgmma a rep; the run fails if the loop has
    none), the tensor rate it reaches, and its launch of 0 reps beside a
@@ -96,9 +98,8 @@ rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
 is one instruction, and the fp32 product's explicit FMAs, __fmaf_rn, are
 one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
-rate for the
-tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2 x the same
-clock), both printed after the card line.
+rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
+x the same clock), both printed after the card line.
 
 Every failure raises.  The last three lines are the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
@@ -125,12 +126,13 @@ BIG_T = float(np.float32(1e30))
 # roofline of one H100 SXM: HBM3 bandwidth (NVIDIA data sheet).  The
 # operations bounds are read on the card: the fp32 issue rate of the
 # CUDA-core kernels (issue_rate; they are built with -fmad=false, so each
-# counted single-rounded operation is one instruction) and the dense TF32
+# counted single-rounded operation is one instruction, an FMA that a plain
+# version states too, as the fp32 product's, one FFMA) and the dense TF32
 # rate of the tensor cores (tf32_rate).
 PEAK_BYTES = 3.35e12
 TF32_MACS_PER_SM = 1024   # dense TF32 multiply-adds per SM and cycle
-# fp32 operations (products, sums, divides, min / max) per unit of work,
-# counted in the kernel sources
+# fp32 operations (products, sums, FMAs, divides, min / max) per unit of
+# work, counted in the kernel sources
 SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
 SLAB_OPS = 23           # one ray x box slab test
 TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
@@ -159,7 +161,8 @@ def card_line():
 def issue_rate():
     """(fp32 instructions per second, SMs, max SM clock in MHz) of card 0:
     SMs (torch) x 128 fp32 lanes x the maximum SM clock (nvidia-smi
-    clocks.max.sm).  No FMA: one counted operation per lane and cycle."""
+    clocks.max.sm): one counted operation, an FFMA included, per lane and
+    cycle."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
@@ -1423,29 +1426,13 @@ def probe_phase(dev):
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             else:
                 # one I2F ((float)i, the rep's shift) a rep and thread: the
-                # loop's instructions per rep, over a thread's outputs; each
-                # tile bit-equal, its launch timed, alternated
-                out_p = sm.dot_plain(xx, ww, reps, eps, cols)
-                tile_us = {t: [] for t in sm.FP32_TILES}
-                for t in sm.FP32_TILES:
-                    if not same_bits(kern(xx, ww, reps, eps, cols, t), out_p):
-                        raise AssertionError(f'fp32 product at tile {t} '
-                                             f'differs from dot_plain')
-                for _ in range(3):
-                    for t in sm.FP32_TILES:
-                        tile_us[t].append(time_us(lambda t=t: kern(
-                            xx, ww, reps, eps, cols, t), 20, dev))
-                tiles = {}
-                for (tr, tc, sp) in sm.FP32_TILES:
-                    loop = sass(lib, f'dot_fp32_kernelILi{tr}ELi{tc}ELi1ELi'
-                                f'{sp}E', 'I2F')
-                    tiles[f'{tr}x{tc}_{sp}'] = dict(occupancy(
-                        sm.kernel_info()[f'dot_fp32_{tr}x{tc}_{sp}']),
-                        sass=loop, sass_per_output=loop['per_marker']
-                        / (tr * tc), us=tile_us[(tr, tc, sp)])
+                # loop's instructions per rep, over a thread's outputs
+                loop = sass(lib, 'dot_fp32_kernel', 'I2F')
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()['dot_fp32']),
-                    tile=sm.FP32_TILE, tiles=tiles,
+                    tile=sm.FP32_TILE, sass=loop,
+                    sass_per_output=loop['per_marker'] / (
+                        sm.FP32_TILE[0] * sm.FP32_TILE[1]),
                     launch_floor_us=floor_us, zero_reps_us=fixed_us,
                     loop_us_per_rep=(ms * 1e3 - fixed_us) / reps)
             recs.append(rec)

@@ -20,10 +20,15 @@
 //     two agree bit for bit.  Bound: fp32 instruction issue, 9 instructions
 //     per output per rep (FMUL, seven FFMA, FADD) and 8 per row (the
 //     shifts).  acc is summed in rep order, so the reps stay in one
-//     thread and the parallelism is the outputs': one thread per TR x TC
+//     thread and the parallelism is the outputs': one thread per 2 x 8
 //     tile, its x rows, w columns and accumulators in registers for the
-//     whole launch; a thread's shifts are TR x 8 FADDs a rep for TR x TC
-//     outputs, 8 / (9 TC) of the counted work.
+//     whole launch (128 registers, 16 warps per SM), 16 shift FADDs a rep
+//     beside 144 counted instructions.  Measured against it (PERF.md,
+//     section 6): a 1 x 16 tile, 8 shift FADDs, needs over 168 registers
+//     to overlap its chains (ptxas serializes them at 12 warps per SM) and
+//     then leaves 8 warps per SM, too few for the 11.6 per SM of the
+//     768-column probe; shifts shared by a warp through shared memory cost
+//     more instructions than they saved.
 //   * TF32 route (the counterpart of Precision.DEFAULT and of the MXU
 //     kernel): one warpgroup per 64 x NT output tile, NT = 96 where it
 //     divides N, else 64 (ops/sweep_micro.dot_tile, PERF.md section 6).  w's
@@ -82,6 +87,7 @@ constexpr float BIG_T = 1e30f;
 constexpr int SUBT = 256;         // triangles per subtile
 constexpr unsigned long long NONE = ~0ull;
 
+constexpr int TR = 2, TC = 8;     // FP32 route: rows x columns a thread
 constexpr int DOT_THREADS = 64;   // FP32 route: threads per block
 constexpr int WG_ROWS = 64;       // TF32 route: rows of a tile (wgmma's M)
 constexpr int WG_THREADS = 128;   // one warpgroup
@@ -115,49 +121,25 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return b < a ? b : a;
 }
 
-// Thread g owns rows row0 .. row0 + TR - 1 and TC columns in TC / 4
-// groups of four: with SPLIT, group j at columns j * n / (TC / 4) + 4 t
-// (t = g % (n / TC)), so a warp's 16-byte stores of one group are
-// contiguous; without, columns t * TC .. t * TC + TC - 1.  With SHARE a
-// warp computes the shifted rows r = x + i*eps of the row groups its
-// lanes cover once a rep, one value a lane, into shared memory (two
-// buffers, one __syncwarp a rep), and each lane reads its rows' r back 16
-// bytes at a time; without, each thread adds the shift to its own rows.
-// The grid has exactly (m / TR) * (n / TC) threads, a multiple of 64
-// under the wrapper's contract, so every warp is whole.  MINB blocks per
-// SM bound the registers (65,536 / (MINB * DOT_THREADS)).
-template <int TR, int TC, int SPLIT, int SHARE, int MINB>
-__global__ void __launch_bounds__(DOT_THREADS, MINB)
+// Thread g owns rows row0, row0 + 1 and eight columns in two groups of
+// four, N / 2 apart: columns 4t .. 4t + 3 and N / 2 + 4t .. N / 2 + 4t + 3
+// (t = g % (n / 8)), so a warp's 16-byte stores of one group are
+// contiguous.  The grid has exactly (m / 2) * (n / 8) threads, a multiple
+// of 64 under the wrapper's contract.  __launch_bounds__ holds the
+// registers to 128, which keeps 16 warps per SM (8 blocks of 64).
+__global__ void __launch_bounds__(DOT_THREADS, 8)
 dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 int m, int n, int reps, float eps, int out_cols,
                 float* __restrict__ out, float* __restrict__ pairs) {
-  constexpr int G = TC / 4;
-  // row groups a warp can meet: n >= 64 gives >= 64 / TC threads a group
-  constexpr int MAXG = 32 / (64 / TC) + 1;
-  constexpr int TAB = MAXG * TR * K;          // shifted values a warp needs
-  constexpr int NE = (TAB + 31) / 32;         // of them a lane computes
-  __shared__ __align__(16) float rtab[DOT_THREADS / 32][2][SHARE ? TAB : 4];
   const int ncg = n / TC;
   const int g = blockIdx.x * DOT_THREADS + threadIdx.x;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int row0 = (g / ncg) * TR, t = g % ncg;
-  const int rg0 = (g - lane) / ncg;           // the warp's first row group
-  const int nval = ((g - lane + 31) / ncg - rg0 + 1) * TR * K;
-  int col[G];
+  const int col[2] = {4 * t, n / 2 + 4 * t};
+  float xr[TR][K], wr[K][TC], acc[TR][TC];
 #pragma unroll
-  for (int j = 0; j < G; ++j)
-    col[j] = SPLIT ? j * (n / G) + 4 * t : t * TC + 4 * j;
-  float xr[SHARE ? NE : TR * K], wr[K][TC], acc[TR][TC];
-  if (SHARE) {
+  for (int r = 0; r < TR; ++r)
 #pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      const int v = lane + 32 * e;   // row rg0 * TR + v / K, column v % K
-      xr[e] = v < nval ? x[rg0 * TR * K + v] : 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < TR * K; ++v) xr[v] = x[row0 * K + v];
-  }
+    for (int k = 0; k < K; ++k) xr[r][k] = x[(row0 + r) * K + k];
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
@@ -166,46 +148,19 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int r = 0; r < TR; ++r)
 #pragma unroll
     for (int c = 0; c < TC; ++c) acc[r][c] = 0.f;
-  const int mine = (row0 / TR - rg0) * TR * K;   // this lane's rows in rtab
 #pragma unroll 2
   for (int i = 0; i < reps; ++i) {
     const float step = __fmul_rn((float)i, eps);
-    float rr[TR][K];
-    if (SHARE) {
-      float* tab = rtab[wid][i & 1];
-      if (lane < nval) tab[lane] = __fadd_rn(xr[0], step);
-      if (nval > 32) {   // warp-uniform: only where n / TC < 32
-#pragma unroll
-        for (int e = 1; e < NE; ++e)
-          if (lane + 32 * e < nval)
-            tab[lane + 32 * e] = __fadd_rn(xr[e], step);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int k = 0; k < K; k += 4) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(tab + mine + r * K + k);
-          rr[r][k] = v.x;
-          rr[r][k + 1] = v.y;
-          rr[r][k + 2] = v.z;
-          rr[r][k + 3] = v.w;
-        }
-    } else {
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          rr[r][k] = __fadd_rn(xr[r * K + k], step);
-    }
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
+      float rr[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) rr[k] = __fadd_rn(xr[r][k], step);
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
-        float s = __fmul_rn(rr[r][0], wr[0][c]);
+        float s = __fmul_rn(rr[0], wr[0][c]);
 #pragma unroll
-        for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[r][k], wr[k][c], s);
+        for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[k], wr[k][c], s);
         acc[r][c] = __fadd_rn(acc[r][c], s);
       }
     }
@@ -217,7 +172,7 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int r = 0; r < TR; ++r) {
     const int row = row0 + r;
 #pragma unroll
-    for (int j = 0; j < G; ++j) {
+    for (int j = 0; j < 2; ++j) {
       const float4 a = make_float4(acc[r][4 * j], acc[r][4 * j + 1],
                                    acc[r][4 * j + 2], acc[r][4 * j + 3]);
       float* o = out + (size_t)row * out_cols + col[j];
@@ -233,22 +188,6 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
           make_float2(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w));
     }
   }
-}
-
-// The FP32 route's tiles (rows x columns a thread, split, shared shifts,
-// blocks per SM), by the `tile` code of sweep_dot: 0 the default.
-#define FP32_TILE_2x8s 2, 8, 1, 0, 8
-#define FP32_TILE_2x8w 2, 8, 1, 1, 8
-#define FP32_TILE_1x16w 1, 16, 1, 1, 6
-
-template <int TR, int TC, int SPLIT, int SHARE, int MINB>
-static void launch_fp32(const float* x, const float* w, int m, int n,
-                        int reps, float eps, int out_cols, float* out,
-                        float* pairs, cudaStream_t s) {
-  const int threads = (m / TR) * (n / TC);
-  dot_fp32_kernel<TR, TC, SPLIT, SHARE, MINB>
-      <<<threads / DOT_THREADS, DOT_THREADS, 0, s>>>(x, w, m, n, reps, eps,
-                                                     out_cols, out, pairs);
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -628,10 +567,9 @@ __global__ void edgemat_finish(const unsigned long long* __restrict__ partial,
 }  // namespace
 
 // x (m, 8), w (8, n) f32; out (m, out_cols), pairs (m, n / 2).  tile 0
-// (or 218, 228, 126: 2 x 8 split, 2 x 8 shared, 1 x 16 shared) takes the
-// FP32 route (m % 2 == 0, n % 16 ==
-// 0), tile 64 or 96 the TF32 route with tiles of 64 rows x `tile` columns
-// (n % tile == 0).
+// takes the FP32 route (m % 16 == 0, n % 64 == 0: whole blocks of 64
+// threads), tile 64 or 96 the TF32 route with tiles of 64 rows x `tile`
+// columns (n % tile == 0).
 // Returns cudaGetLastError() after the launch.
 extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
                          int reps, float eps, int out_cols, int tile,
@@ -640,17 +578,8 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
   const dim3 grid(tile ? n / tile : 0, (m + WG_ROWS - 1) / WG_ROWS);
   switch (tile) {
     case 0:
-    case 218:
-      launch_fp32<FP32_TILE_2x8s>(x, w, m, n, reps, eps, out_cols, out, pairs,
-                                  s);
-      break;
-    case 228:
-      launch_fp32<FP32_TILE_2x8w>(x, w, m, n, reps, eps, out_cols, out, pairs,
-                                  s);
-      break;
-    case 126:
-      launch_fp32<FP32_TILE_1x16w>(x, w, m, n, reps, eps, out_cols, out,
-                                   pairs, s);
+      dot_fp32_kernel<<<(m / TR) * (n / TC) / DOT_THREADS, DOT_THREADS, 0,
+                        s>>>(x, w, m, n, reps, eps, out_cols, out, pairs);
       break;
     case 64:
       dot_tf32_kernel<64><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
@@ -693,20 +622,17 @@ extern "C" int sweep_edgemat(const float* o, const float* d, const float* tr,
 
 // Registers per thread, resident blocks per SM and threads per block of
 // one probe kernel (0 dot_fp32, 1-2 dot_tf32 at tiles of 64 and 96
-// columns, 3 epilogue, 4 edgemat, 5-7 dot_fp32 at tiles 2 x 8 split,
-// 2 x 8 shared and 1 x 16 shared), into out[0..2].  Returns a CUDA error code.
+// columns, 3 epilogue, 4 edgemat), into out[0..2].  Returns a CUDA error
+// code.
 extern "C" int sweep_micro_info(int kernel, int* out) {
-  const void* fns[] = {(const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
+  const void* fns[] = {(const void*)dot_fp32_kernel,
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
                        (const void*)epilogue_kernel,
-                       (const void*)edgemat_kernel,
-                       (const void*)dot_fp32_kernel<FP32_TILE_2x8s>,
-                       (const void*)dot_fp32_kernel<FP32_TILE_2x8w>,
-                       (const void*)dot_fp32_kernel<FP32_TILE_1x16w>};
+                       (const void*)edgemat_kernel};
   const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
-                         EDGE_THREADS, DOT_THREADS, DOT_THREADS, DOT_THREADS};
-  if (kernel < 0 || kernel > 7) return (int)cudaErrorInvalidValue;
+                         EDGE_THREADS};
+  if (kernel < 0 || kernel > 4) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

@@ -56,10 +56,9 @@ EDGE_RAYS = 8     # rays per block of the edge-matrix kernel (sweep_micro.cu)
 MAX_REPS = 1 << 22   # rep * SUBT + tri must fit the kernels' 31-bit key
 DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
-FP32_TILE = (2, 8, 0)  # rows x columns of a thread's fp32 tile, shared (sweep_micro.cu)
-FP32_TILES = {(2, 8, 0): 218, (2, 8, 1): 228, (1, 16, 1): 126}   # sweep_dot's codes
+FP32_TILE = (2, 8)   # rows x columns of a thread's fp32 tile (sweep_micro.cu)
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
-           'edgemat', 'dot_fp32_2x8_0', 'dot_fp32_2x8_1', 'dot_fp32_1x16_1')   # sweep_micro_info's order
+           'edgemat')   # sweep_micro_info's order
 
 
 def rep_steps(reps: int, eps: float, dev) -> torch.Tensor:
@@ -108,8 +107,9 @@ def dot_plain(x, w, reps: int, eps: float, out_cols: int, tf32=False):
     x + i*eps in fp32, s = r[:, 0] * w[0] rounded, then s = fma(r[:, k],
     w[k], s) for k = 1..7 in order, each rounded once (fma_rn), and acc =
     acc + s in fp32 in rep order.  With tf32, r and w are rounded to TF32
-    first (their products are then exact in fp32, so the chain rounds as
-    the unfused one would).  Returns (out (M, out_cols), pairs (M, N / 2))."""
+    first (their products are then exact in fp32 above the subnormal
+    range, so there the chain rounds as the unfused one would).  Returns
+    (out (M, out_cols), pairs (M, N / 2))."""
     steps = rep_steps(reps, eps, x.device)
     if tf32:
         w = round_tf32(w)
@@ -270,7 +270,7 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
         raise ValueError(f'{name} needs M % 16 == 0, N % 64 == 0 and '
                          f'0 < out_cols <= N')
     if not tf32:
-        tile = 0 if tile is None else FP32_TILES[tile]
+        tile = 0
     elif tile is None:
         tile = dot_tile(n)
     elif tile not in DOT_TILES or n % tile:
@@ -285,14 +285,13 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
     return out, pairs
 
 
-def dot_fp32(x, w, reps: int, eps: float, out_cols: int, tile=None):
+def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
     """sum_{i < reps} (x + i*eps) @ w in fp32, as dot_plain states it (an
     FMA chain in k order per rep).  CPU tensors take dot_plain; CUDA
     tensors launch the hand-written kernel (replaces the TPU kernels
-    tpu_prof_sweep.matmul_kernel(HIGHEST) and tpu_proto_mxu.vpu_kernel),
-    with a thread's tile `tile` of FP32_TILES (default FP32_TILE), or
+    tpu_prof_sweep.matmul_kernel(HIGHEST) and tpu_proto_mxu.vpu_kernel) or
     raise."""
-    out = _dot(x, w, reps, eps, out_cols, False, tile)
+    out = _dot(x, w, reps, eps, out_cols, False)
     if x.device.type == 'cuda':
         dot_fp32.launches += 1
     return out

@@ -7,8 +7,9 @@ Counterpart of scripts/tpu_prof_sweep.py.  Times, per (1024 x 256)
 subtile, each kernel running `reps` iterations of one subtile so that the
 launch amortizes (the time of a launch divided by reps):
   * the (1024, 8) x (8, 6*256) product in TF32 on the tensor cores (the
-    counterpart of Precision.DEFAULT) and in strict fp32 on the CUDA cores
-    (Precision.HIGHEST); as the library's yardstick, the one torch.matmul
+    counterpart of Precision.DEFAULT) and in fp32 on the CUDA cores, an
+    FMA chain in k order per rep (Precision.HIGHEST); as the library's
+    yardstick, the one torch.matmul
     that computes a launch's sum (scripts.matmul_same_us, microseconds per
     launch), TF32 off and on, and beside it torch.matmul of one product;
   * the epilogue alone (t / beta / gamma, acceptance, winner extraction);
@@ -75,16 +76,14 @@ def signed_zero_inputs(dev, m: int, reps: int, eps: float = EPS,
             torch.full((1, m), -1.0, device=dev))
 
 
-def fma_cases(n_random: int = 4096, seed: int = 7):
-    """float32 triples (a, b, c) that check an fp32 FMA, on the CPU:
-      * the 6,224 double-rounding cases a = f32(1 + i 2^-23) 2^-12, b =
-        f32(1 / (1 + i 2^-23)) 2^-12, c = 1 for i < 200,000 where a * b =
-        2^-24 (1 + t), 0 < t < 2^-29 (a = A 2^-35, b = B 2^-36, 0 < A B -
-        2^47 < 2^18): the exact sum lies just above the midpoint 1 + 2^-24,
-        and rounding its float64 sum to float32 rounds down;
-      * n_random normal triples, as many with c cancelling the rounded a *
-        b to a few ulps, and as many with subnormal results;
-      * signed zeros and overflow to +-inf."""
+def double_rounding_cases():
+    """float32 triples (a, b, c), numpy, whose fp32 FMA the float64 sum
+    rounded straight to float32 gets wrong: a = f32(1 + i 2^-23) 2^-12, b =
+    f32(1 / (1 + i 2^-23)) 2^-12, c = 1 for the i < 200,000 where a * b =
+    2^-24 (1 + t), 0 < t < 2^-29 (a = A 2^-35, b = B 2^-36, 0 < A B - 2^47
+    < 2^18; 6,224 of them).  The exact sum lies just above the midpoint 1 +
+    2^-24 and rounds up; its float64 sum is the midpoint and rounds to
+    even, down."""
     i = np.arange(200_000)
     one = np.float32(1) + i.astype(np.float32) * np.float32(2.0 ** -23)
     a = one * np.float32(2.0 ** -12)
@@ -92,7 +91,15 @@ def fma_cases(n_random: int = 4096, seed: int = 7):
     ab = ((a.astype(np.float64) * 2.0 ** 35).astype(np.int64)
           * (b.astype(np.float64) * 2.0 ** 36).astype(np.int64) - 2 ** 47)
     keep = (ab > 0) & (ab < 2 ** 18)
-    parts = [(a[keep], b[keep], np.ones(int(keep.sum()), np.float32))]
+    return a[keep], b[keep], np.ones(int(keep.sum()), np.float32)
+
+
+def fma_cases(n_random: int = 4096, seed: int = 7):
+    """float32 tensors (a, b, c) on the CPU that check an fp32 FMA: the
+    double_rounding_cases, then n_random normal triples, as many with c
+    cancelling the rounded a * b to a few ulps, as many with subnormal
+    results, and last signed zeros and overflow to +-inf."""
+    parts = [double_rounding_cases()]
     rng = np.random.default_rng(seed)
 
     def normal(scale=1.0):
@@ -114,11 +121,12 @@ def fma_cases(n_random: int = 4096, seed: int = 7):
 
 
 def fma_dot_inputs(a, b, c):
-    """(x (64, 8), w (8, 64)) whose fp32 product over one rep at eps = -1
-    (a shift of -0.0, which leaves every r = x bit for bit) has out[j, j]
-    = fma(a[j], b[j], c[j]) + 0.0 for j < 64 (acc starts at +0.0): x[j] =
-    (c[j], a[j], 0, ...), w[0] = 1, w[1] = b, w[2:] = -0.0, so s = c[j],
-    then the FMA, then six FMAs that add -0.0."""
+    """For a, b, c of 64 float32 values: (x (64, 8), w (8, 64)) whose fp32
+    product over one rep at eps = -1 (a shift of -0.0, which leaves every
+    r = x bit for bit) has out[j, j] = fma(a[j], b[j], c[j]) + 0.0 (acc
+    starts at +0.0): x[j] = (c[j], a[j], 0, ...), w[0] = 1, w[1] = b,
+    w[2:] = -0.0, so s = c[j], then the FMA, then six FMAs that add
+    -0.0."""
     n = a.shape[0]
     x = torch.zeros((n, AR), device=a.device)
     x[:, 0], x[:, 1] = c, a

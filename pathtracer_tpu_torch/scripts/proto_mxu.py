@@ -6,10 +6,11 @@ product on the card.
 
 Counterpart of scripts/tpu_proto_mxu.py (MXU `jnp.dot` against the
 unrolled VPU form): out (1024, 768) = sum_{i < reps} (rays + i*1e-7) @
-tris, once through TF32 wgmma on the tensor cores and once in strict
-fp32 on the CUDA cores.  The library's yardstick, TF32 off and on, is the
-one torch.matmul that computes a launch's sum (scripts.matmul_same_us),
-and beside it torch.matmul of one product.  Prints microseconds per
+tris, once through TF32 wgmma on the tensor cores and once in fp32 on
+the CUDA cores, an FMA chain in k order per rep.  The library's
+yardstick, TF32 off and on, is the one torch.matmul that computes a
+launch's sum (scripts.matmul_same_us), and beside it torch.matmul of one
+product.  Prints microseconds per
 product and the rate, then the largest difference between the two routes.
 """
 

@@ -25,6 +25,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from pathtracer_tpu_torch.ops import sweep_micro as sm
+from pathtracer_tpu_torch.scripts import prof_sweep
 from test_torch_cluster import one_torch_thread  # noqa: F401
 
 F32_MAX = float(np.finfo(np.float32).max)
@@ -80,23 +81,8 @@ def _check(a, b, c):
     return want, once
 
 
-def built_cases():
-    """(a, b, c) with a = fp32(1 + i 2^-23) 2^-12, b = fp32(1 / (1 + i
-    2^-23)) 2^-12 for i < 200,000, kept where a * b = 2^-24 (1 + t), 0 < t <
-    2^-29, and c = 1: in integers a = A 2^-35, b = B 2^-36, and 0 < A B -
-    2^47 < 2^18."""
-    i = np.arange(200_000)
-    one = (np.float32(1) + i.astype(np.float32) * np.float32(2.0 ** -23))
-    a = one * np.float32(2.0 ** -12)
-    b = (np.float32(1) / one) * np.float32(2.0 ** -12)
-    ab = ((a.astype(np.float64) * 2.0 ** 35).astype(np.int64)
-          * (b.astype(np.float64) * 2.0 ** 36).astype(np.int64) - 2 ** 47)
-    keep = (ab > 0) & (ab < 2 ** 18)
-    return a[keep], b[keep], np.ones(int(keep.sum()), np.float32)
-
-
 def test_fma_rn_on_built_double_rounding_cases(one_torch_thread):
-    a, b, c = built_cases()
+    a, b, c = prof_sweep.double_rounding_cases()
     assert len(a) == 6224
     want, once = _check(a, b, c)
     # the exact sum lies above the midpoint: it rounds up, and the float64

@@ -544,12 +544,11 @@ def test_dot_matches_plain(cuda, route, out_cols):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('tile', list(sm.FP32_TILES))
 @pytest.mark.parametrize('m,n,reps,eps,cols,scale', [
     (1024, 1536, 256, 1e-9, 128, 1.0), (1024, 768, 64, 1e-7, 768, 1.0),
     (16, 64, 1, 1e-3, 64, 1.0), (16, 64, 0, 1e-3, 60, 1.0),
     (208, 576, 1, 1e-3, 570, 1.0), (64, 128, 5, 2.0 ** -80, 128, 2.0 ** -66)])
-def test_dot_fp32_matches_plain(cuda, tile, m, n, reps, eps, cols, scale):
+def test_dot_fp32_matches_plain(cuda, m, n, reps, eps, cols, scale):
     """The FMA-chain kernel bit-equal to dot_plain (out and pairs, signed
     zeros included): at both scripts' shapes, the smallest M and N of the
     contract (M % 16 == 0, N % 64 == 0), 0 and 1 reps, out_cols not a
@@ -557,7 +556,7 @@ def test_dot_fp32_matches_plain(cuda, tile, m, n, reps, eps, cols, scale):
     x, w = _probe_inputs(cuda, m, n, seed=28)
     x, w = x * scale, w * scale
     before = sm.dot_fp32.launches
-    out_k = sm.dot_fp32(x, w, reps, eps, cols, tile)
+    out_k = sm.dot_fp32(x, w, reps, eps, cols)
     assert sm.dot_fp32.launches == before + 1
     out_p = sm.dot_plain(x, w, reps, eps, cols)
     assert _same_bits(out_k[0], out_p[0]) and _same_bits(out_k[1], out_p[1])
