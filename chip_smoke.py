@@ -1427,7 +1427,7 @@ def probe_phase(dev):
             else:
                 # one I2F ((float)i, the rep's shift) a rep and thread: the
                 # loop's instructions per rep, over a thread's outputs
-                loop = sass(lib, 'dot_fp32_kernelEv', 'I2F')
+                loop = sass(lib, 'dot_fp32_kernel', 'I2F')
                 trial = sass(lib, 'dot_fp32_x16_kernel', 'I2F')
                 out_p = sm.dot_plain(xx, ww, reps, eps, cols)
                 if not same_bits(kern(xx, ww, reps, eps, cols, 116), out_p):
