@@ -1428,18 +1428,6 @@ def probe_phase(dev):
                 # one I2F ((float)i, the rep's shift) a rep and thread: the
                 # loop's instructions per rep, over a thread's outputs
                 loop = sass(lib, 'dot_fp32_kernel', 'I2F')
-                trial = sass(lib, 'dot_fp32_x16_kernel', 'I2F')
-                out_p = sm.dot_plain(xx, ww, reps, eps, cols)
-                if not same_bits(kern(xx, ww, reps, eps, cols, 116), out_p):
-                    raise AssertionError('1 x 16 trial differs')
-                tile_us = {0: [], 116: []}
-                for _ in range(3):
-                    for t in tile_us:
-                        tile_us[t].append(time_us(lambda t=t: kern(
-                            xx, ww, reps, eps, cols, t), 20, dev))
-                rec['trial'] = dict(
-                    occupancy(sm.kernel_info()['dot_fp32_x16']), sass=trial,
-                    sass_per_output=trial['per_marker'] / 16, us=tile_us)
                 rec['counters'] = dict(
                     occupancy(sm.kernel_info()['dot_fp32']),
                     tile=sm.FP32_TILE, sass=loop,

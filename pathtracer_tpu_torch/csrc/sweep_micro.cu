@@ -190,68 +190,6 @@ dot_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Trial: one thread per 1 x 16 tile in four groups of four, N / 4 apart;
-// x is read again each rep (ld.global.nc, volatile so that it is not
-// hoisted into registers), which leaves room under 168 registers (12
-// warps per SM) for overlapped chains.
-__global__ void __launch_bounds__(DOT_THREADS, 6)
-dot_fp32_x16_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    int m, int n, int reps, float eps, int out_cols,
-                    float* __restrict__ out, float* __restrict__ pairs) {
-  constexpr int C = 16;
-  const int ncg = n / C;
-  const int g = blockIdx.x * DOT_THREADS + threadIdx.x;
-  const int row = g / ncg, t = g % ncg;
-  int col[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) col[j] = j * (n / 4) + 4 * t;
-  float wr[K][C], acc[C];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int c = 0; c < C; ++c) wr[k][c] = w[k * n + col[c / 4] + c % 4];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  const float* xp = x + row * K;
-#pragma unroll 2
-  for (int i = 0; i < reps; ++i) {
-    const float step = __fmul_rn((float)i, eps);
-    float v[K];
-    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
-                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
-                 : "l"(xp));
-    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
-                 : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
-                 : "l"(xp + 4));
-    float rr[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) rr[k] = __fadd_rn(v[k], step);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float s = __fmul_rn(rr[0], wr[0][c]);
-#pragma unroll
-      for (int k = 1; k < K; ++k) s = __fmaf_rn(rr[k], wr[k][c], s);
-      acc[c] = __fadd_rn(acc[c], s);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 a = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
-                                 acc[4 * j + 3]);
-    float* o = out + (size_t)row * out_cols + col[j];
-    if (out_cols % 4 == 0 && col[j] + 4 <= out_cols) {
-      *reinterpret_cast<float4*>(o) = a;
-    } else {
-      const float e[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (col[j] + q < out_cols) o[q] = e[q];
-    }
-    *reinterpret_cast<float2*>(pairs + (size_t)row * (n / 2) + col[j] / 2) =
-        make_float2(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w));
-  }
-}
-
 __device__ __forceinline__ uint32_t to_tf32(float f) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
@@ -643,10 +581,6 @@ extern "C" int sweep_dot(const float* x, const float* w, int m, int n,
       dot_fp32_kernel<<<(m / TR) * (n / TC) / DOT_THREADS, DOT_THREADS, 0,
                         s>>>(x, w, m, n, reps, eps, out_cols, out, pairs);
       break;
-    case 116:
-      dot_fp32_x16_kernel<<<m * (n / 16) / DOT_THREADS, DOT_THREADS, 0, s>>>(
-          x, w, m, n, reps, eps, out_cols, out, pairs);
-      break;
     case 64:
       dot_tf32_kernel<64><<<grid, WG_THREADS, 0, s>>>(x, w, m, n, reps, eps,
                                                       out_cols, out, pairs);
@@ -695,11 +629,10 @@ extern "C" int sweep_micro_info(int kernel, int* out) {
                        (const void*)dot_tf32_kernel<64>,
                        (const void*)dot_tf32_kernel<96>,
                        (const void*)epilogue_kernel,
-                       (const void*)edgemat_kernel,
-                       (const void*)dot_fp32_x16_kernel};
+                       (const void*)edgemat_kernel};
   const int threads[] = {DOT_THREADS, WG_THREADS, WG_THREADS, EPI_THREADS,
-                         EDGE_THREADS, DOT_THREADS};
-  if (kernel < 0 || kernel > 5) return (int)cudaErrorInvalidValue;
+                         EDGE_THREADS};
+  if (kernel < 0 || kernel > 4) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fns[kernel]);
   if (e != cudaSuccess) return (int)e;

@@ -58,7 +58,7 @@ DOT_TILES = (64, 96)   # the TF32 kernel's tile widths (sweep_micro.cu)
 WG_ROWS = 64      # rows of a TF32 tile, one warpgroup's wgmma
 FP32_TILE = (2, 8)   # rows x columns of a thread's fp32 tile (sweep_micro.cu)
 KERNELS = ('dot_fp32', 'dot_tf32_64', 'dot_tf32_96', 'epilogue',
-           'edgemat', 'dot_fp32_x16')   # sweep_micro_info's order
+           'edgemat')   # sweep_micro_info's order
 
 
 def rep_steps(reps: int, eps: float, dev) -> torch.Tensor:
@@ -270,7 +270,7 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
         raise ValueError(f'{name} needs M % 16 == 0, N % 64 == 0 and '
                          f'0 < out_cols <= N')
     if not tf32:
-        tile = 0 if tile is None else tile
+        tile = 0
     elif tile is None:
         tile = dot_tile(n)
     elif tile not in DOT_TILES or n % tile:
@@ -285,13 +285,13 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
     return out, pairs
 
 
-def dot_fp32(x, w, reps: int, eps: float, out_cols: int, tile=None):
+def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
     """sum_{i < reps} (x + i*eps) @ w in fp32, as dot_plain states it (an
     FMA chain in k order per rep).  CPU tensors take dot_plain; CUDA
     tensors launch the hand-written kernel (replaces the TPU kernels
     tpu_prof_sweep.matmul_kernel(HIGHEST) and tpu_proto_mxu.vpu_kernel) or
     raise."""
-    out = _dot(x, w, reps, eps, out_cols, False, tile)
+    out = _dot(x, w, reps, eps, out_cols, False)
     if x.device.type == 'cuda':
         dot_fp32.launches += 1
     return out
