@@ -8,7 +8,9 @@ Imports no JAX, so it runs on a machine with only PyTorch:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Without a CUDA device every test skips.  The kernels round every product
-and sum on their own in the plain versions' order, so the sweeps and the
+and sum on their own in the plain versions' order (the fp32 probe
+product's FMAs each once, as sweep_micro.fma_rn states them, the same
+bits on the card as on the CPU), so the sweeps and the
 tree cull must agree with their plain versions exactly: same t, same tri,
 same occlusion, the same per-unit sweep counters at each lane group
 size, the same tree cull ids, counts, keys and per-packet counters.  The
