@@ -93,6 +93,35 @@
    yardstick; `one_product_ms` beside it times one (1024, 8) x (8, N)
    product.
 
+9. Materials phase (after the gradient phase): scene M
+   (material_objects, from MAT_SEED): the main path's 2.4M-triangle sphere
+   in 8 latitude bands, each with a 1024x1024 kd map and normal map
+   (tangents from setup_tangents, the atlas path), opaque; in front of it
+   sphere_mesh(400, 400, radius=6), 320k triangles, with a striped
+   1024x1024 alpha map cutting half its texels, 4 cut-out rounds; a
+   1024x2048 env map on the dome.  First every closest-hit sweep launch
+   of one cut-out query on the 1080p primaries against
+   cluster_sweep_plain bit for bit under the rising strict floor, the
+   lanes whose floor is a cut hit's t then lowered by one ulp (the kernel
+   and the plain version find that triangle again at t == floor); then a
+   64x48x1 spp render on the card against the CPU plain path (the
+   reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
+   sample per wave, compaction: one warm-up and five waves timed one by
+   one (median, min, max; live rays/s; sweep launches per wave, counts set
+   to 0 before them; the cut-out queries and the lanes entering each
+   round), and one wave under torch.profiler split into the two sweeps,
+   the culls and the texture and env-map lookups (record_function ranges
+   put around them by `annotated`) and the rest; both sweeps must launch
+   and the image be finite and lit; then autograd of a 480x270x2 spp
+   float64 mean image with respect to the kd atlas and the env map, each
+   at its largest-|grad| texel against a central difference (5e-2).
+   Scene C4: configs/config4_merl_dof.json through the port's scene_json
+   with the synthetic full-size MERL table written beside it in a
+   temporary directory, 512x512 x 64 spp, aperture 1.5: one warm-up and
+   three timed frames (median, min, max); the MERL table's gradient on a
+   128x128x4 spp render at its largest-|grad| entry against a central
+   difference.  No image is read from a PNG: every map is made with numpy.
+
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
@@ -101,7 +130,9 @@ one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
 rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
 x the same clock), both printed after the card line.
 
-Every failure raises.  The last three lines are the card line, the
+Every failure raises.  The materials phase's numbers and the gradient
+phase's are JSON lines before the card line.  The last three lines are
+the card line, the
 kernel JSON (per kernel: time, plain version's time, launches on its main
 path, agreement, and the roofline bound from this run's work) and the
 contract line.
@@ -109,6 +140,7 @@ contract line.
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1583,6 +1615,549 @@ def probe_phase(dev):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# Materials phase: scene M (textured 1080p, atlas, alpha cut-outs, env map)
+# and scene C4 (configs/config4_merl_dof.json, MERL + DoF)
+# ---------------------------------------------------------------------------
+
+MAT_SEED = 0
+MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
+GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
+C4_GRAD = 128           # C4's gradient check, square, 4 spp
+ANNOTATED = ('cull', 'texture')
+
+
+def stripes(tex):
+    """A tex x tex alpha map whose red channel cuts away every other band
+    of tex // 32 columns (half of its texels)."""
+    a = np.zeros((tex, tex, 3), np.float32)
+    band = max(tex // 32, 1)
+    a[:, (np.arange(tex) // band) % 2 == 0] = 1.0
+    return a
+
+
+def normal_map(rng, tex):
+    """A tangent-space normal map: unit vectors tilted about +z."""
+    n = np.concatenate([rng.normal(0.0, 0.3, (tex, tex, 2)),
+                        np.ones((tex, tex, 1))], -1)
+    return (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def material_objects(lat=1100, cut_lat=400, tex=1024, env=(1024, 2048),
+                     seed=MAT_SEED):
+    """Scene M's objects and env map, from `seed`: the bench's displaced
+    sphere (sphere_mesh(lat, lat, radius=14, displace_amp=0.25)) in
+    MAT_GROUPS latitude bands, each with a tex x tex kd map and normal map
+    (tangents from setup_tangents; opaque, so its shadows take the any-hit
+    sweep), and in front of it sphere_mesh(cut_lat, cut_lat, radius=6)
+    with a striped tex x tex alpha map, 4 cut-out rounds; the env map is
+    env[0] x env[1]."""
+    from pathtracer_tpu_torch.io import obj as obj_io
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    rng = np.random.default_rng(seed)
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    cy = md.vertices[md.vtx_idx][:, :, 1].mean(1)
+    md.group = np.clip(((1.0 - cy / 14.0) * 0.5 * MAT_GROUPS)
+                       .astype(np.int32), 0, MAT_GROUPS - 1)
+    md.materials = [obj_io.GroupMaterial(kd=np.asarray(
+        [0.5 + 0.05 * g, 0.6, 0.9 - 0.05 * g], np.float32))
+        for g in range(MAT_GROUPS)]
+    md.group_names = {f'band{g}': g for g in range(MAT_GROUPS)}
+    obj_io.setup_tangents(md)
+    textures = [{'kd': (0.15 + 0.75 * rng.random((tex, tex, 3),
+                                                 dtype=np.float32)),
+                 'normal': normal_map(rng, tex)} for _ in range(MAT_GROUPS)]
+    cut = procgen.sphere_mesh(cut_lat, cut_lat, radius=6.0, seed=1)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(md, translation=(0.0, -15.0, 0.0),
+                                textures=textures))
+    objs.append(scn.mesh_object(cut, translation=(-14.0, -5.0, 10.0),
+                                textures={'alpha': stripes(tex)},
+                                cutout_rounds=4))
+    envmap = rng.uniform(0.05, 3.0, tuple(env) + (3,)).astype(np.float32)
+    return objs, envmap
+
+
+def material_scene(dev, **sizes):
+    from pathtracer_tpu_torch.scene import scene as scn
+    objs, env = material_objects(**sizes)
+    return scn.build_scene(objs, scn.default_light_intensity(), envmap=env,
+                           merge_meshes=False, device=dev)
+
+
+@contextlib.contextmanager
+def annotated():
+    """Label the cluster culls and the texture and env-map lookups with
+    torch.profiler.record_function ranges ('cull', 'texture'), by wrapping
+    the module functions the scene calls; restored on exit."""
+    import torch
+    from pathtracer_tpu_torch.models import texture as tex
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.scene import scene as scn
+    saved = []
+
+    def wrap(mod, name, label):
+        f = getattr(mod, name)
+        saved.append((mod, name, f))
+
+        @functools.wraps(f)
+        def g(*a, **k):
+            with torch.profiler.record_function(label):
+                return f(*a, **k)
+
+        setattr(mod, name, g)
+
+    wrap(cl, '_cull', 'cull')
+    for name in ('sample_point', 'sample_bilinear', 'sample_atlas'):
+        wrap(tex, name, 'texture')
+    wrap(scn, '_envmap_ke', 'texture')
+    try:
+        yield
+    finally:
+        for mod, name, f in reversed(saved):
+            setattr(mod, name, f)
+
+
+def profile_split(r):
+    """One Renderer wave under torch.profiler, its device time split into
+    the two sweeps (kernel names), the culls and the texture lookups
+    (kernels whose launching op started inside an annotated range) and
+    the rest of the kernels.  ms.  Reads the raw Kineto events: building
+    torch's FunctionEvent tree for the wave's million events takes
+    minutes; a kernel's linked correlation id names the op that launched
+    it, as in torch's own parsing."""
+    import bisect
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with annotated(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+        r.step()
+        torch.cuda.synchronize()
+    cpu, dev_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges = {k: [] for k in ANNOTATED}
+    op_start, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        name, kind = e.name(), e.device_type()
+        if kind == cpu and e.linked_correlation_id() == 0:
+            if name in ranges:
+                ranges[name].append((e.start_ns(), e.end_ns()))
+            else:
+                op_start[e.correlation_id()] = e.start_ns()
+        elif kind == dev_t and name not in ranges:
+            kernels.append((e.linked_correlation_id(), name, e.duration_ns()))
+    for v in ranges.values():
+        v.sort()
+
+    def inside(label, t):
+        rs = ranges[label]
+        i = bisect.bisect_right(rs, (t, float('inf'))) - 1
+        return i >= 0 and rs[i][0] <= t <= rs[i][1]
+
+    split = dict(sweep_closest=0.0, sweep_any=0.0, cull=0.0, texture=0.0)
+    busy = 0.0
+    for corr, name, ns in kernels:
+        busy += ns
+        if 'sweep_kernel<false' in name:
+            split['sweep_closest'] += ns
+        elif 'sweep_kernel<true' in name:
+            split['sweep_any'] += ns
+        elif corr in op_start:
+            for label in ANNOTATED:
+                if inside(label, op_start[corr]):
+                    split[label] += ns
+                    break
+    if busy == 0.0:
+        raise AssertionError('torch.profiler recorded no device time')
+    split = {k: v / 1e6 for k, v in split.items()}
+    split['rest'] = busy / 1e6 - sum(split.values())
+    return split, busy / 1e6, len(kernels)
+
+
+def record_sweeps():
+    """Replace cluster.cluster_sweep by a recorder: each call's inputs
+    (cloned) and outputs land in the returned list; `restore` undoes it.
+    The wrapper counts its launches on the module's cluster_sweep name,
+    so the recorder carries the count while it stands there."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    orig = cl.cluster_sweep
+    calls = []
+
+    def rec(cm, ids, counts, keys, org, dirn, tmax, tmin, **kw):
+        out = orig(cm, ids, counts, keys, org, dirn, tmax, tmin, **kw)
+        calls.append(((cm,) + tuple(x.clone() for x in (
+            ids, counts, keys, org, dirn, tmax, tmin)), out))
+        return out
+
+    rec.launches = orig.launches
+    cl.cluster_sweep = rec
+
+    def restore():
+        orig.launches = rec.launches
+        cl.cluster_sweep = orig
+
+    return calls, restore
+
+
+def cutout_sweep_check(sc, cam, dev, rays=None):
+    """The closest-hit sweep inside the cut-out rounds of the cut-out
+    mesh, on scene M's 1080p primaries (or `rays`, (org, dirn)): every
+    launch bit-equal to
+    cluster_sweep_plain on the same inputs, the rising per-lane strict
+    floor included.  On the floor lanes (floor set at a cut texel's hit)
+    the kernel returns t > floor or a miss; with each floor lowered by one
+    ulp it finds the excluded triangle again at t == floor, on the card
+    and in the plain version alike."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.scene import scene as scn
+    mesh = sc.meshes[1]
+    org, dirn = primary_rays(cam, dev) if rays is None else rays
+    org_l, dir_l = scn._local_ray_row(sc, mesh.obj_row, org, dirn)
+    calls, restore = record_sweeps()
+    scn.CUTOUT_LOG = []
+    try:
+        t, tri, _ = scn._mesh_closest_hit(mesh, org_l, dir_l,
+                                          torch.full_like(org[:, 0], BIG_T))
+    finally:
+        restore()
+        log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
+    floor_lanes = again = 0
+    for (cm, ids, counts, keys, o, d, tx, tn), (t_k, tri_k) in calls:
+        t_p, tri_p = cl.cluster_sweep_plain(cm, ids, counts, keys, o, d, tx,
+                                            tn)
+        if not same_bits((t_k, tri_k), (t_p, tri_p)):
+            raise AssertionError('cut-out round sweep differs from '
+                                 'cluster_sweep_plain')
+        fl = tn > 0.0
+        if not bool(fl.any()):
+            continue
+        floor_lanes += int(fl.sum())
+        if bool(((tri_k[fl] >= 0) & ~(t_k[fl] > tn[fl])).any()):
+            raise AssertionError('a hit at or below the strict floor')
+        low = torch.where(fl, torch.nextafter(tn, torch.full_like(tn, -1.0)),
+                          tn)
+        t_l, tri_l = cl.cluster_sweep(cm, ids, counts, keys, o, d, tx, low)
+        if not same_bits((t_l, tri_l), cl.cluster_sweep_plain(
+                cm, ids, counts, keys, o, d, tx, low)):
+            raise AssertionError('lowered-floor sweep differs from plain')
+        again += int((fl & (t_l == tn)).sum())
+    rounds = [e['lanes'] for e in log_rounds]
+    log(f'cut-out sweep check (1080p primaries, cut-out mesh): '
+        f'{len(calls)} closest-hit launches bit-equal to '
+        f'cluster_sweep_plain; rounds (lanes entering each) {rounds}; '
+        f'{floor_lanes} floor lanes, every hit above its floor; with the '
+        f'floors one ulp lower {again} of them hit exactly at the floor '
+        f'again; hits {int((tri >= 0).sum())}')
+    if floor_lanes == 0 or again == 0:
+        raise AssertionError('the cut-out rounds raised no floor')
+    return dict(launches=len(calls), rounds=rounds,
+                floor_lanes=floor_lanes, hit_at_floor_again=again,
+                t=t, tri=tri)
+
+
+def material_reference(sc):
+    """Scene M at 64x48, 1 spp, 3 bounces, compaction: through the kernels
+    on the card against the plain versions on the CPU, per sample."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.render import renderer as rnd
+    w, h = 64, 48
+    cfg = rnd.RenderConfig(width=w, height=h, nrays=1, nb_bounces=BOUNCES,
+                           compact_rays=True)
+    cp = rng_host.random_per_pixel_fast(w, h)
+    out = {}
+    t0 = time.perf_counter()
+    for dev, s in (('cuda', sc), ('cpu', sc.to('cpu'))):
+        cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
+        out[dev] = rnd.render_unsplatted(
+            s, cam, torch.as_tensor(cp, device=dev), cfg)[1].cpu().numpy()
+    if not np.isfinite(out['cuda']).all():
+        raise AssertionError('non-finite samples on the card')
+    scale = max(np.abs(out['cpu']).max(), 1e-6)
+    rel = np.abs(out['cuda'] - out['cpu']).max(-1) / scale
+    flipped = rel > 1e-3
+    mean_rel = abs(out['cuda'].mean() - out['cpu'].mean()) / scale
+    log(f'scene M 64x48x1spp vs CPU plain path: flipped {flipped.mean():.5f}'
+        f', unflipped max rel {rel[~flipped].max():.3g}, mean rel '
+        f'{mean_rel:.3g} ({time.perf_counter() - t0:.1f} s)')
+    if flipped.mean() >= 0.05 or rel[~flipped].max() >= 1e-3 \
+            or mean_rel >= 0.02:
+        raise AssertionError('scene M on the card disagrees with the CPU')
+
+
+def material_main(sc, cam, card):
+    """Scene M's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
+    compaction: one warm-up wave, then five waves timed one by one (the
+    sweep launch counts set to 0 just before them and read just after),
+    the cut-out rounds logged, then one wave under torch.profiler."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.scene import scene as scn
+    cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    r = pt.Renderer(sc, cam, cfg)
+    r.step()                                    # warm-up
+    torch.cuda.synchronize()
+    cl.cluster_sweep.launches = 0
+    cl.cluster_sweep_any.launches = 0
+    scn.CUTOUT_LOG = []
+    rays0, ms = r.rays_traced, []
+    try:
+        for _ in range(5):
+            ms.append(timed(r.step)[1])
+    finally:
+        log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
+    launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
+                'cluster_sweep_any': cl.cluster_sweep_any.launches}
+    live = r.rays_traced - rays0
+    t0 = time.perf_counter()
+    split, busy, n_kern = profile_split(r)
+    profile_s = time.perf_counter() - t0
+    img = r.display().cpu().numpy()
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError('scene M image not finite / wrong shape')
+    region = img[int(H * 0.55):int(H * 0.9), int(W * 0.4):int(W * 0.6)]
+    if not region.std() > 0.05 or not region.mean() > 0.02:
+        raise AssertionError(f'scene M mesh region not lit: mean '
+                             f'{region.mean():.4f} std {region.std():.4f}')
+    for name, k in launches.items():
+        if k <= 0:
+            raise AssertionError(f'{name} never launched on scene M')
+    queries = len(log_rounds) / 5
+    per_round = collections.defaultdict(list)
+    for e in log_rounds:
+        for i, lanes in enumerate(e['lanes']):
+            per_round[i].append(lanes)
+    rounds = {f'round {i + 1}': dict(queries=len(v), lanes_mean=float(
+        np.mean(v)), lanes_max=int(max(v))) for i, v in per_round.items()}
+    left = int(sum(e['left'] for e in log_rounds))
+    rep = dict(ms_per_wave=spread(ms),
+               live_rays_per_s=live / (sum(ms) / 1e3),
+               sweep_launches_per_wave={k: v / 5 for k, v in
+                                        launches.items()},
+               cutout_queries_per_wave=queries, cutout_rounds=rounds,
+               cutout_lanes_left=left, profiled_split_ms=split,
+               profiled_busy_ms=busy, profiled_kernels=n_kern,
+               profile_seconds=profile_s, image_mean=float(img.mean()))
+    log(f'scene M 1080p, 2.4M + 320k tris, 8 textured groups (atlas), '
+        f'env map, 3 bounces, compaction ({card}): ms per wave median '
+        f'{rep["ms_per_wave"]["median"]:.1f} (min {min(ms):.1f}, max '
+        f'{max(ms):.1f}; {", ".join(f"{x:.1f}" for x in ms)}); '
+        f'{rep["live_rays_per_s"]:.4g} live rays/s; sweep launches per wave '
+        f'{rep["sweep_launches_per_wave"]}')
+    log(f'  cut-out queries per wave {queries:.1f}; per round: '
+        + '; '.join(f'{k}: {v["queries"]} queries, lanes mean '
+                    f'{v["lanes_mean"]:.0f}, max {v["lanes_max"]}'
+                    for k, v in rounds.items())
+        + f'; lanes still cut out after the last round {left}')
+    log(f'  profiled wave (torch.profiler, device time): '
+        + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
+        + f'; all {n_kern} kernels {busy:.1f} ms (profiled and read in '
+        f'{profile_s:.1f} s)')
+    return launches, rep
+
+
+def fd_check(loss_of, base, name, idx, step, rtol, grads):
+    """Central difference of loss_of at base[name][idx] +- step against
+    the autograd gradient grads[name][idx]."""
+    import torch
+    delta = torch.zeros_like(base[name])
+    delta[idx] = step
+    with torch.no_grad():
+        lp = float(loss_of({**base, name: base[name] + delta}))
+        lm = float(loss_of({**base, name: base[name] - delta}))
+    want, got = (lp - lm) / (2 * step), float(grads[name][idx])
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    log(f'  central difference {name}{list(idx)} (step {step:.3g}): '
+        f'{want:.6g}, autograd {got:.6g} (relative difference {rel:.3g}, '
+        f'tolerance {rtol})')
+    if not (want != 0.0 and np.isclose(want, got, rtol=rtol, atol=0.0)):
+        raise AssertionError(f'{name}: autograd {got:.6g} against a '
+                             f'central difference {want:.6g}')
+    return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
+
+
+def largest(g):
+    """Index (tuple) of the entry of largest |g|."""
+    import torch
+    return tuple(int(i) for i in torch.unravel_index(g.abs().argmax(),
+                                                     g.shape))
+
+
+def texture_grads(sc, cam, card):
+    """Scene M at GRAD_W x GRAD_H, 2 spp: the gradient of the float64 mean
+    image with respect to group 0's kd map and the env map, autograd on
+    the card, each checked at its largest-|grad| texel against a central
+    difference (g_kd's tolerance, 5e-2; the image is linear in a kd
+    texel to second order and in an env texel)."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.render import renderer as rnd
+    cfg = pt.RenderConfig(width=GRAD_W, height=GRAD_H, nrays=2,
+                          nb_bounces=BOUNCES, compact_rays=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(GRAD_W, GRAD_H),
+                         device=sc.device)
+    mesh = sc.meshes[0]
+    kd_atlas = mesh.atlases[0]              # models.texture.CHANNELS[0]
+    base = {'atlas_kd': kd_atlas.img, 'envmap': sc.envmap}
+
+    def loss_of(leaves):
+        atl = list(mesh.atlases)
+        atl[0] = atl[0].replace(img=leaves['atlas_kd'])
+        m = mesh.replace(atlases=tuple(atl))
+        s = sc.replace(envmap=leaves['envmap'], meshes=(m,) + sc.meshes[1:])
+        return rnd.render_unsplatted(s, cam, cp, cfg)[0].double().mean() \
+            / RADIANCE
+
+    leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
+    loss, ms = timed(lambda: loss_of(leaves))
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    check_grads(grads, 'scene M')
+    out = {}
+    for name in base:
+        idx = largest(grads[name])
+        step = (5e-2 if name == 'atlas_kd' else 1e-2) * max(
+            abs(float(base[name][idx])), 1.0)
+        out[name] = dict(index=list(idx), nonzero=int(
+            (grads[name] != 0).sum()), **fd_check(loss_of, base, name, idx,
+                                                  step, 5e-2, grads))
+    y0 = kd_atlas.y0.cpu().numpy()
+    out['atlas_kd']['group'] = int(np.searchsorted(
+        y0, out['atlas_kd']['index'][0], side='right') - 1)
+    log(f'scene M gradients {GRAD_W}x{GRAD_H}x2spp ({card}): forward '
+        f'{ms:.1f} ms; texels with a gradient: '
+        + ', '.join(f'{k} {v["nonzero"]}' for k, v in out.items()))
+    return out
+
+
+def write_merl(path):
+    """The synthetic full-size MERL table of tests/test_config_parity.py
+    (90 x 90 x 180 x 3 float64)."""
+    n = 90 * 90 * 180
+    idx = np.arange(n, dtype=np.float64)
+    data = np.stack([(np.sin(idx * 1e-3) + 1.2) * 55.0,
+                     (np.cos(idx * 7e-4) + 1.3) * 42.0,
+                     (np.sin(idx * 1.3e-3 + 1.0) + 1.1) * 61.0])
+    with open(path, 'wb') as f:
+        np.array([90, 90, 180], np.int32).tofile(f)
+        data.tofile(f)
+
+
+def c4_phase(dev, card):
+    """configs/config4_merl_dof.json through the port's scene_json with
+    the synthetic MERL table beside it in a temporary directory: 512 x 512
+    x 64 spp, aperture 1.5, one warm-up and three timed frames (CUDA
+    events); then the gradient of a C4_GRAD^2 x 4 spp float64 mean image
+    with respect to the MERL table, checked at its largest-|grad| entry
+    against a central difference."""
+    import shutil
+    import tempfile
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.io import scene_json
+    from pathtracer_tpu_torch.render import renderer as rnd
+    from pathtracer_tpu_torch.scene import scene as scn
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        shutil.copy(os.path.join(here, 'configs', 'config4_merl_dof.json'), d)
+        write_merl(os.path.join(d, 'material.binary'))
+        objs, li, cam, cfg, ex = scene_json.load_scene(
+            os.path.join(d, 'config4_merl_dof.json'), device=dev)
+    sc = scn.build_scene(objs, li, envmap_intensity=ex['envmap_intensity'],
+                         fog=ex['fog'], device=dev)
+    if len(sc.measured_brdfs) != 1 or float(cam.aperture) != 1.5:
+        raise AssertionError('config 4 lost its MERL table or aperture')
+    cfg = cfg._replace(samples_per_wave=8)
+
+    def frame():
+        r = pt.Renderer(sc, cam, cfg).render()
+        return r
+
+    t_load = time.perf_counter() - t0
+    frame()
+    runs = [timed(frame) for _ in range(3)]
+    img = runs[-1][0].display().cpu().numpy()
+    if not np.isfinite(img).all() or not img.mean() > 0.01:
+        raise AssertionError('config 4 image not finite / not lit')
+    ms = [x for _, x in runs]
+    log(f'C4 config4_merl_dof.json {cfg.width}x{cfg.height} x {cfg.nrays} '
+        f'spp, aperture 1.5, MERL ({card}): ms per frame median '
+        f'{np.median(ms):.1f} (min {min(ms):.1f}, max {max(ms):.1f}; '
+        f'{", ".join(f"{x:.1f}" for x in ms)}); image mean {img.mean():.4f}; '
+        f'load and build {t_load:.1f} s')
+
+    gcfg = rnd.RenderConfig(width=C4_GRAD, height=C4_GRAD, nrays=4,
+                            nb_bounces=cfg.nb_bounces)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(C4_GRAD, C4_GRAD),
+                         device=dev)
+    camd = cam.to(dev)
+    table = sc.measured_brdfs[0]
+    base = {'merl': table.data}
+
+    def loss_of(leaves):
+        s = sc.replace(measured_brdfs=(table.replace(data=leaves['merl']),))
+        return rnd.render_unsplatted(s, camd, cp, gcfg)[0].double().mean() \
+            / RADIANCE
+
+    leaf = base['merl'].clone().requires_grad_()
+    grads = {'merl': torch.autograd.grad(loss_of({'merl': leaf}), [leaf])[0]}
+    check_grads(grads, 'C4')
+    idx = largest(grads['merl'])
+    fd = fd_check(loss_of, base, 'merl', idx,
+                  1e-2 * max(abs(float(base['merl'][idx])), 1.0), 5e-2,
+                  grads)
+    return dict(ms_per_frame=spread(ms), image_mean=float(img.mean()),
+                merl_grad=dict(index=list(idx), nonzero=int(
+                    (grads['merl'] != 0).sum()), **fd))
+
+
+def materials_phase(dev, cam, card):
+    """Scene M: build, the cut-out sweep check, the card against the CPU,
+    the 1080p waves, the texture gradients; then C4.  Returns the sweep
+    launches of scene M's waves and the phase's numbers."""
+    steps = {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    sc = material_scene(dev)
+    step('build')
+    m0, m1 = sc.meshes
+    log(f'scene M build {steps["build"]:.1f} s: {m0.n_tris} + '
+        f'{m1.n_tris} tris, {m0.n_clusters} + {m1.n_clusters} clusters, '
+        f'atlas {bool(m0.atlases)}, alpha {m1.has_alpha}, backface cull '
+        f'{m0.backface_cull} / {m1.backface_cull}, env map '
+        f'{tuple(sc.envmap.shape)}')
+    if not (m0.atlases and m1.has_alpha and not m0.has_alpha):
+        raise AssertionError('scene M lost its atlas or its cut-outs')
+    check = cutout_sweep_check(sc, cam, dev)
+    del check['t'], check['tri']
+    step('cutout_check')
+    material_reference(sc)
+    step('reference')
+    launches, rep = material_main(sc, cam, card)
+    step('waves')
+    grads = texture_grads(sc, cam, card)
+    step('texture_grads')
+    del sc
+    c4 = c4_phase(dev, card)
+    step('c4')
+    log('materials phase steps (s): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
+    return launches, dict(scene_m=rep, cutout_check=check,
+                          scene_m_grads=grads, c4=c4, seconds=steps)
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -1635,11 +2210,15 @@ def main():
     reference_phase()
     launches = main_path(sc, cam, card)
     flag, mesh = grad_phase(sc, cam, card)
+    del sc
+    t0 = time.perf_counter()
+    mat_launches, mat = materials_phase(dev, cam, card)
+    log(f'materials phase {time.perf_counter() - t0:.1f} s')
     for k in kernels:
         k['launches'] = launches[k['name']]
         k['launches_grad_forward'] = mesh['launches_forward'][k['name']]
         k['launches_grad_backward'] = mesh['launches_backward'][k['name']]
-    del sc
+        k['launches_materials'] = mat_launches[k['name']]
     for name, fn in (('tree', lambda: [tree_phase(dev, cam)]),
                      ('packet', lambda: [packet_phase(dev, cam, card)]),
                      ('probe', lambda: probe_phase(dev))):
@@ -1655,6 +2234,7 @@ def main():
         f'cluster_sweep {abl["cluster_sweep_ps_per_pair"]:.3f} on the same '
         f'inputs, {abl["cluster_sweep_main_ps_per_pair"]:.3f} on the main '
         f'path\'s first round')
+    log(json.dumps({'materials': mat}))
     log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))
     log(card)
     log(json.dumps({'kernels': kernels}))

@@ -6,8 +6,10 @@ it never imports JAX.  `scene_from_numpy` builds the port's SceneArrays
 from such a dict, including each mesh's tier arrays (the clustered arrays
 re-laid out by ops.cluster.from_tpu_arrays, or the soup, BVH and packed
 packet-tier nodes of a mesh uploaded with use_cluster=False),
-shade_pack, flags and static metadata, so both packages can trace exactly
-the same scene.
+shade_pack, flags and static metadata, and the materials: group textures
+and channel atlases, analytic-row textures, the env map and the measured
+BRDF tables with their per-row selector.  So both packages can trace
+exactly the same scene.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 
 from . import device as device_mod
+from .models import merl as merl_mod
+from .models import texture as tex_mod
 from .ops import cluster
 from .ops import packet_bvh
 from .ops import traverse
@@ -42,17 +46,30 @@ def _refuse(what, roadmap):
     raise NotImplementedError(f'{what} is not ported yet (ROADMAP {roadmap})')
 
 
+def _textures(d: dict, dev):
+    """GroupTextures from a numpy_fields dict (None entries stay None)."""
+    return tex_mod.GroupTextures(**{
+        ch: None if d.get(ch) is None else torch.as_tensor(
+            np.array(d[ch], np.float32, order='C'), device=dev)
+        for ch in tex_mod.CHANNELS})
+
+
+def _atlas(d, dev):
+    if d is None:
+        return None
+    return tex_mod.ChannelAtlas(
+        img=torch.as_tensor(np.array(d['img'], np.float32, order='C'),
+                            device=dev),
+        **{k: torch.as_tensor(np.array(d[k], np.int32), device=dev)
+           for k in ('y0', 'h', 'w')},
+        has=torch.as_tensor(np.array(d['has'], bool), device=dev))
+
+
 def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
-    if m.get('world_space') or m.get('group_rows') is not None:
-        _refuse('the merged multi-mesh BVH', 'Queue 1 item 5')
     if m.get('scene_axis') is not None:
         _refuse('scene-axis sharding', 'Queue 1 item 12')
-    if m.get('atlases') or any(v is not None for gt in m['textures']
-                               for v in gt.values()):
-        _refuse('mesh textures', 'Queue 1 item 7')
-    names = {c[0] for c in m['shade_cols']}
-    if names & {'vc0', 'fc', 'se', 'ec'} or m.get('display_edges'):
-        _refuse('vertex / face colours and edge display', 'Queue 1 item 7')
+    if any(gt.get('ksub') is not None for gt in m['textures']):
+        _refuse('ksub subsurface maps', 'Queue 1 item 8')
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=dev)
@@ -90,7 +107,15 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
         backface_cull=bool(m['backface_cull']),
         soup=soup, bvh=bvh, packed=packed, max_leaf=int(m['max_leaf']),
         use_brute=bool(m['use_brute']), use_packet=packed is not None,
-        use_cluster=bool(m['use_cluster']))
+        use_cluster=bool(m['use_cluster']),
+        textures=tuple(_textures(gt, dev) for gt in m['textures']),
+        atlases=tuple(_atlas(a, dev) for a in m.get('atlases') or ()),
+        bilinear=bool(m.get('bilinear', False)),
+        cutout_rounds=int(m.get('cutout_rounds', 4)),
+        display_edges=bool(m.get('display_edges', False)),
+        group_rows=(None if m.get('group_rows') is None else torch.as_tensor(
+            np.array(m['group_rows'], np.int64), device=dev)),
+        world_space=bool(m.get('world_space', False)))
 
 
 def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
@@ -106,14 +131,11 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         _refuse('ghost objects', 'Queue 1 item 8')
     if f.get('background') is not None:
         _refuse('background photos', 'Queue 1 item 8')
-    if f.get('envmap') is not None:
-        _refuse('environment-map images', 'Queue 1 item 3')
-    if f.get('measured_brdfs'):
-        _refuse('measured BRDFs', 'Queue 1 item 7')
     if f.get('pointsets') or f.get('yarns'):
         _refuse('pointsets and yarns', 'Queue 1 item 9')
-    if any(t is not None for t in f.get('obj_textures') or ()):
-        _refuse('analytic-object textures', 'Queue 1 item 7')
+    if any(t is not None and t.get('ksub') is not None
+           for t in f.get('obj_textures') or ()):
+        _refuse('ksub subsurface maps', 'Queue 1 item 8')
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)
@@ -137,4 +159,14 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         envmap_intensity=f32(f['envmap_intensity']),
         center_light=f32(f['center_light']),
         radius_light=f32(f['radius_light']),
-        meshes=tuple(_mesh_from_numpy(m, device) for m in f['meshes']))
+        meshes=tuple(_mesh_from_numpy(m, device) for m in f['meshes']),
+        envmap=None if f.get('envmap') is None else f32(f['envmap']),
+        obj_textures=tuple(None if t is None else _textures(t, device)
+                           for t in f.get('obj_textures') or ()),
+        brdf_type=(None if f.get('brdf_type') is None else torch.as_tensor(
+            np.array(f['brdf_type'], np.int32), device=device)),
+        measured_brdfs=tuple(
+            merl_mod.MeasuredBRDF(data=f32(t['data']), kind=int(t['kind']),
+                                  dims=tuple(int(x) for x in t['dims']),
+                                  path=str(t.get('path') or ''))
+            for t in f.get('measured_brdfs') or ()))

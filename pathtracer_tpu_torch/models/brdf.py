@@ -1,6 +1,7 @@
 """Phong / Lambert BRDFs (counterpart of pathtracer_tpu/models/brdf.py).
 
-Measured BRDFs (MERL, Titopo) are not ported yet (ROADMAP Queue 1 item 7).
+Measured BRDFs (MERL, Titopo) live in models/merl.py; the integrator
+evaluates them in place of Phong per table (render/integrator._eval_brdf).
 """
 
 from __future__ import annotations

@@ -23,10 +23,12 @@ values, the light power and the path throughput.  Every step is out of
 place, compaction included, so one code path serves rendering and
 autograd.
 
+BRDFs: Phong everywhere, overridden per measured table (`_eval_brdf`) at
+the NEE and indirect terms; sampling stays Phong's, as in JAX.
+
 Not ported yet: fog, the subsurface relocation (the entry RR draw is kept,
-so draw counts already match), ghosts, background photos and measured
-BRDFs (ROADMAP Queue 1 items 7-8); `scene.build_scene` refuses scenes that
-need them.
+so draw counts already match), ghosts and background photos (ROADMAP
+Queue 1 item 8); `scene.build_scene` refuses scenes that need them.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 from ..core import rng as prng
 from ..core import sampling, vec
 from ..models import brdf
+from ..models import merl as merl_mod
 from ..scene import scene as scn
 
 M_PI = float(np.float32(np.pi))
@@ -86,6 +89,16 @@ def _where3(mask, new, old):
     return torch.where(mask[:, None], new, old)
 
 
+def _eval_brdf(sc, hit, wi, wo, nrm):
+    """BRDF dispatch: Phong everywhere, overridden per measured table (the
+    reference's per-Object virtual brdf->eval, Raytracer.cpp:543)."""
+    f = brdf.phong_eval(hit.kd, hit.ks, hit.ne, wi, wo, nrm)
+    for k, table in enumerate(sc.measured_brdfs):
+        f = _where3(hit.brdf_type == k + 1,
+                    merl_mod.measured_eval(table, wi, wo, nrm), f)
+    return f
+
+
 def _bounce(sc, depth: int, st: PathState, cp_r12) -> PathState:
     """One bounce over every lane of `st`; returns the next state."""
     alive = st.alive & (vec.norm2(st.weight) >= 1e-4)       # weight cull
@@ -130,7 +143,7 @@ def _bounce(sc, depth: int, st: PathState, cp_r12) -> PathState:
     blocked = scn.intersect_shadow(
         sc, shadow_org, wi, torch.where(nee_gate, dist, torch.zeros_like(dist)))
     shadowed = (cos_surf < 0.0) | blocked
-    f_brdf = brdf.phong_eval(hit.kd, hit.ks, hit.ne, wi, -ray_dir, nrm)
+    f_brdf = _eval_brdf(sc, hit, wi, -ray_dir, nrm)
     jac = vec.dot(dir_al, -wi) / torch.clamp_min(d_light2, 1e-12)
     proba = vec.dot(axe_op, dir_al) / (M_PI * sc.radius_light
                                        * sc.radius_light)
@@ -186,7 +199,7 @@ def _bounce(sc, depth: int, st: PathState, cp_r12) -> PathState:
     reject = ((vec.dot(ind_dir, nrm) < 0.0)
               | (vec.dot(ind_dir, vec.reflect(ray_dir, nrm)) < 0.0)
               | (ind_pdf <= 0.0))
-    f_ind = brdf.phong_eval(hit.kd, hit.ks, hit.ne, ind_dir, -ray_dir, nrm)
+    f_ind = _eval_brdf(sc, hit, ind_dir, -ray_dir, nrm)
     ind_weight = (st.weight * subs_w * f_ind
                   * (vec.dot(nrm, ind_dir)
                      / torch.where(ind_pdf > 0.0, ind_pdf, one))[:, None])

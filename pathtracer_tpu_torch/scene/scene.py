@@ -7,7 +7,15 @@ Triangle meshes are bound to a row (its transform and flags) and go
 through their mesh's tier (scene/mesh.py): cluster, packet, brute force or
 lockstep BVH.
 
-Features outside the port's first slice raise NotImplementedError from
+Materials (pathtracer_tpu/scene/scene.py): per-row and per-group texture
+channels (models/texture.py, sampled in `intersect` for spheres and planes
+and in `_merge_mesh_hit` for meshes), alpha cut-outs (`_mesh_closest_hit`
+re-intersects past texels with alpha < 0.5 under a rising strict floor,
+on closest-hit and shadow rays), tangent-space normal maps, vertex and
+face colours, edge display, the env-map dome (`_envmap_ke`) and measured
+BRDF tables (`brdf_type`, evaluated by the integrator).
+
+Features outside the port's slices raise NotImplementedError from
 `build_scene`, naming the ROADMAP item that ports them.
 """
 
@@ -21,6 +29,8 @@ import torch
 
 from .. import device as device_mod
 from ..core import vec
+from ..io import obj as obj_io
+from ..models import texture as tex_mod
 from ..ops import cluster
 from ..ops import packet_bvh
 from ..ops import traverse
@@ -61,6 +71,12 @@ class SceneArrays:
     center_light: torch.Tensor      # (3,)
     radius_light: torch.Tensor      # 0-d
     meshes: tuple = ()
+    envmap: Any = None           # (He,We,3) dome radiance texture or None
+    # per-row texture channels (GroupTextures or None): spheres sample
+    # spherical UV (Geometry.h:979-984), planes 0.1*(x,z) (:1152-1154)
+    obj_textures: tuple = ()
+    brdf_type: Any = None        # (O,) int32: 0 Phong, k+1 measured table k
+    measured_brdfs: tuple = ()   # models.merl.MeasuredBRDF tables
 
     @property
     def num_objects(self) -> int:
@@ -85,7 +101,11 @@ class SceneArrays:
               for f in dataclasses.fields(self)
               if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(
-            self, meshes=tuple(m.to(dev) for m in self.meshes), **kw)
+            self, meshes=tuple(m.to(dev) for m in self.meshes),
+            obj_textures=tuple(None if t is None else t.to(dev)
+                               for t in self.obj_textures),
+            measured_brdfs=tuple(t.to(dev) for t in self.measured_brdfs),
+            **kw)
 
 
 class Hit(NamedTuple):
@@ -104,6 +124,7 @@ class Hit(NamedTuple):
     transp: torch.Tensor      # (N,) bool
     refr_index: torch.Tensor  # (N,)
     miroir: torch.Tensor      # (N,) bool
+    brdf_type: torch.Tensor   # (N,) int32: 0 Phong, k+1 measured table k
     lkey: torch.Tensor        # (N,) int64 surface-locality sort key
 
 
@@ -206,16 +227,87 @@ def intersect(sc: SceneArrays, origins, dirs) -> Hit:
             rm[:, 3] * nl[:, 0] + rm[:, 4] * nl[:, 1] + rm[:, 5] * nl[:, 2],
             rm[:, 6] * nl[:, 0] + rm[:, 7] * nl[:, 1] + rm[:, 8] * nl[:, 2],
         ], dim=-1)
+    # the outward geometric normal before the flip (Geometry.h:965-971),
+    # which the dome's lookup and the sphere UV read
+    inv_len = 1.0 / torch.sqrt(torch.clamp_min(vec.norm2(nl), 1e-20))
+    n_out = sgn * nl * inv_len[:, None]
+    brdf_type = (torch.zeros_like(obj_id, dtype=torch.int32)
+                 if sc.brdf_type is None else sc.brdf_type[obj_id])
+    if sc.envmap is not None:
+        # dome radiance: only row 1 carries the env map (Raytracer.cpp:1258)
+        ke = torch.where((obj_id == 1)[:, None],
+                         _envmap_ke(sc, n_out[:, 0], n_out[:, 1],
+                                    n_out[:, 2]), torch.zeros_like(p))
+    else:
+        ke = torch.zeros_like(p)
     out = Hit(hit=hit, t=t, p=p, n=vec.normalize(n), obj_id=obj_id,
               kd=_material(sc.kd, obj_id), ks=_material(sc.ks, obj_id),
-              ne=_material(sc.ne, obj_id), ke=torch.zeros_like(p),
+              ne=_material(sc.ne, obj_id), ke=ke,
               ksub=_material(sc.ksub, obj_id),
               transp=sc.transp[obj_id] & hit,
               refr_index=sc.refr_index[obj_id],
-              miroir=sc.miroir[obj_id] & hit, lkey=obj_id)
+              miroir=sc.miroir[obj_id] & hit, brdf_type=brdf_type,
+              lkey=obj_id)
+    if any(gt is not None and gt.any_image for gt in sc.obj_textures):
+        out = _object_textures(sc, out, is_sphere, px, pz, n_out)
     for mesh in sc.meshes:
         out = _merge_mesh_hit(sc, mesh, origins, dirs, out)
     return out
+
+
+def _envmap_ke(sc: SceneArrays, nx, ny, nz):
+    """Dome radiance lookup (reference: Geometry.h:963-977) for the unit
+    outward normal: theta = 1 - acos(N.y)/pi, phi = (atan2(-N.z, N.x) +
+    pi) / 2pi, Ke = tex[theta*(H-1), phi*(W-1)] * 100000/255."""
+    eh, ew = sc.envmap.shape[0], sc.envmap.shape[1]
+    theta = 1.0 - torch.arccos(torch.clamp(ny, -1.0, 1.0)) / np.pi
+    phi = (torch.atan2(-nz, nx) + np.pi) / (2.0 * np.pi)
+    ti = torch.clamp((theta * (eh - 1)).to(torch.int32), 0, eh - 1)
+    pi_ = torch.clamp((phi * (ew - 1)).to(torch.int32), 0, ew - 1)
+    return tex_mod.fetch(sc.envmap, ti, pi_) * float(
+        np.float32(100000.0 / 255.0))
+
+
+def _object_textures(sc: SceneArrays, out: Hit, is_sphere, px, pz,
+                     n_out) -> Hit:
+    """Texture channels of the analytic rows (queryMaterial,
+    Geometry.h:399-445: image value x the row's constant): spheres at the
+    spherical UV of the pre-flip outward normal, planes at 0.1*(x, z) of
+    the object-space point (Geometry.h:979-984, 1152-1154)."""
+    u = torch.where(is_sphere,
+                    1.0 - torch.arccos(torch.clamp(n_out[:, 1], -1.0, 1.0))
+                    / np.pi, px * 0.1)
+    v = torch.where(is_sphere,
+                    (torch.atan2(-n_out[:, 2], n_out[:, 0]) + np.pi)
+                    / (2.0 * np.pi), pz * 0.1)
+    fields = {}
+    for o, gt in enumerate(sc.obj_textures):
+        if gt is None or not gt.any_image:
+            continue
+        m = (out.obj_id == o) & out.hit
+
+        def over(name, img, mult):
+            cur = fields.get(name, getattr(out, name))
+            return torch.where(m[:, None],
+                               tex_mod.sample_point(img, u, v) * mult, cur)
+
+        for name, ch, tbl in (('kd', 'kd', sc.kd), ('ks', 'ks', sc.ks),
+                              ('ne', 'roughness', sc.ne),
+                              ('ksub', 'ksub', sc.ksub)):
+            if getattr(gt, ch) is not None:
+                fields[name] = over(name, getattr(gt, ch), tbl[o])
+        if gt.transp is not None:
+            # getBool: red x multiplier < 0.5 is transparent; the constant
+            # multiplier encodes the flag as 0 (transparent) / 1 (opaque)
+            tmult = torch.where(sc.transp[o], 0.0, 1.0)
+            tval = tex_mod.sample_red(gt.transp, u, v) * tmult < 0.5
+            fields['transp'] = torch.where(m, tval, fields.get(
+                'transp', out.transp))
+        if gt.refr is not None:
+            rval = tex_mod.sample_red(gt.refr, u, v) * sc.refr_index[o]
+            fields['refr_index'] = torch.where(m, rval, fields.get(
+                'refr_index', out.refr_index))
+    return out._replace(**fields)
 
 
 def _local_ray_row(sc: SceneArrays, row: int, origins, dirs):
@@ -228,9 +320,12 @@ def _local_ray_row(sc: SceneArrays, row: int, origins, dirs):
     return origins @ rotm[:, :3].T + rotm[:, 3], dirs @ rotm[:, :3].T
 
 
-def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf):
+def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf=None):
     """Winner barycentrics from the shade_pack 'bary' columns
-    (a(3) u(3) v(3) m11 m12 m22 invdet), edge-matrix formula."""
+    (a(3) u(3) v(3) m11 m12 m22 invdet), edge-matrix formula; pass the
+    rows already fetched as `sf`."""
+    if sf is None:
+        sf = mesh.shade_pack[tri.clamp_min(0).long()]
     bb = sf[:, mesh.col('bary')]
     p_b = org_l + t[:, None] * dir_l
     pxv = p_b - bb[:, 0:3]
@@ -244,36 +339,247 @@ def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf):
     return 1.0 - be - ga, be, ga
 
 
-def _mesh_closest_hit(mesh, org_l, dir_l, t_max):
-    """Closest hit of one mesh in its own space, by its tier
-    (pallas scene._mesh_closest_hit without the alpha-cutout rounds):
+def _mesh_uv(mesh, sf, al, be, ga):
+    """Interpolated texture coordinates (TriangleMesh.cpp:930-931); zero
+    on a mesh without uv columns (nothing samples them there)."""
+    if mesh.col('uv0') is None:
+        z = torch.zeros_like(al)
+        return z, z
+    uv = (sf[:, mesh.col('uv0')] * al[:, None]
+          + sf[:, mesh.col('uv1')] * be[:, None]
+          + sf[:, mesh.col('uv2')] * ga[:, None])
+    return uv[:, 0], uv[:, 1]
+
+
+def _shade_grp(mesh, sf):
+    """Winning triangle's material group, int64 (0 on one-group meshes)."""
+    gcol = mesh.col('grp')
+    if gcol is None:
+        return torch.zeros(sf.shape[0], dtype=torch.int64, device=sf.device)
+    return sf[:, gcol][:, 0].contiguous().view(torch.int32).long()
+
+
+def _sampler(mesh):
+    return (tex_mod.sample_bilinear if mesh.bilinear
+            else tex_mod.sample_point)
+
+
+def _atlas(mesh, ch):
+    return mesh.atlases[tex_mod.CHANNELS.index(ch)] if mesh.atlases else None
+
+
+def _mesh_alpha(mesh, tri, al, be, ga):
+    """Per-lane alpha-map red value; 1.0 where the group has no map
+    (TriangleMesh.cpp:1199-1205)."""
+    sf = mesh.shade_pack[tri.clamp_min(0).long()]
+    u, v = _mesh_uv(mesh, sf, al, be, ga)
+    grp = _shade_grp(mesh, sf)
+    aval = torch.ones_like(al)
+    at = _atlas(mesh, 'alpha')
+    if at is not None:
+        val, has = tex_mod.sample_atlas(at, grp, u, v, mesh.bilinear)
+        return torch.where(has, val[:, 0], aval)
+    samp = _sampler(mesh)
+    for g, gt in enumerate(mesh.textures):
+        if gt.alpha is not None:
+            aval = torch.where(grp == g, samp(gt.alpha, u, v)[:, 0], aval)
+    return aval
+
+
+def _one_hit(mesh, org_l, dir_l, t_max, t_min=None):
+    """One closest-hit query of one mesh in its own space, by its tier:
     (t — t_max on a miss —, tri, barycentrics (alpha, beta, gamma), or
-    None where the cluster tier leaves them to the shade_pack)."""
+    None where the cluster tier leaves them to the shade_pack).  t_min:
+    an optional per-lane strict floor."""
     if mesh.use_cluster:
         cm = mesh.clustered
         if cm.n_clusters <= cluster.DENSE_CULL_MAX:
             # the windowed rounds leave no residual lane
             t, tri = cluster.two_level_hit(cm, org_l, dir_l, t_max,
+                                           tmin=t_min,
                                            backface_cull=mesh.backface_cull)
             return t, tri, None
         # tree tier: residual lanes re-traverse the lockstep BVH
         t, tri, res = cluster.two_level_hit(
-            cm, org_l, dir_l, t_max, backface_cull=mesh.backface_cull,
-            return_residual=True)
+            cm, org_l, dir_l, t_max, tmin=t_min,
+            backface_cull=mesh.backface_cull, return_residual=True)
         t, tri, _, _ = traverse.bvh_hit_sparse(
             mesh.bvh, mesh.soup, org_l, dir_l, res, mesh.max_leaf, t, tri,
-            torch.ones_like(t), torch.zeros_like(t))
+            torch.ones_like(t), torch.zeros_like(t), t_min=t_min)
         return t, tri, None
     if mesh.use_packet:
         t, tri, al, be = packet_bvh.packet_hit(mesh.packed, mesh.soup, org_l,
-                                               dir_l, t_max)
+                                               dir_l, t_max, tmin=t_min)
         return t, tri, (al, be, 1.0 - al - be)
     if mesh.use_brute:
-        mh = traverse.brute_force_hit(mesh.soup, org_l, dir_l, t_max=t_max)
+        mh = traverse.brute_force_hit(mesh.soup, org_l, dir_l, t_max=t_max,
+                                      t_min=t_min)
     else:
         mh = traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
-                              max_leaf=mesh.max_leaf, t_init=t_max)
+                              max_leaf=mesh.max_leaf, t_init=t_max,
+                              t_min=t_min)
     return mh.t, mh.tri, (mh.alpha, mh.beta, mh.gamma)
+
+
+# Cut-out instrumentation: a list here receives, per cut-out query,
+# {'lanes': lanes pending at the start of each round it ran, 'left':
+# lanes still cut out after its last round} (off: None).
+CUTOUT_LOG = None
+
+
+def _mesh_closest_hit(mesh, org_l, dir_l, t_max):
+    """Closest hit of one mesh honouring alpha cut-outs
+    (pallas scene._mesh_closest_hit): a hit on a texel with alpha < 0.5 is
+    skipped by querying again with a per-lane strict floor at its t, up to
+    mesh.cutout_rounds queries (the reference skips such texels inside
+    its leaf loop, TriangleMesh.cpp:1199-1205).  Every lane takes every
+    round, as in JAX; once no lane is pending a further round could change
+    nothing, so the rounds stop there.  A lane still cut out after the
+    last round keeps t = BIG_T (no hit).  Returns (t, tri, barycentrics
+    or None as _one_hit)."""
+    if not mesh.has_alpha:
+        return _one_hit(mesh, org_l, dir_l, t_max)
+    n = org_l.shape[0]
+    dev = org_l.device
+    acc_t = torch.full((n,), BIG_T, device=dev)
+    acc_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    acc_b = (torch.ones((n,), device=dev), torch.zeros((n,), device=dev),
+             torch.zeros((n,), device=dev))
+    done = torch.zeros((n,), dtype=torch.bool, device=dev)
+    t_floor = torch.full((n,), -1.0, device=dev)
+    pending = [n]
+    for r in range(mesh.cutout_rounds):
+        t, tri, bary = _one_hit(mesh, org_l, dir_l, t_max, t_floor)
+        if bary is None:
+            al, be, _ = _bary_from_pack(mesh, org_l, dir_l, t, tri)
+            bary = (al, be, 1.0 - al - be)
+        found = t < t_max
+        cutout = found & (_mesh_alpha(mesh, tri, *bary) < 0.5) & ~done
+        accept = ~done & ~cutout
+        acc_t = torch.where(accept, t, acc_t)
+        acc_tri = torch.where(accept, tri, acc_tri)
+        acc_b = tuple(torch.where(accept, x, y) for x, y in zip(bary, acc_b))
+        done = done | accept
+        t_floor = torch.where(cutout, t, t_floor)
+        left = int((~done).sum())
+        if left == 0 or r + 1 == mesh.cutout_rounds:
+            break
+        pending.append(left)
+    if CUTOUT_LOG is not None:
+        CUTOUT_LOG.append({'lanes': pending, 'left': left})
+    return acc_t, acc_tri, acc_b
+
+
+def _normal_mapped(mesh, sf, grp, u, v, al, be, ga, n_l):
+    """Tangent-space normal mapping (TriangleMesh.cpp:952-970)."""
+    tangent = vec.normalize(sf[:, mesh.col('t0')] * al[:, None]
+                            + sf[:, mesh.col('t1')] * be[:, None]
+                            + sf[:, mesh.col('t2')] * ga[:, None])
+    bitangent = vec.cross(n_l, tangent)
+
+    def perturb(ns_loc, n_l):
+        ns = (ns_loc[:, 0:1] * tangent + ns_loc[:, 1:2] * bitangent
+              + ns_loc[:, 2:3] * n_l)
+        degenerate = vec.norm2(ns) < 1e-20
+        return torch.where(degenerate[:, None], n_l, vec.normalize(ns))
+
+    at = _atlas(mesh, 'normal')
+    if at is not None:
+        ns_loc, has = tex_mod.sample_atlas(at, grp, u, v, mesh.bilinear)
+        return torch.where(has[:, None], perturb(ns_loc, n_l), n_l)
+    samp = _sampler(mesh)
+    for g, gt in enumerate(mesh.textures):
+        if gt.normal is not None:
+            n_l = torch.where((grp == g)[:, None],
+                              perturb(samp(gt.normal, u, v), n_l), n_l)
+    return n_l
+
+
+def _mesh_material(mesh, sf, grp, u, v, al, be, ga):
+    """kd, ks, ne, ksub, transp, refr of the winning lanes: group constants
+    x optional images (queryMaterial, Geometry.h:399-445), then vertex
+    colours, face colours and edge display."""
+    n = sf.shape[0]
+    if mesh.g_kd.shape[0] == 1:
+        def mat(tbl):
+            return tbl[0].expand((n,) + tbl.shape[1:])
+    else:
+        def mat(tbl):
+            return _material(tbl, grp) if tbl.dim() == 2 else tbl[grp]
+    kd, ks, ne, ksub = (mat(mesh.g_kd), mat(mesh.g_ks), mat(mesh.g_ne),
+                        mat(mesh.g_ksub))
+    transp, refr = mat(mesh.g_transp), mat(mesh.g_refr)
+    scaled = (('kd', 'kd', mesh.g_kd), ('ks', 'ks', mesh.g_ks),
+              ('ne', 'roughness', mesh.g_ne), ('ksub', 'ksub', mesh.g_ksub))
+    out = dict(kd=kd, ks=ks, ne=ne, ksub=ksub)
+    if mesh.atlases:
+        # one gather per imaged channel, any group count
+        for name, ch, tbl in scaled:
+            at = _atlas(mesh, ch)
+            if at is not None:
+                val, has = tex_mod.sample_atlas(at, grp, u, v, mesh.bilinear)
+                out[name] = torch.where(has[:, None],
+                                        val * _material(tbl, grp), out[name])
+        at = _atlas(mesh, 'transp')
+        if at is not None:
+            # getBool: red x multiplier < 0.5 is transparent; the group
+            # flag encodes the multiplier 0 / 1 (Geometry.h:432-436)
+            val, has = tex_mod.sample_atlas(at, grp, u, v, mesh.bilinear)
+            tmult = torch.where(mesh.g_transp[grp], 0.0, 1.0)
+            transp = torch.where(has, val[:, 0] * tmult < 0.5, transp)
+        at = _atlas(mesh, 'refr')
+        if at is not None:
+            # getValRed: red x multiplier (Geometry.h:437-441)
+            val, has = tex_mod.sample_atlas(at, grp, u, v, mesh.bilinear)
+            refr = torch.where(has, val[:, 0] * mesh.g_refr[grp], refr)
+    else:
+        samp = _sampler(mesh)
+        for g, gt in enumerate(mesh.textures):
+            sel = grp == g
+            for name, ch, tbl in scaled:
+                if getattr(gt, ch) is not None:
+                    out[name] = torch.where(
+                        sel[:, None], samp(getattr(gt, ch), u, v) * tbl[g],
+                        out[name])
+            if gt.transp is not None:
+                tmult = torch.where(mesh.g_transp[g], 0.0, 1.0)
+                tval = samp(gt.transp, u, v)[:, 0] * tmult < 0.5
+                transp = torch.where(sel, tval, transp)
+            if gt.refr is not None:
+                rval = samp(gt.refr, u, v)[:, 0] * mesh.g_refr[g]
+                refr = torch.where(sel, rval, refr)
+    kd = out['kd']
+    if mesh.col('vc0') is not None:
+        # vertex-colour override (TriangleMesh.cpp:975-977)
+        kd = (sf[:, mesh.col('vc0')] * al[:, None]
+              + sf[:, mesh.col('vc1')] * be[:, None]
+              + sf[:, mesh.col('vc2')] * ga[:, None])
+    if mesh.col('fc') is not None:
+        # .seg / .lab overlay replaces Kd outright (TriangleMesh.cpp:988-990)
+        kd = sf[:, mesh.col('fc')]
+    if mesh.display_edges and mesh.col('ec') is not None:
+        # per-edge CSV colours (TriangleMesh.cpp:991-1014): a barycentric
+        # < 0.05 takes the crossed edge's colour, black if unmapped; the
+        # last matching test wins (alpha, then beta, then gamma)
+        ec = sf[:, mesh.col('ec')].reshape(-1, 3, 3)
+        em = sf[:, mesh.col('em')] != 0.0
+        sel_c = torch.zeros_like(kd)
+        on_edge = torch.zeros_like(al, dtype=torch.bool)
+        for cond, slot in (((al < 0.05), 1), ((be < 0.05), 2),
+                           ((ga < 0.05), 0)):
+            col = torch.where(em[:, slot, None], ec[:, slot],
+                              torch.zeros_like(kd))
+            sel_c = torch.where(cond[:, None], col, sel_c)
+            on_edge = on_edge | cond
+        kd = torch.where(on_edge[:, None], sel_c, kd)
+    elif mesh.display_edges:
+        # wireframe: black near real polygon borders, a barycentric < 0.05
+        # against the opposite edge's flag (TriangleMesh.cpp:1015-1021)
+        se = sf[:, mesh.col('se')] != 0.0
+        edge = (((al < 0.05) & se[:, 1]) | ((be < 0.05) & se[:, 2])
+                | ((ga < 0.05) & se[:, 0]))
+        kd = torch.where(edge[:, None], torch.zeros_like(kd), kd)
+    return kd, out['ks'], out['ne'], out['ksub'], transp, refr
 
 
 def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
@@ -281,7 +587,11 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
     fold it into the running hit, with its shading from one shade_pack
     row gather."""
     row = mesh.obj_row
-    org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
+    if mesh.world_space:
+        # merged mesh: per-lane object state by group -> source row
+        org_l, dir_l = origins, dirs
+    else:
+        org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
     t, tri, bary = _mesh_closest_hit(mesh, org_l, dir_l, cur.t)
     sf = mesh.shade_pack[tri.clamp_min(0).long()]
     win = t < cur.t
@@ -295,9 +605,26 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
     else:
         n_l = sf[:, mesh.col('fn')]
     n_l = vec.normalize(n_l)
-    n_l = torch.where(sc.flip_normals[row], -n_l, n_l)
+    grp = _shade_grp(mesh, sf)
+    if mesh.group_rows is None:
+        row_lane = torch.full_like(grp, row)
+
+        def obj(tbl):
+            return tbl[row]
+    else:
+        row_lane = mesh.group_rows[grp]
+
+        def obj(tbl):
+            return tbl[row_lane]
+    u, v = _mesh_uv(mesh, sf, al, be, ga)
+    if mesh.col('t0') is not None:
+        n_l = _normal_mapped(mesh, sf, grp, u, v, al, be, ga, n_l)
+    flip = obj(sc.flip_normals)
+    n_l = torch.where(flip[:, None] if flip.dim() else flip, -n_l, n_l)
     p_l = org_l + t[:, None] * dir_l
-    if sc.identity_transform:
+    if mesh.world_space:
+        p_w, n_w = p_l, n_l
+    elif sc.identity_transform:
         tr = sc.trans[row]
         p_w = p_l + torch.stack([tr[3], tr[7], tr[11]])
         n_w = n_l
@@ -305,21 +632,15 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
         tr = sc.trans[row].view(3, 4)
         p_w = p_l @ tr[:, :3].T + tr[:, 3]
         n_w = vec.normalize(n_l @ sc.rot[row].view(3, 3).T)
-
-    gcol = mesh.col('grp')
-    if gcol is None:
-        def mat(tbl):
-            return tbl[0].expand((t.shape[0],) + tbl.shape[1:])
-    else:
-        grp = sf[:, gcol][:, 0].contiguous().view(torch.int32).long()
-
-        def mat(tbl):
-            return _material(tbl, grp) if tbl.dim() == 2 else tbl[grp]
+    kd, ks, ne, ksub, transp, refr = _mesh_material(mesh, sf, grp, u, v,
+                                                    al, be, ga)
 
     def sel(new, old):
         m = win[:, None] if new.dim() > win.dim() else win
         return torch.where(m, new, old)
 
+    brdf_row = (torch.zeros((), dtype=torch.int32, device=t.device)
+                if sc.brdf_type is None else obj(sc.brdf_type))
     tris_per_cluster = max(1, -(-mesh.num_triangles // max(mesh.n_clusters,
                                                            1)))
     lkey = torch.clamp_max(tri.long() // tris_per_cluster, 8191)
@@ -328,33 +649,39 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
         t=torch.where(win, t, cur.t),
         p=sel(p_w, cur.p),
         n=sel(n_w, cur.n),
-        obj_id=torch.where(win, row, cur.obj_id),
-        kd=sel(mat(mesh.g_kd), cur.kd),
-        ks=sel(mat(mesh.g_ks), cur.ks),
-        ne=sel(mat(mesh.g_ne), cur.ne),
+        obj_id=torch.where(win, row_lane, cur.obj_id),
+        kd=sel(kd, cur.kd),
+        ks=sel(ks, cur.ks),
+        ne=sel(ne, cur.ne),
         ke=sel(torch.zeros_like(cur.ke), cur.ke),
-        ksub=sel(mat(mesh.g_ksub), cur.ksub),
-        transp=torch.where(win, mat(mesh.g_transp), cur.transp),
-        refr_index=torch.where(win, mat(mesh.g_refr), cur.refr_index),
-        miroir=torch.where(win, sc.miroir[row], cur.miroir),
+        ksub=sel(ksub, cur.ksub),
+        transp=torch.where(win, transp, cur.transp),
+        refr_index=torch.where(win, refr, cur.refr_index),
+        miroir=torch.where(win, obj(sc.miroir), cur.miroir),
+        brdf_type=torch.where(win, brdf_row, cur.brdf_type),
         lkey=torch.where(win, lkey, cur.lkey),
     )
 
 
 def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light):
-    """Any hit within 0.999 * dist_light.  Returns bool (N,)."""
+    """Any hit within 0.999 * dist_light.  Returns bool (N,).  A mesh with
+    an alpha map takes the closest-hit path bounded by that limit, so its
+    cut-out texels do not occlude (TriangleMesh.cpp:1299-1305)."""
     limit = dist_light * 0.999
     t_all = _candidate_ts(sc, origins, dirs)[0]
     blocked = (t_all < limit[:, None]).any(dim=-1)
     for mesh in sc.meshes:
-        org_l, dir_l = _local_ray_row(sc, mesh.obj_row, origins, dirs)
-        if mesh.use_cluster:
+        if mesh.world_space:
+            org_l, dir_l = origins, dirs
+        else:
+            org_l, dir_l = _local_ray_row(sc, mesh.obj_row, origins, dirs)
+        if mesh.use_cluster and not mesh.has_alpha:
             blocked |= cluster.two_level_any(
                 mesh.clustered, org_l, dir_l, limit,
                 backface_cull=mesh.backface_cull)
-        elif mesh.use_packet:
-            # the packet tier has no any-hit variant: closest hit bounded
-            # by the limit (t is transform-invariant, dir_l unnormalized)
+        elif mesh.has_alpha or mesh.use_packet:
+            # closest hit bounded by the limit (t is transform-invariant,
+            # dir_l unnormalized); the packet tier has no any-hit variant
             blocked |= _mesh_closest_hit(mesh, org_l, dir_l, limit)[0] < limit
         elif mesh.use_brute:
             blocked |= traverse.brute_force_any(mesh.soup, org_l, dir_l,
@@ -446,26 +773,46 @@ def _build_matrices(spec: ObjectSpec):
 
 
 def _unsupported_object(o: ObjectSpec):
-    """The first feature of this object outside the port's slice, or None."""
+    """The first feature of this object outside the port's slices, or
+    None."""
     if o.obj_type in (POINTSET, YARNS):
         return 'pointsets and yarns (ROADMAP Queue 1 item 9)'
     if o.ghost:
         return 'ghost objects (ROADMAP Queue 1 item 8)'
-    if o.measured_brdf is not None:
-        return 'MERL / Titopo measured BRDFs (ROADMAP Queue 1 item 7)'
-    if o.textures or o.seg_path is not None or o.edge_csv is not None \
-            or o.display_edges:
-        return ('textures, face colours and edge display (ROADMAP Queue 1 '
-                'item 7)')
-    if np.any(np.asarray(o.ksub, np.float32) != 0.0):
+    tex = o.textures if isinstance(o.textures, list) else [o.textures]
+    if np.any(np.asarray(o.ksub, np.float32) != 0.0) or any(
+            t and t.get('ksub') is not None for t in tex):
         return 'ksub subsurface scattering (ROADMAP Queue 1 item 8)'
     return None
+
+
+def _edge_colors(o: ObjectSpec):
+    """(colours, mask) of the object's edge CSV (a path, or the pair)."""
+    if not o.edge_csv:
+        return None
+    if isinstance(o.edge_csv, str):
+        return obj_io.load_edge_csv(o.edge_csv, o.mesh_data)
+    return o.edge_csv
+
+
+def _facecolors(o: ObjectSpec):
+    """(T, 3) face colours from a .seg / .lab path, or the array given."""
+    if o.seg_path is None:
+        return None
+    if isinstance(o.seg_path, str):
+        t = o.mesh_data.num_triangles
+        if o.seg_path.lower().endswith('.lab'):
+            return obj_io.load_lab(o.seg_path, t)
+        return obj_io.load_seg(o.seg_path, t)
+    return np.asarray(o.seg_path, np.float32)
 
 
 def _mesh_world_aabb(mesh, trans):
     """World-space AABB of a cluster-tier mesh from its cluster bounds."""
     b = mesh.clustered.bounds.cpu().numpy().astype(np.float64)
     lo, hi = b[:, 0:3].min(0), b[:, 3:6].max(0)
+    if mesh.world_space:
+        return lo, hi
     tr = np.asarray(trans[mesh.obj_row], np.float64)
     corners = np.stack(np.meshgrid(*zip(lo, hi), indexing='ij'),
                        -1).reshape(-1, 3)
@@ -510,8 +857,10 @@ def _gate_backface_overlap(mesh, objects, trans):
     lo, hi = _mesh_world_aabb(mesh, trans)
     pad = 1e-3 + 1e-4 * float(np.linalg.norm(hi - lo))
     lo, hi = lo - pad, hi + pad
+    own = ({mesh.obj_row} if mesh.group_rows is None
+           else set(mesh.group_rows.tolist()))
     for j, o in enumerate(objects):
-        if j in (mesh.obj_row, 0, 1):
+        if j in own or j in (0, 1):
             continue
         ss_capable = bool(np.any(np.broadcast_to(
             np.asarray(o.ksub, np.float32), (3,)) != 0.0))
@@ -532,7 +881,7 @@ def camera_backface_gate(sc: SceneArrays, cam_pos) -> SceneArrays:
             pad = 1e-3 + 1e-4 * float(np.linalg.norm(hi - lo))
             inv = sc.inv_trans[m.obj_row].cpu().numpy().astype(
                 np.float64).reshape(3, 4)
-            pl = inv[:, :3] @ p + inv[:, 3]
+            pl = p if m.world_space else inv[:, :3] @ p + inv[:, 3]
             if bool(np.all(pl >= lo - pad) and np.all(pl <= hi + pad)):
                 m = dataclasses.replace(m, backface_cull=False)
                 changed = True
@@ -549,10 +898,6 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
     n = len(objects)
     if n < 2:
         raise ValueError('scene needs at least light (0) and dome (1) objects')
-    if envmap is not None:
-        raise NotImplementedError(
-            'environment-map images are not ported yet (ROADMAP Queue 1 '
-            'item 3: _envmap_ke)')
     if background is not None:
         raise NotImplementedError(
             'background photos are not ported yet (ROADMAP Queue 1 item 8)')
@@ -564,10 +909,6 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
         if why is not None:
             raise NotImplementedError(f'scene feature not ported yet: {why}')
     mesh_items = [(i, o) for i, o in enumerate(objects) if o.obj_type == MESH]
-    if len(mesh_items) >= 2 and merge_meshes is not False:
-        raise NotImplementedError(
-            'the merged multi-mesh BVH is not ported yet (ROADMAP Queue 1 '
-            'item 5: merge_mesh_entries); pass merge_meshes=False')
 
     if frame is not None:
         from ..core import transform as tf
@@ -597,13 +938,55 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
     center_light = (trans[0][:, :3] @ np.asarray(light.center, np.float32)
                     + trans[0][:, 3])
 
+    # merged multi-mesh: eligible meshes baked into ONE world-space BVH
+    # when two or more are (merge_meshes None or True), as in JAX
+    merged_rows = set()
+    if merge_meshes is None or merge_meshes:
+        eligible = [i for i, o in mesh_items if mesh_mod.mergeable_spec(o)]
+        if len(eligible) >= 2:
+            merged_rows = set(eligible)
     meshes = tuple(
         _gate_backface_overlap(mesh_mod.upload_mesh(
             o.mesh_data, obj_row=i, interp_normals=o.interp_normals,
             default_transp=bool(o.transp), default_refr=float(o.refr_index),
+            display_edges=bool(o.display_edges), edge_colors=_edge_colors(o),
+            facecolors=_facecolors(o), texture_overrides=o.textures,
+            use_atlas=o.use_atlas, bilinear=bool(o.bilinear),
+            cutout_rounds=int(o.cutout_rounds),
+            # ghosts pass rays through (origins end up inside); flipped
+            # normals mark surfaces meant to be seen from inside
             allow_backface=not (o.ghost or o.flip_normals), dev=device),
             objects, trans)
-        for i, o in mesh_items)
+        for i, o in mesh_items if i not in merged_rows)
+    if merged_rows:
+        entries = [(o, i, trans[i], rot[i])
+                   for i, o in mesh_items if i in merged_rows]
+        md_m, grow, gdef, tex_ov = mesh_mod.merge_mesh_entries(entries)
+        meshes += (_gate_backface_overlap(mesh_mod.upload_mesh(
+            md_m, obj_row=entries[0][1], interp_normals=True,
+            world_space=True, group_rows=grow,
+            group_transp=gdef['transp'], group_refr=gdef['refr'],
+            group_ksub=gdef['ksub'], texture_overrides=tex_ov,
+            bilinear=any(o.bilinear for _, o in mesh_items),
+            cutout_rounds=max(int(o.cutout_rounds) for _, o in mesh_items),
+            allow_backface=not any(o.ghost or o.flip_normals
+                                   for o, _, _, _ in entries), dev=device),
+            objects, trans),)
+    obj_textures = tuple(
+        tex_mod.make_group_textures(o.textures, device=device)
+        if o.textures and o.obj_type in (SPHERE, PLANE) else None
+        for o in objects)
+    # measured BRDFs, tables deduplicated by identity
+    tables, brdf_type = [], []
+    for o in objects:
+        if o.measured_brdf is None:
+            brdf_type.append(0)
+            continue
+        k = next((j for j, tb in enumerate(tables) if tb is o.measured_brdf),
+                 len(tables))
+        if k == len(tables):
+            tables.append(o.measured_brdf)
+        brdf_type.append(k + 1)
 
     def bools(field):
         return torch.as_tensor([bool(getattr(o, field)) for o in objects],
@@ -630,7 +1013,13 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
         envmap_intensity=f32(envmap_intensity),
         center_light=f32(center_light),
         radius_light=f32(light.radius * light_scale * objects[0].scale),
-        meshes=meshes)
+        meshes=meshes,
+        envmap=None if envmap is None else torch.as_tensor(
+            np.asarray(envmap, np.float32), device=device),
+        obj_textures=obj_textures,
+        brdf_type=torch.as_tensor(brdf_type, dtype=torch.int32,
+                                  device=device),
+        measured_brdfs=tuple(tb.to(device) for tb in tables))
 
 
 def default_objects():

@@ -24,14 +24,23 @@ and every ablation variant (at several lane group sizes and unit orders)
 are bit-equal to their plain versions; the TF32 product agrees
 with its TF32-rounded plain version within sweep_micro.TF32_TOL of the
 absolute-value bound (the tensor core sums in its own order).
+Materials: a small scene M (chip_smoke.material_objects: textured groups
+through the atlas, an alpha cut-out mesh, an env map) renders on the
+card like the CPU plain path, per sample with the reference render's
+allowance, and its kd-texture gradient within 2% of the largest |grad|;
+every closest-hit sweep of the cut-out rounds equals its plain version
+bit for bit under the rising strict floor; atlas sampling on the card
+equals the CPU bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import pathtracer_tpu_torch as pt
 from pathtracer_tpu_torch.core import rng_host
+from pathtracer_tpu_torch.models import texture as ttex
 from pathtracer_tpu_torch.ops import bvh as tb
 from pathtracer_tpu_torch.ops import cluster as tc
 from pathtracer_tpu_torch.ops import packet_bvh as tp
@@ -787,3 +796,99 @@ def test_probe_wrappers_refuse_mixed_devices(cuda):
                    torch.zeros((12, sm.SUBT), device=cuda), 2, 1e-3)
     assert counts == (sm.dot_fp32.launches, sm.dot_tf32.launches,
                       sm.epilogue.launches, sm.edgemat.launches)
+
+
+def _material_scene(dev):
+    """Scene M's recipe at a small size (1,104-triangle cut-out mesh)."""
+    return chip_smoke.material_scene(dev, lat=60, cut_lat=24, tex=64,
+                                     env=(32, 64))
+
+
+def _material_samples(dev, leaf=None):
+    sc = _material_scene(dev)
+    if leaf is not None:
+        atl = list(sc.meshes[0].atlases)
+        atl[0] = atl[0].replace(img=leaf(atl[0].img))
+        sc = sc.replace(meshes=(sc.meshes[0].replace(atlases=tuple(atl)),)
+                        + sc.meshes[1:])
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(32, 24), device=dev)
+    cfg = rnd.RenderConfig(width=32, height=24, nrays=2, nb_bounces=3,
+                           compact_rays=True)
+    return rnd.render_unsplatted(sc, cam, cp, cfg)
+
+
+@pytest.mark.gpu
+def test_material_scene_matches_cpu_plain_path(cuda):
+    out = {d.type: _material_samples(d)[1].cpu().numpy()
+           for d in (cuda, torch.device('cpu'))}
+    assert np.isfinite(out['cuda']).all() and out['cpu'].max() > 0
+    scale = max(np.abs(out['cpu']).max(), 1e-6)
+    rel = np.abs(out['cuda'] - out['cpu']).max(-1) / scale
+    flipped = rel > 1e-3
+    assert flipped.mean() < 0.05
+    assert rel[~flipped].max() < 1e-3
+    assert abs(out['cuda'].mean() - out['cpu'].mean()) / scale < 0.02
+
+
+@pytest.mark.gpu
+def test_cutout_round_sweeps_match_plain(cuda):
+    """Every closest-hit sweep of the cut-out rounds equals
+    cluster_sweep_plain on the card (chip_smoke.cutout_sweep_check), and
+    the rounds' hits equal the CPU plain path's."""
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=1)
+    pix_i, pix_j, _ = rnd._pixel_order(64, 48, 32, 'cpu')
+    _, org, dirn, _, _, _ = rnd._camera_paths(
+        cam, cfg, pix_i, pix_j, 0, torch.zeros((64 * 48, 2)))
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        res = chip_smoke.cutout_sweep_check(
+            _material_scene(dev), cam.to(dev), dev,
+            rays=(org.to(dev), dirn.to(dev)))
+        assert res['floor_lanes'] > 0 and res['hit_at_floor_again'] > 0
+        out[dev.type] = res
+    assert out['cuda']['rounds'] == out['cpu']['rounds']
+    assert torch.equal(out['cuda']['tri'].cpu(), out['cpu']['tri'])
+    assert torch.equal(out['cuda']['t'].cpu(), out['cpu']['t'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('bilinear', [False, True], ids=['point', 'bilinear'])
+def test_atlas_sampling_card_equals_cpu(cuda, bilinear):
+    rng = np.random.default_rng(5)
+    imgs = [rng.random((64, 64, 3), dtype=np.float32), None,
+            rng.random((17, 40, 3), dtype=np.float32)]
+    n = 1 << 16
+    u = torch.as_tensor(rng.uniform(-3, 3, n).astype(np.float32))
+    v = torch.as_tensor(rng.uniform(-3, 3, n).astype(np.float32))
+    grp = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32))
+    out = []
+    for dev in (cuda, torch.device('cpu')):
+        at = ttex.build_atlas(imgs, device=dev)
+        out.append([x.cpu() for x in ttex.sample_atlas(
+            at, grp.to(dev), u.to(dev), v.to(dev), bilinear)])
+    assert torch.equal(out[0][0].view(torch.int32),
+                       out[1][0].view(torch.int32))
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def _texel_grad(dev):
+    leaf = {}
+
+    def make(img):
+        leaf['x'] = img.clone().requires_grad_()
+        return leaf['x']
+
+    mean, _ = _material_samples(dev, leaf=make)
+    return torch.autograd.grad(mean.mean(), [leaf['x']])[0].cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_texel_gradient_matches_cpu_plain_path(cuda):
+    """The gradient of the mean image with respect to the kd atlas (every
+    group's kd map): on the card within 2% of the largest |grad| of the
+    CPU route's."""
+    card, cpu = _texel_grad(cuda), _texel_grad('cpu')
+    assert np.isfinite(card).all() and np.count_nonzero(cpu) > 10
+    assert np.abs(card - cpu).max() <= 0.02 * np.abs(cpu).max()
