@@ -631,9 +631,10 @@ def main_path(sc, cam, card):
     return launches
 
 
-def flagship_scene(dev):
+def flagship_scene(dev, ghost=False, background=None):
     """bench.py's analytic flagship (:75-82): Phong, mirror and glass
-    spheres on the default slate."""
+    spheres on the default slate; with `ghost`, a ghost sphere (a shadow
+    catcher) in front of them, and a background photo."""
     from pathtracer_tpu_torch.scene import scene as scn
     objs = scn.default_objects()
     objs.append(scn.sphere((0.0, -17.0, 0.0), 10.0, kd=(0.7, 0.3, 0.2),
@@ -641,7 +642,10 @@ def flagship_scene(dev):
     objs.append(scn.sphere((-16.0, -20.0, -10.0), 7.0, miroir=True))
     objs.append(scn.sphere((17.0, -19.0, -5.0), 8.0, transp=True,
                            refr_index=1.4))
-    return scn.build_scene(objs, scn.default_light_intensity(), device=dev)
+    if ghost:
+        objs.append(scn.sphere((-3.0, -22.0, 12.0), 5.0, ghost=True))
+    return scn.build_scene(objs, scn.default_light_intensity(),
+                           background=background, device=dev)
 
 
 def timed(fn):
@@ -1688,12 +1692,15 @@ def material_scene(dev, **sizes):
 
 @contextlib.contextmanager
 def annotated():
-    """Label the cluster culls and the texture and env-map lookups with
-    torch.profiler.record_function ranges ('cull', 'texture'), by wrapping
-    the module functions the scene calls; restored on exit."""
+    """Label the cluster culls, the texture and env-map lookups, the
+    subsurface reservoir march and the fog event with
+    torch.profiler.record_function ranges ('cull', 'texture', 'march',
+    'fog'), by wrapping the module functions the scene and the integrator
+    call; restored on exit."""
     import torch
     from pathtracer_tpu_torch.models import texture as tex
     from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.render import integrator as integ
     from pathtracer_tpu_torch.scene import scene as scn
     saved = []
 
@@ -1712,6 +1719,8 @@ def annotated():
     for name in ('sample_point', 'sample_bilinear', 'sample_atlas'):
         wrap(tex, name, 'texture')
     wrap(scn, '_envmap_ke', 'texture')
+    wrap(scn, '_mesh_reservoir_march', 'march')
+    wrap(integ, '_fog_event', 'fog')
     try:
         yield
     finally:
@@ -1719,14 +1728,17 @@ def annotated():
             setattr(mod, name, f)
 
 
-def profile_split(r):
+def profile_split(r, labels=ANNOTATED):
     """One Renderer wave under torch.profiler, its device time split into
-    the two sweeps (kernel names), the culls and the texture lookups
-    (kernels whose launching op started inside an annotated range) and
-    the rest of the kernels.  ms.  Reads the raw Kineto events: building
-    torch's FunctionEvent tree for the wave's million events takes
-    minutes; a kernel's linked correlation id names the op that launched
-    it, as in torch's own parsing."""
+    the two sweeps (kernel names), the annotated ranges in `labels` order
+    (a kernel whose launching op started inside a range counts for the
+    first such label) and the rest of the kernels; and, per label, the
+    device time of every kernel launched from inside its range (the
+    sweeps, launched outside torch's ops, not included).  ms.  Reads the
+    raw Kineto events: building torch's FunctionEvent tree for the wave's
+    million events takes minutes; a kernel's linked correlation id names
+    the op that launched it, as in torch's own parsing.  Returns (split,
+    busy, kernels, inclusive)."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1735,7 +1747,7 @@ def profile_split(r):
         r.step()
         torch.cuda.synchronize()
     cpu, dev_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges = {k: [] for k in ANNOTATED}
+    ranges = {k: [] for k in labels}
     op_start, kernels = {}, []
     for e in prof.profiler.kineto_results.events():
         name, kind = e.name(), e.device_type()
@@ -1754,16 +1766,21 @@ def profile_split(r):
         i = bisect.bisect_right(rs, (t, float('inf'))) - 1
         return i >= 0 and rs[i][0] <= t <= rs[i][1]
 
-    split = dict(sweep_closest=0.0, sweep_any=0.0, cull=0.0, texture=0.0)
+    split = dict(sweep_closest=0.0, sweep_any=0.0, **{k: 0.0 for k in labels})
+    inclusive = {k: 0.0 for k in labels}
     busy = 0.0
     for corr, name, ns in kernels:
         busy += ns
+        if corr in op_start:
+            for label in labels:
+                if inside(label, op_start[corr]):
+                    inclusive[label] += ns
         if 'sweep_kernel<false' in name:
             split['sweep_closest'] += ns
         elif 'sweep_kernel<true' in name:
             split['sweep_any'] += ns
         elif corr in op_start:
-            for label in ANNOTATED:
+            for label in labels:
                 if inside(label, op_start[corr]):
                     split[label] += ns
                     break
@@ -1771,7 +1788,8 @@ def profile_split(r):
         raise AssertionError('torch.profiler recorded no device time')
     split = {k: v / 1e6 for k, v in split.items()}
     split['rest'] = busy / 1e6 - sum(split.values())
-    return split, busy / 1e6, len(kernels)
+    return (split, busy / 1e6, len(kernels),
+            {k: v / 1e6 for k, v in inclusive.items()})
 
 
 def record_sweeps():
@@ -1856,9 +1874,11 @@ def cutout_sweep_check(sc, cam, dev, rays=None):
                 t=t, tri=tri)
 
 
-def material_reference(sc):
-    """Scene M at 64x48, 1 spp, 3 bounces, compaction: through the kernels
-    on the card against the plain versions on the CPU, per sample."""
+def card_vs_cpu(sc, name):
+    """`sc` at 64x48, 1 spp, 3 bounces, compaction: through the kernels on
+    the card against the plain versions on the CPU, per sample (the
+    reference's allowance: < 5% flipped at 1e-3, mean within 2%).
+    Returns the flipped share."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
@@ -1879,12 +1899,13 @@ def material_reference(sc):
     rel = np.abs(out['cuda'] - out['cpu']).max(-1) / scale
     flipped = rel > 1e-3
     mean_rel = abs(out['cuda'].mean() - out['cpu'].mean()) / scale
-    log(f'scene M 64x48x1spp vs CPU plain path: flipped {flipped.mean():.5f}'
+    log(f'{name} 64x48x1spp vs CPU plain path: flipped {flipped.mean():.5f}'
         f', unflipped max rel {rel[~flipped].max():.3g}, mean rel '
         f'{mean_rel:.3g} ({time.perf_counter() - t0:.1f} s)')
     if flipped.mean() >= 0.05 or rel[~flipped].max() >= 1e-3 \
             or mean_rel >= 0.02:
-        raise AssertionError('scene M on the card disagrees with the CPU')
+        raise AssertionError(f'{name} on the card disagrees with the CPU')
+    return float(flipped.mean())
 
 
 def material_main(sc, cam, card):
@@ -1914,7 +1935,7 @@ def material_main(sc, cam, card):
                 'cluster_sweep_any': cl.cluster_sweep_any.launches}
     live = r.rays_traced - rays0
     t0 = time.perf_counter()
-    split, busy, n_kern = profile_split(r)
+    split, busy, n_kern, _ = profile_split(r)
     profile_s = time.perf_counter() - t0
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
@@ -1960,9 +1981,12 @@ def material_main(sc, cam, card):
     return launches, rep
 
 
-def fd_check(loss_of, base, name, idx, step, rtol, grads):
+def fd_check(loss_of, base, name, idx, step, rtol, grads, ladder=False):
     """Central difference of loss_of at base[name][idx] +- step against
-    the autograd gradient grads[name][idx]."""
+    the autograd gradient grads[name][idx]: within rtol of the autograd
+    value, or with `ladder` within rtol of the larger of the two
+    (tests/test_gradcheck_ladder.py's rule); rtol None: measured and
+    returned, held to nothing."""
     import torch
     delta = torch.zeros_like(base[name])
     delta[idx] = step
@@ -1974,7 +1998,11 @@ def fd_check(loss_of, base, name, idx, step, rtol, grads):
     log(f'  central difference {name}{list(idx)} (step {step:.3g}): '
         f'{want:.6g}, autograd {got:.6g} (relative difference {rel:.3g}, '
         f'tolerance {rtol})')
-    if not (want != 0.0 and np.isclose(want, got, rtol=rtol, atol=0.0)):
+    if rtol is None:
+        return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
+    ok = (abs(got - want) < rtol * max(abs(want), abs(got)) if ladder
+          else np.isclose(want, got, rtol=rtol, atol=0.0))
+    if not (want != 0.0 and ok):
         raise AssertionError(f'{name}: autograd {got:.6g} against a '
                              f'central difference {want:.6g}')
     return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
@@ -2143,7 +2171,7 @@ def materials_phase(dev, cam, card):
     check = cutout_sweep_check(sc, cam, dev)
     del check['t'], check['tri']
     step('cutout_check')
-    material_reference(sc)
+    card_vs_cpu(sc, 'scene M')
     step('reference')
     launches, rep = material_main(sc, cam, card)
     step('waves')
@@ -2156,6 +2184,381 @@ def materials_phase(dev, cam, card):
         + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
     return launches, dict(scene_m=rep, cutout_check=check,
                           scene_m_grads=grads, c4=c4, seconds=steps)
+
+
+# ---------------------------------------------------------------------------
+# Media phase: scene O (config 5's fog and subsurface material on the main
+# path's geometry) and the ghost + background flagship
+# ---------------------------------------------------------------------------
+
+MEDIA_WAVES = 3         # timed 1080p waves of scene O, after a warm-up
+MEDIA_REF_LAT = 200     # the card-vs-CPU check's sphere: 79,600 triangles,
+                        # above MESH_RESERVOIR_MAX_TRIS, so its probes march
+MEDIA_LABELS = ('cull', 'march', 'fog', 'texture')
+
+
+def config5():
+    """configs/config5_office.json's fog block and mesh object."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'configs', 'config5_office.json')) as f:
+        doc = json.load(f)
+    mesh = next(o for o in doc['objects'] if o['type'] == 'mesh')
+    return doc['fog'], mesh
+
+
+def media_objects(lat=1100, env=(1024, 2048), seed=MAT_SEED):
+    """Scene O's objects, env map and fog, from `seed`: config 5's slate
+    (the default light, dome and ground plane), the bench's displaced
+    sphere (sphere_mesh(lat, lat, radius=14, displace_amp=0.25)) at
+    (0, -15, 0) with config 5's mesh material (kd 1, ks 0, ksub (0.5, 0.4,
+    0.3)), config 5's fog block verbatim, an env[0] x env[1] env map."""
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    fog, m = config5()
+    rng = np.random.default_rng(seed)
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(
+        md, translation=(0.0, -15.0, 0.0), kd=m['kd'], ks=m['ks'],
+        ne=m['ne'], ksub=m['ksub'], refr_index=m['refr_index'],
+        interp_normals=m['interp_normals']))
+    envmap = rng.uniform(0.05, 3.0, tuple(env) + (3,)).astype(np.float32)
+    return objs, envmap, fog
+
+
+def media_scene(dev, **sizes):
+    from pathtracer_tpu_torch.scene import scene as scn
+    objs, env, fog = media_objects(**sizes)
+    return scn.build_scene(objs, scn.default_light_intensity(), envmap=env,
+                           fog=fog, device=dev)
+
+
+def background_photo(h=H, w=W, seed=MAT_SEED):
+    """An h x w photo as scene.load_background returns one: (u8 / 255)^2.2
+    x 196964.699, the u8 values numpy noise over a vertical gradient."""
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(40.0, 220.0, h)[:, None, None]
+    u8 = np.clip(ramp + rng.normal(0.0, 20.0, (h, w, 3)), 0, 255).round()
+    return (np.power(u8 / 255.0, 2.2) * 196964.699).astype(np.float32)
+
+
+def march_sweep_check(sc, cam, dev, size=(W, H)):
+    """One reservoir march on scene O's bounce-1 subsurface probes (the
+    primaries' hits at `size`, sample 0, drawn as the integrator draws
+    them):
+    every closest-hit sweep launch of its rounds bit-equal to
+    cluster_sweep_plain on the same inputs, the rising per-lane strict
+    floor and the backface cull off included; every hit above its floor."""
+    import torch
+    from pathtracer_tpu_torch.core import rng as prng
+    from pathtracer_tpu_torch.core import vec
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.render import integrator as integ
+    from pathtracer_tpu_torch.render import renderer as rnd
+    from pathtracer_tpu_torch.scene import scene as scn
+    w, h = size
+    cfg = rnd.RenderConfig(width=w, height=h, nrays=1)
+    pix_i, pix_j, _ = rnd._pixel_order(w, h, 32, dev)
+    cp = torch.zeros((w * h, 2), device=dev)
+    st, org, dirn, _, _, _ = rnd._camera_paths(cam, cfg, pix_i, pix_j, 0, cp)
+    hit = scn.intersect(sc, org, dirn)
+    # the subsurface entry of integrator._bounce at depth 0
+    is_diffuse = hit.hit & (hit.obj_id >= 2) & ~hit.miroir & ~hit.transp
+    can_ss = (is_diffuse & (vec.norm2(hit.ksub) > 1e-8)
+              & sc.ss_obj_ok[hit.obj_id])
+    u_ss, rng_st = prng.next_uniform(st, gate=can_ss)
+    take_ss = can_ss & (u_ss < integ.SS_PROBA)
+    calls, restore = record_sweeps()
+    scn.MARCH_LOG = []
+    try:
+        out = integ._subsurface_event(sc, hit, hit.p, hit.n, take_ss, rng_st)
+    finally:
+        restore()
+        log_m, scn.MARCH_LOG = scn.MARCH_LOG, None
+    floor_lanes = 0
+    for (cm, ids, counts, keys, o, d, tx, tn), (t_k, tri_k) in calls:
+        if not same_bits((t_k, tri_k), cl.cluster_sweep_plain(
+                cm, ids, counts, keys, o, d, tx, tn)):
+            raise AssertionError('a march round sweep differs from '
+                                 'cluster_sweep_plain')
+        fl = tn > 0.0
+        floor_lanes += int(fl.sum())
+        if bool(((tri_k[fl] >= 0) & ~(t_k[fl] > tn[fl])).any()):
+            raise AssertionError('a march hit at or below its floor')
+    (m,) = log_m
+    rep = dict(launches=len(calls), lanes_per_round=m['lanes'], t=out[1],
+               overflow_round_lanes=m['overflow_round'],
+               overflow=m['overflow'], take_ss=int(take_ss.sum()),
+               exits_found=int(out[0].sum()), floor_lanes=floor_lanes,
+               backface_cull=sc.meshes[0].backface_cull)
+    log(f'march sweep check ({w}x{h} primaries, bounce 1): {len(calls)} '
+        f'closest-hit launches bit-equal to cluster_sweep_plain (backface '
+        f'cull off, {floor_lanes} floor lanes, every hit above its floor); '
+        f'lanes active entering each round {m["lanes"]}; {rep["take_ss"]} '
+        f'probes taken, {rep["exits_found"]} exits found, overflow '
+        f'{m["overflow"]}')
+    if floor_lanes == 0 or len(m['lanes']) < 2 or rep['exits_found'] == 0:
+        raise AssertionError('the march raised no floor or found no exit')
+    if sc.meshes[0].backface_cull:
+        raise AssertionError('scene O\'s ksub mesh kept its backface cull')
+    return rep
+
+
+@contextlib.contextmanager
+def media_counters():
+    """Count, per call of the reservoir march and of the fog event, the
+    closest-hit sweep launches made inside it (and the lanes each fog
+    event probed); restored on exit.  Yields the two lists."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.render import integrator as integ
+    from pathtracer_tpu_torch.scene import scene as scn
+    march, fog = [], []
+    orig_m, orig_f = scn._mesh_reservoir_march, integ._fog_event
+
+    def counted(f, out, lanes):
+        @functools.wraps(f)
+        def g(*a, **k):
+            n0 = cl.cluster_sweep.launches
+            res = f(*a, **k)
+            out.append(dict(launches=cl.cluster_sweep.launches - n0,
+                            lanes=int(lanes(a))))
+            return res
+        return g
+
+    scn._mesh_reservoir_march = counted(orig_m, march,
+                                        lambda a: a[1].shape[0])
+    integ._fog_event = counted(orig_f, fog, lambda a: a[1].shape[0])
+    try:
+        yield march, fog
+    finally:
+        scn._mesh_reservoir_march, integ._fog_event = orig_m, orig_f
+
+
+def media_main(sc, cam, card):
+    """Scene O's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
+    compaction: one warm-up wave, then MEDIA_WAVES waves timed one by one
+    (every launch count set to 0 just before them and read just after,
+    the marches' rounds and lanes logged), then one wave under
+    torch.profiler.  The overflow stat must stay 0."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.scene import scene as scn
+    cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    r = pt.Renderer(sc, cam, cfg)
+    r.step()                                    # warm-up
+    torch.cuda.synchronize()
+    counters = {'cluster_sweep_closest': cl.cluster_sweep,
+                'cluster_sweep_any': cl.cluster_sweep_any,
+                'cull_tree': cl.cull_tree, 'packet_hit': pb.packet_hit}
+    for f in counters.values():
+        f.launches = 0
+    scn.MARCH_LOG = []
+    rays0, ms = r.rays_traced, []
+    try:
+        with media_counters() as (march_c, fog_c):
+            for _ in range(MEDIA_WAVES):
+                ms.append(timed(r.step)[1])
+    finally:
+        log_m, scn.MARCH_LOG = scn.MARCH_LOG, None
+    launches = {k: f.launches for k, f in counters.items()}
+    live = r.rays_traced - rays0
+    overflow = r.stats(1.0)['ss_reservoir_overflow']
+    t0 = time.perf_counter()
+    split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
+    profile_s = time.perf_counter() - t0
+    img = r.display().cpu().numpy()
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError('scene O image not finite / wrong shape')
+    region = img[int(H * 0.55):int(H * 0.9), int(W * 0.4):int(W * 0.6)]
+    if not region.std() > 0.01 or not region.mean() > 0.02:
+        raise AssertionError(f'scene O mesh region not lit: mean '
+                             f'{region.mean():.4f} std {region.std():.4f}')
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+        if launches[name] <= 0:
+            raise AssertionError(f'{name} never launched on scene O')
+    if not log_m or not fog_c:
+        raise AssertionError('scene O ran no march or no fog event')
+    if overflow != 0:
+        raise AssertionError(f'scene O: {overflow} reservoir overflows')
+    per_round = collections.defaultdict(list)
+    for e in log_m:
+        for i, lanes in enumerate(e['lanes']):
+            per_round[i].append(lanes)
+    rounds = {f'round {i + 1}': dict(marches=len(v), lanes_mean=float(
+        np.mean(v)), lanes_max=int(max(v))) for i, v in per_round.items()}
+    waves = MEDIA_WAVES
+    rep = dict(
+        ms_per_wave=spread(ms), live_rays_per_s=live / (sum(ms) / 1e3),
+        launches_per_wave={k: v / waves for k, v in launches.items()},
+        march_closest_launches_per_wave=sum(
+            e['launches'] for e in march_c) / waves,
+        fog_closest_launches_per_wave=sum(
+            e['launches'] for e in fog_c) / waves,
+        fog_probe_queries_per_wave=len(fog_c) / waves,
+        fog_probe_lanes_per_wave=sum(e['lanes'] for e in fog_c) / waves,
+        marches_per_wave=len(log_m) / waves,
+        march_rounds_per_wave=sum(len(e['lanes']) for e in log_m) / waves,
+        march_rounds=rounds,
+        march_overflow_round_lanes=sum(e['overflow_round'] for e in log_m),
+        ss_reservoir_overflow=overflow, profiled_split_ms=split,
+        profiled_inclusive_ms=inclusive, profiled_busy_ms=busy,
+        profiled_kernels=n_kern, profile_seconds=profile_s,
+        image_mean=float(img.mean()))
+    log(f'scene O 1080p, 2.4M tris, fog + subsurface (config 5), env map, '
+        f'3 bounces, compaction ({card}): ms per wave median '
+        f'{rep["ms_per_wave"]["median"]:.1f} (min {min(ms):.1f}, max '
+        f'{max(ms):.1f}; {", ".join(f"{x:.1f}" for x in ms)}); '
+        f'{rep["live_rays_per_s"]:.4g} live rays/s; launches per wave '
+        f'{rep["launches_per_wave"]}; closest-hit launches per wave in the '
+        f'march {rep["march_closest_launches_per_wave"]:.1f}, in the fog '
+        f'probe {rep["fog_closest_launches_per_wave"]:.1f}')
+    log(f'  fog probe queries per wave {rep["fog_probe_queries_per_wave"]:.1f}'
+        f' ({rep["fog_probe_lanes_per_wave"]:.0f} lanes); marches per wave '
+        f'{rep["marches_per_wave"]:.1f}, rounds per wave '
+        f'{rep["march_rounds_per_wave"]:.1f}; per round: '
+        + '; '.join(f'{k}: {v["marches"]} marches, lanes mean '
+                    f'{v["lanes_mean"]:.0f}, max {v["lanes_max"]}'
+                    for k, v in rounds.items())
+        + f'; overflow stat {overflow}')
+    log(f'  profiled wave (torch.profiler, device time): '
+        + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
+        + f'; launched inside each range: '
+        + ', '.join(f'{k} {v:.1f} ms' for k, v in inclusive.items())
+        + f'; all {n_kern} kernels {busy:.1f} ms, busy '
+        f'{busy / rep["ms_per_wave"]["median"]:.3f} of the median wave '
+        f'(profiled and read in {profile_s:.1f} s)')
+    return launches, rep
+
+
+def media_grads(sc, cam, card):
+    """Scene O at GRAD_W x GRAD_H, 2 spp: the gradient of the float64 mean
+    image with respect to the fog density and the mesh's g_ksub, autograd
+    on the card, against central differences with the gradcheck ladder's
+    steps and tolerances (tests/test_gradcheck_ladder.py:213-222: 5e-3
+    of max(|value|, 1); 0.08 for the fog density, 0.1 for ksub), with the
+    integrator's weight cull off: the cull ends a path whose throughput
+    falls below a threshold, so the image jumps where a lane crosses it
+    and the central difference holds those jumps, which no derivative
+    has.  The same comparison with the cull on is measured and reported."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.render import integrator as integ
+    from pathtracer_tpu_torch.render import renderer as rnd
+    cfg = pt.RenderConfig(width=GRAD_W, height=GRAD_H, nrays=2,
+                          nb_bounces=BOUNCES, compact_rays=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(GRAD_W, GRAD_H),
+                         device=sc.device)
+    mesh = sc.meshes[0]
+    base = {'fog_density': sc.fog_density, 'g_ksub': mesh.g_ksub}
+
+    def loss_of(leaves):
+        s = sc.replace(fog_density=leaves['fog_density'],
+                       meshes=(mesh.replace(g_ksub=leaves['g_ksub']),))
+        return rnd.render_unsplatted(s, cam, cp, cfg)[0].double().mean() \
+            / RADIANCE
+
+    out, cull = {}, integ.WEIGHT_CULL
+    for label, threshold in (('cull_off', 0.0), ('cull_on', cull)):
+        integ.WEIGHT_CULL = threshold
+        try:
+            leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
+            loss, ms = timed(lambda: loss_of(leaves))
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            check_grads(grads, f'scene O ({label})')
+            log(f'scene O gradients {GRAD_W}x{GRAD_H}x2spp, weight cull '
+                f'{threshold:g} ({card}): forward {ms:.1f} ms')
+            out[label] = {}
+            for name, idx, rtol in (('fog_density', (), 0.08),
+                                    ('g_ksub', (0, 0), 0.1)):
+                step = 5e-3 * max(abs(float(base[name][idx])), 1.0)
+                out[label][name] = dict(index=list(idx), **fd_check(
+                    loss_of, base, name, idx, step,
+                    rtol if label == 'cull_off' else None, grads,
+                    ladder=True))
+        finally:
+            integ.WEIGHT_CULL = cull
+    return out
+
+
+def ghost_flagship(dev, cam, card):
+    """The flagship with a ghost sphere and a 1080 x 1920 background
+    photo at 1920x1080, 1 sample per wave, 3 bounces, compaction: one
+    warm-up and MEDIA_WAVES timed waves; the image finite and lit."""
+    import pathtracer_tpu_torch as pt
+    sc = flagship_scene(dev, ghost=True, background=background_photo())
+    if not sc.ghost_enabled or sc.background is None:
+        raise AssertionError('the ghost flagship lost its ghost or photo')
+    cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    r = pt.Renderer(sc, cam, cfg)
+    r.step()
+    rays0 = r.rays_traced
+    ms = [timed(r.step)[1] for _ in range(MEDIA_WAVES)]
+    img = r.display().cpu().numpy()
+    if not np.isfinite(img).all() or not img.mean() > 0.02:
+        raise AssertionError('ghost flagship image not finite / not lit')
+    rep = dict(ms_per_wave=spread(ms), live_rays_per_s=(
+        r.rays_traced - rays0) / (sum(ms) / 1e3),
+        image_mean=float(img.mean()))
+    log(f'ghost flagship 1080p + 1080x1920 background, 3 bounces, '
+        f'compaction ({card}): ms per wave median '
+        f'{rep["ms_per_wave"]["median"]:.1f} (min {min(ms):.1f}, max '
+        f'{max(ms):.1f}); {rep["live_rays_per_s"]:.4g} live rays/s')
+    return sc, rep
+
+
+def media_phase(dev, cam, card):
+    """Scene O: build, the march sweep check, the card against the CPU
+    (scene O's geometry at MEDIA_REF_LAT, and the ghost + background
+    flagship), the 1080p waves, the fog and ksub gradients; the ghost
+    flagship's waves.  Returns the launches of scene O's waves and the
+    phase's numbers."""
+    steps = {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    sc = media_scene(dev)
+    step('build')
+    m0 = sc.meshes[0]
+    log(f'scene O build {steps["build"]:.1f} s: {m0.n_tris} tris, '
+        f'{m0.n_clusters} clusters, backface cull {m0.backface_cull}, fog '
+        f'{sc.fog_enabled} (type {sc.fog_type}, phase {sc.fog_phase_type}), '
+        f'subsurface {sc.ss_enabled}, env map {tuple(sc.envmap.shape)}')
+    if not (sc.fog_enabled and sc.ss_enabled) or m0.backface_cull:
+        raise AssertionError('scene O lost its fog or its subsurface mesh')
+    check = march_sweep_check(sc, cam, dev)
+    del check['t']
+    step('march_check')
+    small = media_scene(dev, lat=MEDIA_REF_LAT, env=(256, 512))
+    if small.meshes[0].n_tris <= 65536:
+        raise AssertionError('the reference sphere would not march')
+    flips = {'scene_o_small': card_vs_cpu(small, 'scene O (small mesh)')}
+    del small
+    step('reference_scene_o')
+    ghost_sc, ghost = ghost_flagship(dev, cam, card)
+    step('ghost_waves')
+    flips['ghost_background'] = card_vs_cpu(ghost_sc,
+                                            'ghost + background flagship')
+    del ghost_sc
+    step('reference_ghost')
+    launches, rep = media_main(sc, cam, card)
+    step('waves')
+    grads = media_grads(sc, cam, card)
+    step('grads')
+    log('media phase steps (s): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
+    return launches, dict(scene_o=rep, march_check=check,
+                          card_vs_cpu_flipped=flips, scene_o_grads=grads,
+                          ghost_flagship=ghost, seconds=steps)
 
 
 def build_kernels():
@@ -2214,6 +2617,9 @@ def main():
     t0 = time.perf_counter()
     mat_launches, mat = materials_phase(dev, cam, card)
     log(f'materials phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    med_launches, med = media_phase(dev, cam, card)
+    log(f'media phase {time.perf_counter() - t0:.1f} s')
     for k in kernels:
         k['launches'] = launches[k['name']]
         k['launches_grad_forward'] = mesh['launches_forward'][k['name']]
@@ -2234,6 +2640,9 @@ def main():
         f'cluster_sweep {abl["cluster_sweep_ps_per_pair"]:.3f} on the same '
         f'inputs, {abl["cluster_sweep_main_ps_per_pair"]:.3f} on the main '
         f'path\'s first round')
+    for k in kernels:
+        k['launches_media'] = med_launches.get(k['name'], 0)
+    log(json.dumps({'media': med}))
     log(json.dumps({'materials': mat}))
     log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))
     log(card)

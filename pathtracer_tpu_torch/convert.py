@@ -6,10 +6,11 @@ it never imports JAX.  `scene_from_numpy` builds the port's SceneArrays
 from such a dict, including each mesh's tier arrays (the clustered arrays
 re-laid out by ops.cluster.from_tpu_arrays, or the soup, BVH and packed
 packet-tier nodes of a mesh uploaded with use_cluster=False),
-shade_pack, flags and static metadata, and the materials: group textures
+shade_pack, flags and static metadata, the materials (group textures
 and channel atlases, analytic-row textures, the env map and the measured
-BRDF tables with their per-row selector.  So both packages can trace
-exactly the same scene.
+BRDF tables with their per-row selector), and the media: fog parameters
+and flags, ghost rows, subsurface flags and the background photo.  So
+both packages can trace exactly the same scene.
 """
 
 from __future__ import annotations
@@ -68,8 +69,6 @@ def _atlas(d, dev):
 def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
     if m.get('scene_axis') is not None:
         _refuse('scene-axis sharding', 'Queue 1 item 12')
-    if any(gt.get('ksub') is not None for gt in m['textures']):
-        _refuse('ksub subsurface maps', 'Queue 1 item 8')
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=dev)
@@ -123,25 +122,17 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
     (None: the card)."""
     f = fields
     device = device_mod.resolve(device)
-    if f.get('fog_enabled'):
-        _refuse('fog', 'Queue 1 item 8')
-    if f.get('ss_enabled'):
-        _refuse('ksub subsurface scattering', 'Queue 1 item 8')
-    if f.get('ghost_enabled'):
-        _refuse('ghost objects', 'Queue 1 item 8')
-    if f.get('background') is not None:
-        _refuse('background photos', 'Queue 1 item 8')
     if f.get('pointsets') or f.get('yarns'):
         _refuse('pointsets and yarns', 'Queue 1 item 9')
-    if any(t is not None and t.get('ksub') is not None
-           for t in f.get('obj_textures') or ()):
-        _refuse('ksub subsurface maps', 'Queue 1 item 8')
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)
 
     def bools(x):
         return torch.as_tensor(np.array(x, bool), device=device)
+
+    def opt(name, to):
+        return None if f.get(name) is None else to(f[name])
 
     return scn.SceneArrays(
         obj_type=torch.as_tensor(np.array(f['obj_type'], np.int32),
@@ -169,4 +160,15 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
             merl_mod.MeasuredBRDF(data=f32(t['data']), kind=int(t['kind']),
                                   dims=tuple(int(x) for x in t['dims']),
                                   path=str(t.get('path') or ''))
-            for t in f.get('measured_brdfs') or ()))
+            for t in f.get('measured_brdfs') or ()),
+        ghost=opt('ghost', bools),
+        **{k: opt(k, f32) for k in ('fog_density', 'fog_absorption',
+                                    'fog_density_decay',
+                                    'fog_absorption_decay', 'phase_aniso',
+                                    'ground_level', 'background')},
+        fog_enabled=bool(f.get('fog_enabled', False)),
+        fog_type=int(f.get('fog_type', 0)),
+        fog_phase_type=int(f.get('fog_phase_type', 0)),
+        ss_enabled=bool(f.get('ss_enabled', False)),
+        ss_obj_ok=opt('ss_obj_ok', bools),
+        ghost_enabled=bool(f.get('ghost_enabled', False)))

@@ -30,3 +30,11 @@ def random_phong(r_dir, phong_exponent, r1, r2):
     ly = torch.sin(TWO_PI * r1) * fac
     t1, t2 = vec.onb(r_dir)
     return z[..., None] * r_dir + lx[..., None] * t1 + ly[..., None] * t2
+
+
+def random_uniform_sphere(r1, r2):
+    """Uniform direction on the unit sphere (reference: Vector.h:604-615)."""
+    s = torch.sqrt(torch.clamp_min(r2 * (1.0 - r2), 0.0))
+    return torch.stack([2.0 * torch.cos(TWO_PI * r1) * s,
+                        2.0 * torch.sin(TWO_PI * r1) * s,
+                        1.0 - 2.0 * r2], dim=-1)

@@ -90,6 +90,19 @@ def _pixel_order(w, h, tile_size, device):
     return ii.reshape(-1), jj.reshape(-1), (lambda x: x)
 
 
+def _background_pixels(sc, pix_i, pix_j, w, h):
+    """Per-lane background photo colour (reference: Raytracer.cpp:260-266
+    index math), or None without a photo."""
+    if sc.background is None:
+        return None
+    bgh, bgw = sc.background.shape[0], sc.background.shape[1]
+    bi = torch.clamp((pix_i.to(torch.float32) / h * bgh).to(torch.int64),
+                     0, bgh - 1)
+    bj = torch.clamp((pix_j.to(torch.float32) / w * bgw).to(torch.int64),
+                     0, bgw - 1)
+    return sc.background[bi, bj]
+
+
 def _camera_paths(cam, cfg: RenderConfig, pix_i, pix_j, k: int, cp_table):
     """Per-path streams, camera draws (dx, dy, dxa, dya), primary rays and
     the rotated lattice sample for sample index k."""
@@ -128,12 +141,13 @@ def render_unsplatted(sc: scn.SceneArrays, cam: cam_mod.Camera, cp_table,
     sc = scn.camera_backface_gate(sc, cam.position.cpu().numpy())
     w, h = cfg.width, cfg.height
     pix_i, pix_j, _ = _pixel_order(w, h, 0, sc.device)
+    bg_pixel = _background_pixels(sc, pix_i, pix_j, w, h)
 
     def per_sample(k):
         st, org, dirn, _, _, cp_r12 = _camera_paths(cam, cfg, pix_i, pix_j,
                                                     k, cp_table)
         return integrator.trace_paths(
-            sc, org, dirn, st, cp_r12, cfg.nb_bounces,
+            sc, org, dirn, st, cp_r12, cfg.nb_bounces, bg_pixel=bg_pixel,
             sort_rays=cfg.sort_rays or cfg.compact_rays,
             compact_rays=cfg.compact_rays)[0]
 
@@ -177,26 +191,30 @@ class Renderer:
         self.image, self.sample_count = film_mod.alloc(self.film)
         self.samples_done = 0
         self._rays = []         # per-bounce live-lane counts (device)
+        self._ss_over = []      # reservoir-march overflows per sample
 
     def step(self, nsamples: Optional[int] = None):
         """Trace the next `nsamples` samples per pixel (default: one wave)."""
         nsamples = nsamples or self.cfg.samples_per_wave
         cfg = self.cfg
         pix_i, pix_j, untile = self._order
+        bg_pixel = _background_pixels(self.scene, pix_i, pix_j, cfg.width,
+                                      cfg.height)
         for k in range(self.samples_done, self.samples_done + nsamples):
             # lane i takes CP shift cp_table[i] in lane (tile) order, as
             # the JAX renderer does (ROADMAP Queue 3)
             st, org, dirn, dx, dy, cp_r12 = _camera_paths(
                 self.cam, cfg, pix_i, pix_j, k, self.cp_table)
-            color, _, _, live = integrator.trace_paths(
+            color, _, _, live, ss_over = integrator.trace_paths(
                 self.scene, org, dirn, st, cp_r12, cfg.nb_bounces,
-                sort_rays=cfg.sort_rays or cfg.compact_rays,
+                bg_pixel=bg_pixel, sort_rays=cfg.sort_rays or cfg.compact_rays,
                 compact_rays=cfg.compact_rays)
             film_mod.splat(self.film, self.image, self.sample_count,
                            untile(color), untile(dx), untile(dy))
             # live-lane accounting: one closest-hit and one NEE shadow
             # sweep per live lane per bounce
             self._rays.append(2 * torch.stack(live).sum())
+            self._ss_over.append(ss_over)
         self.samples_done += nsamples
         return self
 
@@ -229,4 +247,7 @@ class Renderer:
             'time_per_sample_s': seconds / spp,
             'rays_traced': rays,
             'rays_per_second': rays / max(seconds, 1e-12),
+            # subsurface probes lost to the crossing march's slot budget
+            # (RESERVOIR_MAX_CROSSINGS), each a biased miss
+            'ss_reservoir_overflow': int(sum(int(x) for x in self._ss_over)),
         }

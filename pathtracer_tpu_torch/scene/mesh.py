@@ -28,8 +28,9 @@ A MERGED mesh (`merge_mesh_entries`, world_space) bakes several mesh
 objects into one world-space BVH; `group_rows` maps each of its material
 groups to its source object's row.
 
-Not ported yet: subsurface materials and ksub maps (ROADMAP Queue 1 item
-8, refused by scene.build_scene).
+Subsurface materials (ksub constants, `default_ksub` / `group_ksub`, and
+ksub maps) clear the backface cull: the subsurface probe relocates paths
+inside the mesh.
 """
 
 from __future__ import annotations

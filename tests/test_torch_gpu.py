@@ -31,6 +31,13 @@ allowance, and its kd-texture gradient within 2% of the largest |grad|;
 every closest-hit sweep of the cut-out rounds equals its plain version
 bit for bit under the rising strict floor; atlas sampling on the card
 equals the CPU bit for bit.
+Media: a small scene O (chip_smoke.media_objects: config 5's fog and
+subsurface material on a 79,600-triangle sphere, whose probes march) and
+the ghost + background flagship render on the card like the CPU plain
+path, per sample with the same allowance; every closest-hit sweep of a
+reservoir march equals its plain version bit for bit under the rising
+floor with the backface cull off, and the march's exit points equal the
+CPU's; the fog density and ksub gradients within 2% of the CPU route's.
 """
 
 import numpy as np
@@ -892,3 +899,77 @@ def test_texel_gradient_matches_cpu_plain_path(cuda):
     card, cpu = _texel_grad(cuda), _texel_grad('cpu')
     assert np.isfinite(card).all() and np.count_nonzero(cpu) > 10
     assert np.abs(card - cpu).max() <= 0.02 * np.abs(cpu).max()
+
+
+def _media_samples(dev, leaves=None):
+    """A small scene O at 32x24, 2 spp, 3 bounces, compaction; with
+    `leaves` (fog_density, g_ksub) replaced."""
+    sc = chip_smoke.media_scene(dev, lat=200, env=(32, 64))
+    if leaves is not None:
+        sc = sc.replace(fog_density=leaves['fog_density'], meshes=(
+            sc.meshes[0].replace(g_ksub=leaves['g_ksub']),))
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(32, 24), device=dev)
+    cfg = rnd.RenderConfig(width=32, height=24, nrays=2, nb_bounces=3,
+                           compact_rays=True)
+    return rnd.render_unsplatted(sc, cam, cp, cfg)
+
+
+def _ghost_samples(dev):
+    sc = chip_smoke.flagship_scene(
+        dev, ghost=True, background=chip_smoke.background_photo(24, 32))
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(32, 24), device=dev)
+    cfg = rnd.RenderConfig(width=32, height=24, nrays=2, nb_bounces=3,
+                           compact_rays=True)
+    return rnd.render_unsplatted(sc, cam, cp, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['scene_o', 'ghost_background'])
+def test_media_scene_matches_cpu_plain_path(cuda, scene):
+    render = _media_samples if scene == 'scene_o' else _ghost_samples
+    out = {d.type: render(d)[1].cpu().numpy()
+           for d in (cuda, torch.device('cpu'))}
+    assert np.isfinite(out['cuda']).all() and out['cpu'].max() > 0
+    scale = max(np.abs(out['cpu']).max(), 1e-6)
+    rel = np.abs(out['cuda'] - out['cpu']).max(-1) / scale
+    flipped = rel > 1e-3
+    assert flipped.mean() < 0.05
+    assert rel[~flipped].max() < 1e-3
+    assert abs(out['cuda'].mean() - out['cpu'].mean()) / scale < 0.02
+
+
+@pytest.mark.gpu
+def test_march_sweeps_match_plain(cuda):
+    """Every closest-hit sweep of one reservoir march equals
+    cluster_sweep_plain on the card (chip_smoke.march_sweep_check), and
+    the march's rounds and exit points equal the CPU plain path's."""
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        res = chip_smoke.march_sweep_check(
+            chip_smoke.media_scene(dev, lat=200, env=(32, 64)), cam.to(dev),
+            dev, size=(64, 48))
+        assert res['floor_lanes'] > 0 and res['exits_found'] > 0
+        out[dev.type] = res
+    assert out['cuda']['lanes_per_round'] == out['cpu']['lanes_per_round']
+    assert torch.equal(out['cuda']['t'].cpu(), out['cpu']['t'])
+
+
+def _media_grads(dev):
+    base = chip_smoke.media_scene(dev, lat=200, env=(32, 64))
+    leaves = {'fog_density': base.fog_density.clone().requires_grad_(),
+              'g_ksub': base.meshes[0].g_ksub.clone().requires_grad_()}
+    mean, _ = _media_samples(dev, leaves)
+    return [g.cpu().numpy() for g in torch.autograd.grad(
+        mean.mean(), list(leaves.values()))]
+
+
+@pytest.mark.gpu
+def test_fog_and_ksub_gradients_match_cpu_plain_path(cuda):
+    """The gradients of the mean image with respect to the fog density and
+    the mesh's g_ksub: on the card within 2% of the CPU route's."""
+    for card, cpu in zip(_media_grads(cuda), _media_grads('cpu')):
+        assert np.isfinite(card).all() and np.abs(cpu).max() > 0
+        assert np.abs(card - cpu).max() <= 0.02 * np.abs(cpu).max()

@@ -8,8 +8,8 @@ Tolerances:
     tests/test_obj_native.py with MTL binding, read_off, read_vrml,
     load_mesh, save_obj / export_mtl, load_image, and HDR written by either
     package and read by the other: bit for bit;
-  * configs 1-4 from their JSON with tests/test_config_parity.py's
-    stand-in assets, loaded by both packages (each its own loader and
+  * configs 1-5 from their JSON with tests/test_config_parity.py's
+    stand-in assets (config 5: fog and a subsurface mesh), loaded by both packages (each its own loader and
     build_scene) and rendered at 12x10 x 2 spp with the config's bounces:
     per sample with tests/test_torch_render.py's allowance (fewer than 5%
     beyond 1e-3 of the image scale, the rest within 1e-3, means within 2%);
@@ -168,7 +168,7 @@ def test_images_and_hdr_cross_packages(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Scene JSON: configs 1-4 through both loaders
+# Scene JSON: configs 1-5 through both loaders
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope='module')
@@ -176,11 +176,15 @@ def ladder_dir(tmp_path_factory):
     """Config JSONs + tests/test_config_parity.py's stand-in assets."""
     d = tmp_path_factory.mktemp('torch_ladder')
     for cfg in ('config1_analytic.json', 'config2_mesh.json',
-                'config3_transparent.json', 'config4_merl_dof.json'):
+                'config3_transparent.json', 'config4_merl_dof.json',
+                'config5_office.json'):
         shutil.copy(os.path.join(tcp.CONFIG_DIR, cfg), d / cfg)
     tcp._write_obj(d / 'lion.obj', procgen.sphere_mesh(8, 8, radius=1.0))
     tcp._write_obj(d / 'bot.obj',
                    procgen.sphere_mesh(8, 8, radius=1.0, displace_amp=0.15))
+    # tests/test_gradcheck_ladder.py:56-57's stand-in
+    tcp._write_obj(d / 'antiqueOffice.obj',
+                   procgen.sphere_mesh(6, 6, radius=1.0))
     rng = np.random.default_rng(7)
     jimg.save_hdr(str(d / 'env.hdr'),
                   rng.uniform(0.05, 3.0, (8, 16, 3)).astype(np.float32))
@@ -189,7 +193,8 @@ def ladder_dir(tmp_path_factory):
 
 
 @pytest.mark.parametrize('name', ['config1_analytic', 'config2_mesh',
-                                  'config3_transparent', 'config4_merl_dof'])
+                                  'config3_transparent', 'config4_merl_dof',
+                                  'config5_office'])
 def test_configs_from_json_render(ladder_dir, name):
     path = str(ladder_dir / f'{name}.json')
     jo, jli, jcam, jcfg, jex = jjson.load_scene(path)

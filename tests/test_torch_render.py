@@ -145,10 +145,16 @@ def test_build_scene_equals_conversion(mesh_scene):
 
 
 def test_unported_features_raise():
+    """Features still outside the port name their ROADMAP item: a
+    lenticular camera, a pointset and the denoiser feed."""
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tpt.make_camera(*CAM, is_lenticular=True)
     objs = tscn.default_objects()
-    objs.append(tscn.sphere((0.0, 0.0, 0.0), 1.0, ghost=True))
+    objs.append(tscn.ObjectSpec(obj_type=tscn.POINTSET, mesh_data={
+        'points': np.zeros((4, 3), np.float32)}))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tscn.build_scene(objs, tscn.default_light_intensity(), device='cpu')
+    sc = tscn.build_scene(tscn.default_objects(), 1.0, device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tscn.build_scene(tscn.default_objects(), 1.0,
-                         fog={'density': 0.1}, device='cpu')
+        tpt.Renderer(sc, tpt.make_camera(*CAM),
+                     trnd.RenderConfig(width=8, height=6, has_denoiser=True))
