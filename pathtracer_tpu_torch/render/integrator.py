@@ -378,7 +378,8 @@ def _bounce(sc, depth: int, st: PathState, cp_r12, bg_pixel=None
     # limit lets the mesh any-hit cull drop every other lane
     nee_gate = is_diffuse & (cos_surf >= 0.0)
     blocked = scn.intersect_shadow(
-        sc, shadow_org, wi, torch.where(nee_gate, dist, torch.zeros_like(dist)),
+        sc, shadow_org, wi,
+        torch.where(nee_gate, dist, torch.zeros_like(dist)),
         avoid_ghosts=True)
     shadowed = (cos_surf < 0.0) | blocked
     f_brdf = _eval_brdf(sc, hit, wi, -ray_dir, nrm)

@@ -36,8 +36,8 @@ subsurface material on a 79,600-triangle sphere, whose probes march) and
 the ghost + background flagship render on the card like the CPU plain
 path, per sample with the same allowance; every closest-hit sweep of a
 reservoir march equals its plain version bit for bit under the rising
-floor with the backface cull off, and the march's exit points equal the
-CPU's; the fog density and ksub gradients within 2% of the CPU route's.
+floor with the backface cull off, and the march's exit points agree with
+the CPU's within 1e-5; the fog density and ksub gradients within 2% of the CPU route's.
 """
 
 import numpy as np
@@ -944,7 +944,8 @@ def test_media_scene_matches_cpu_plain_path(cuda, scene):
 def test_march_sweeps_match_plain(cuda):
     """Every closest-hit sweep of one reservoir march equals
     cluster_sweep_plain on the card (chip_smoke.march_sweep_check), and
-    the march's rounds and exit points equal the CPU plain path's."""
+    the march's rounds and found exits equal the CPU plain path's, the
+    exit points within 1e-5."""
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
     out = {}
     for dev in (cuda, torch.device('cpu')):
@@ -954,7 +955,13 @@ def test_march_sweeps_match_plain(cuda):
         assert res['floor_lanes'] > 0 and res['exits_found'] > 0
         out[dev.type] = res
     assert out['cuda']['lanes_per_round'] == out['cpu']['lanes_per_round']
-    assert torch.equal(out['cuda']['t'].cpu(), out['cpu']['t'])
+    ok = out['cpu']['exit_ok']
+    assert torch.equal(out['cuda']['exit_ok'].cpu(), ok)
+    # the exit points come from the sweeps' hits through torch arithmetic,
+    # which the card rounds in its own order
+    torch.testing.assert_close(out['cuda']['exit_p'].cpu()[ok],
+                               out['cpu']['exit_p'][ok], rtol=1e-5,
+                               atol=1e-5)
 
 
 def _media_grads(dev):
