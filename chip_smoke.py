@@ -106,10 +106,10 @@
    and the plain version find that triangle again at t == floor); then a
    64x48x1 spp render on the card against the CPU plain path (the
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
-   sample per wave, compaction: one warm-up and five waves timed one by
-   one (median, min, max; live rays/s; sweep launches per wave, counts set
-   to 0 before them; the cut-out queries and the lanes entering each
-   round), and one wave under torch.profiler split into the two sweeps,
+   sample per wave, compaction: one warm-up and MAT_WAVES (3) waves timed
+   one by one (median, min, max; live rays/s; sweep launches per wave,
+   counts set to 0 before them; the cut-out queries and the lanes entering
+   each round), and one wave under torch.profiler split into the sweeps,
    the culls and the texture and env-map lookups (record_function ranges
    put around them by `annotated`) and the rest; both sweeps must launch
    and the image be finite and lit; then autograd of a 480x270x2 spp
@@ -134,13 +134,14 @@
    sphere (whose probes march) and of the flagship with a ghost sphere
    and a 1080x1920 background photo; the ghost flagship's 1080p waves
    (one warm-up, MEDIA_WAVES timed); then scene O's Renderer at 1920x1080,
-   3 bounces, 1 sample per wave, compaction: one warm-up and MEDIA_WAVES
-   waves timed one by one (median, min, max; live rays/s; every launch
-   count set to 0 before them; closest-hit launches inside the march and
-   inside the fog probe; fog probe queries and lanes; marches, rounds and
-   the lanes entering each round), the overflow stat (must be 0), one
-   wave under torch.profiler split into the sweeps, the culls, the march,
-   the fog and the rest, with the device-busy share; then autograd of a
+   3 bounces, 1 sample per wave, compaction: one wave under
+   torch.profiler, which is also the warm-up, split into the sweeps, the
+   culls, the march, the fog and the rest, with the device-busy share;
+   MEDIA_WAVES waves timed one by one (median, min, max; live rays/s;
+   every launch count set to 0 before them; closest-hit launches inside
+   the march and inside the fog probe; fog probe queries and lanes;
+   marches, rounds and the lanes entering each round), the overflow stat
+   (must be 0); then autograd of a
    480x270x2 spp float64 mean image with respect to the fog density and
    the mesh's g_ksub against central differences with the gradcheck
    ladder's steps and tolerances, with the integrator's weight cull off
@@ -1651,6 +1652,7 @@ def probe_phase(dev):
 
 MAT_SEED = 0
 MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
+MAT_WAVES = 3           # timed 1080p waves of scene M, after a warm-up
 GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
 C4_GRAD = 128           # C4's gradient check, square, 4 spp
 ANNOTATED = ('cull', 'texture')
@@ -1941,7 +1943,7 @@ def card_vs_cpu(sc, name):
 
 def material_main(sc, cam, card):
     """Scene M's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
-    compaction: one warm-up wave, then five waves timed one by one (the
+    compaction: one warm-up wave, then MAT_WAVES waves timed one by one (the
     sweep launch counts set to 0 just before them and read just after),
     the cut-out rounds logged, then one wave under torch.profiler."""
     import torch
@@ -1958,7 +1960,7 @@ def material_main(sc, cam, card):
     scn.CUTOUT_LOG = []
     rays0, ms = r.rays_traced, []
     try:
-        for _ in range(5):
+        for _ in range(MAT_WAVES):
             ms.append(timed(r.step)[1])
     finally:
         log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
@@ -1978,7 +1980,7 @@ def material_main(sc, cam, card):
     for name, k in launches.items():
         if k <= 0:
             raise AssertionError(f'{name} never launched on scene M')
-    queries = len(log_rounds) / 5
+    queries = len(log_rounds) / MAT_WAVES
     per_round = collections.defaultdict(list)
     for e in log_rounds:
         for i, lanes in enumerate(e['lanes']):
@@ -1988,7 +1990,7 @@ def material_main(sc, cam, card):
     left = int(sum(e['left'] for e in log_rounds))
     rep = dict(ms_per_wave=spread(ms),
                live_rays_per_s=live / (sum(ms) / 1e3),
-               sweep_launches_per_wave={k: v / 5 for k, v in
+               sweep_launches_per_wave={k: v / MAT_WAVES for k, v in
                                         launches.items()},
                cutout_queries_per_wave=queries, cutout_rounds=rounds,
                cutout_lanes_left=left, profiled_split_ms=split,
@@ -2012,12 +2014,10 @@ def material_main(sc, cam, card):
     return launches, rep
 
 
-def fd_check(loss_of, base, name, idx, step, rtol, grads, ladder=False):
+def fd_check(loss_of, base, name, idx, step, rtol, grads):
     """Central difference of loss_of at base[name][idx] +- step against
-    the autograd gradient grads[name][idx]: within rtol of the autograd
-    value, or with `ladder` within rtol of the larger of the two
-    (tests/test_gradcheck_ladder.py's rule); rtol None: measured and
-    returned, held to nothing."""
+    the autograd gradient grads[name][idx], within rtol of the autograd
+    value; rtol None: measured and returned, held to nothing."""
     import torch
     delta = torch.zeros_like(base[name])
     delta[idx] = step
@@ -2031,9 +2031,7 @@ def fd_check(loss_of, base, name, idx, step, rtol, grads, ladder=False):
         f'tolerance {rtol})')
     if rtol is None:
         return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
-    ok = (abs(got - want) < rtol * max(abs(want), abs(got)) if ladder
-          else np.isclose(want, got, rtol=rtol, atol=0.0))
-    if not (want != 0.0 and ok):
+    if not (want != 0.0 and np.isclose(want, got, rtol=rtol, atol=0.0)):
         raise AssertionError(f'{name}: autograd {got:.6g} against a '
                              f'central difference {want:.6g}')
     return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
@@ -2378,10 +2376,10 @@ def media_counters():
 
 def media_main(sc, cam, card):
     """Scene O's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
-    compaction: one warm-up wave, then MEDIA_WAVES waves timed one by one
-    (every launch count set to 0 just before them and read just after,
-    the marches' rounds and lanes logged), then one wave under
-    torch.profiler.  The overflow stat must stay 0."""
+    compaction: one wave under torch.profiler, which is also the warm-up,
+    then MEDIA_WAVES waves timed one by one (every launch count set to 0
+    just before them and read just after, the marches' rounds and lanes
+    logged).  The overflow stat must stay 0."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -2390,8 +2388,9 @@ def media_main(sc, cam, card):
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
-    r.step()                                    # warm-up
-    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
+    profile_s = time.perf_counter() - t0
     counters = {'cluster_sweep_closest': cl.cluster_sweep,
                 'cluster_sweep_any': cl.cluster_sweep_any,
                 'cull_tree': cl.cull_tree, 'packet_hit': pb.packet_hit}
@@ -2408,9 +2407,6 @@ def media_main(sc, cam, card):
     launches = {k: f.launches for k, f in counters.items()}
     live = r.rays_traced - rays0
     overflow = r.stats(1.0)['ss_reservoir_overflow']
-    t0 = time.perf_counter()
-    split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
-    profile_s = time.perf_counter() - t0
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('scene O image not finite / wrong shape')
@@ -2480,8 +2476,9 @@ def media_grads(sc, cam, card):
     image with respect to the fog density and the mesh's g_ksub, autograd
     on the card, against central differences with the gradcheck ladder's
     steps and tolerances (tests/test_gradcheck_ladder.py:213-222: 5e-3
-    of max(|value|, 1); 0.08 for the fog density, 0.1 for ksub), with the
-    integrator's weight cull off: the cull ends a path whose throughput
+    of max(|value|, 1); 0.08 for the fog density, 0.1 for ksub, here
+    relative to the autograd value), with the integrator's weight cull
+    off: the cull ends a path whose throughput
     falls below a threshold, so the image jumps where a lane crosses it
     and the central difference holds those jumps, which no derivative
     has.  The fog density's comparison with the cull on is measured and
@@ -2523,8 +2520,7 @@ def media_grads(sc, cam, card):
                 step = 5e-3 * max(abs(float(base[name][idx])), 1.0)
                 out[label][name] = dict(index=list(idx), **fd_check(
                     loss_of, base, name, idx, step,
-                    rtol if label == 'cull_off' else None, grads,
-                    ladder=True))
+                    rtol if label == 'cull_off' else None, grads))
         finally:
             integ.WEIGHT_CULL = cull
     return out

@@ -142,6 +142,7 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         kd=f32(f['kd']), ks=f32(f['ks']), ne=f32(f['ne']),
         ksub=f32(f['ksub']), transp=bools(f['transp']),
         refr_index=f32(f['refr_index']), miroir=bools(f['miroir']),
+        ghost=bools(f['ghost']),
         trans=f32(f['trans']), inv_trans=f32(f['inv_trans']),
         rot=f32(f['rot']),
         identity_transform=bool(f['identity_transform']),
@@ -161,7 +162,6 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
                                   dims=tuple(int(x) for x in t['dims']),
                                   path=str(t.get('path') or ''))
             for t in f.get('measured_brdfs') or ()),
-        ghost=opt('ghost', bools),
         **{k: opt(k, f32) for k in ('fog_density', 'fog_absorption',
                                     'fog_density_decay',
                                     'fog_absorption_decay', 'phase_aniso',
