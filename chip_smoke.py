@@ -141,12 +141,12 @@
    every launch count set to 0 before them; closest-hit launches inside
    the march and inside the fog probe; fog probe queries and lanes;
    marches, rounds and the lanes entering each round), the overflow stat
-   (must be 0); then autograd of a
-   480x270x2 spp float64 mean image with respect to the fog density and
-   the mesh's g_ksub against central differences with the gradcheck
-   ladder's steps and tolerances, with the integrator's weight cull off
-   (with it on, the same comparison is measured and reported: the cull's
-   threshold makes the image jump where a lane crosses it).
+   (must be 0); then autograd of a 320x180x2 spp float64 mean image with
+   respect to the fog density and the mesh's g_ksub against central
+   differences with the gradcheck ladder's steps and tolerances, with the
+   integrator's weight cull off (with it on, the fog density's comparison
+   is measured and reported: the cull's threshold makes the image jump
+   where a lane crosses it).
 
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
@@ -2224,6 +2224,7 @@ MEDIA_WAVES = 3         # timed 1080p waves of scene O, after a warm-up
 MEDIA_REF_LAT = 200     # the card-vs-CPU check's sphere: 79,600 triangles,
                         # above MESH_RESERVOIR_MAX_TRIS, so its probes march
 MEDIA_LABELS = ('cull', 'march', 'fog', 'texture')
+MEDIA_GRAD_W, MEDIA_GRAD_H = 320, 180   # scene O's gradient check, 2 spp
 
 
 def config5():
@@ -2472,25 +2473,26 @@ def media_main(sc, cam, card):
 
 
 def media_grads(sc, cam, card):
-    """Scene O at GRAD_W x GRAD_H, 2 spp: the gradient of the float64 mean
-    image with respect to the fog density and the mesh's g_ksub, autograd
-    on the card, against central differences with the gradcheck ladder's
-    steps and tolerances (tests/test_gradcheck_ladder.py:213-222: 5e-3
-    of max(|value|, 1); 0.08 for the fog density, 0.1 for ksub, here
-    relative to the autograd value), with the integrator's weight cull
-    off: the cull ends a path whose throughput
-    falls below a threshold, so the image jumps where a lane crosses it
-    and the central difference holds those jumps, which no derivative
-    has.  The fog density's comparison with the cull on is measured and
-    reported."""
+    """Scene O at MEDIA_GRAD_W x MEDIA_GRAD_H, 2 spp: the gradient of the
+    float64 mean image with respect to the fog density and the mesh's
+    g_ksub, autograd on the card, against central differences with the
+    gradcheck ladder's steps and tolerances
+    (tests/test_gradcheck_ladder.py:213-222: 5e-3 of max(|value|, 1);
+    0.08 for the fog density, 0.1 for ksub, here relative to the autograd
+    value), with the integrator's weight cull off: the cull ends a path
+    whose throughput falls below a threshold, so the image jumps where a
+    lane crosses it and the central difference holds those jumps, which
+    no derivative has.  The fog density's comparison with the cull on is
+    measured and reported."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
     from pathtracer_tpu_torch.render import integrator as integ
     from pathtracer_tpu_torch.render import renderer as rnd
-    cfg = pt.RenderConfig(width=GRAD_W, height=GRAD_H, nrays=2,
-                          nb_bounces=BOUNCES, compact_rays=True)
-    cp = torch.as_tensor(rng_host.random_per_pixel_fast(GRAD_W, GRAD_H),
+    w, h = MEDIA_GRAD_W, MEDIA_GRAD_H
+    cfg = pt.RenderConfig(width=w, height=h, nrays=2, nb_bounces=BOUNCES,
+                          compact_rays=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(w, h),
                          device=sc.device)
     mesh = sc.meshes[0]
     base = {'fog_density': sc.fog_density, 'g_ksub': mesh.g_ksub}
@@ -2510,7 +2512,7 @@ def media_grads(sc, cam, card):
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()))))
             check_grads(grads, f'scene O ({label})')
-            log(f'scene O gradients {GRAD_W}x{GRAD_H}x2spp, weight cull '
+            log(f'scene O gradients {w}x{h}x2spp, weight cull '
                 f'{threshold:g} ({card}): forward {ms:.1f} ms')
             out[label] = {}
             for name, idx, rtol in (('fog_density', (), 0.08),
