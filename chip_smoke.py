@@ -2518,7 +2518,7 @@ def media_grads(sc, cam, card):
             for name, idx, rtol in (('fog_density', (), 0.08),
                                     ('g_ksub', (0, 0), 0.1)):
                 if label == 'cull_on' and name == 'g_ksub':
-                    continue        # measured within 2.6% (PERF.md, PR 11)
+                    continue        # within 2.6% with the cull on (PERF.md)
                 step = 5e-3 * max(abs(float(base[name][idx])), 1.0)
                 out[label][name] = dict(index=list(idx), **fd_check(
                     loss_of, base, name, idx, step,
