@@ -106,7 +106,7 @@
    and the plain version find that triangle again at t == floor); then a
    64x48x1 spp render on the card against the CPU plain path (the
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
-   sample per wave, compaction: one warm-up and MAT_WAVES (3) waves timed
+   sample per wave, compaction: one warm-up and MAT_WAVES (5) waves timed
    one by one (median, min, max; live rays/s; sweep launches per wave,
    counts set to 0 before them; the cut-out queries and the lanes entering
    each round), and one wave under torch.profiler split into the sweeps,
@@ -143,10 +143,10 @@
    marches, rounds and the lanes entering each round), the overflow stat
    (must be 0); then autograd of a 320x180x2 spp float64 mean image with
    respect to the fog density and the mesh's g_ksub against central
-   differences with the gradcheck ladder's steps and tolerances, with the
-   integrator's weight cull off (with it on, the fog density's comparison
-   is measured and reported: the cull's threshold makes the image jump
-   where a lane crosses it).
+   differences with the gradcheck ladder's steps and tolerances, on the
+   render path as it ships and again with the integrator's weight cull
+   patched to 0 for the check (the cull's threshold makes the image jump
+   where a lane crosses it, which no derivative has).
 
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
@@ -1652,7 +1652,7 @@ def probe_phase(dev):
 
 MAT_SEED = 0
 MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
-MAT_WAVES = 3           # timed 1080p waves of scene M, after a warm-up
+MAT_WAVES = 5           # timed 1080p waves of scene M, after a warm-up
 GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
 C4_GRAD = 128           # C4's gradient check, square, 4 spp
 ANNOTATED = ('cull', 'texture')
@@ -2017,7 +2017,7 @@ def material_main(sc, cam, card):
 def fd_check(loss_of, base, name, idx, step, rtol, grads):
     """Central difference of loss_of at base[name][idx] +- step against
     the autograd gradient grads[name][idx], within rtol of the autograd
-    value; rtol None: measured and returned, held to nothing."""
+    value."""
     import torch
     delta = torch.zeros_like(base[name])
     delta[idx] = step
@@ -2029,8 +2029,6 @@ def fd_check(loss_of, base, name, idx, step, rtol, grads):
     log(f'  central difference {name}{list(idx)} (step {step:.3g}): '
         f'{want:.6g}, autograd {got:.6g} (relative difference {rel:.3g}, '
         f'tolerance {rtol})')
-    if rtol is None:
-        return dict(fd=want, autograd=got, rel=rel, rtol=rtol)
     if not (want != 0.0 and np.isclose(want, got, rtol=rtol, atol=0.0)):
         raise AssertionError(f'{name}: autograd {got:.6g} against a '
                              f'central difference {want:.6g}')
@@ -2385,6 +2383,8 @@ def media_main(sc, cam, card):
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
     from pathtracer_tpu_torch.scene import scene as scn
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
@@ -2394,7 +2394,10 @@ def media_main(sc, cam, card):
     profile_s = time.perf_counter() - t0
     counters = {'cluster_sweep_closest': cl.cluster_sweep,
                 'cluster_sweep_any': cl.cluster_sweep_any,
-                'cull_tree': cl.cull_tree, 'packet_hit': pb.packet_hit}
+                'cull_tree': cl.cull_tree, 'packet_hit': pb.packet_hit,
+                **{f.__name__: f for f in (sm.dot_fp32, sm.dot_tf32,
+                                           sm.epilogue, sm.edgemat,
+                                           sa.sweep_ablate)}}
     for f in counters.values():
         f.launches = 0
     scn.MARCH_LOG = []
@@ -2479,12 +2482,13 @@ def media_grads(sc, cam, card):
     gradcheck ladder's steps and tolerances
     (tests/test_gradcheck_ladder.py:213-222: 5e-3 of max(|value|, 1);
     0.08 for the fog density, 0.1 for ksub, here relative to the autograd
-    value), with the integrator's weight cull off: the cull ends a path
-    whose throughput falls below a threshold, so the image jumps where a
-    lane crosses it and the central difference holds those jumps, which
-    no derivative has.  The fog density's comparison with the cull on is
-    measured and reported."""
+    value).  Held twice: on the render path as it ships, and with the
+    integrator's weight cull patched to 0 for the check, the estimator's
+    own gradient: the cull ends a path whose throughput falls below a
+    threshold, so the image jumps where a lane crosses it and the central
+    difference holds those jumps, which no derivative has."""
     import torch
+    from unittest import mock
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
     from pathtracer_tpu_torch.render import integrator as integ
@@ -2503,28 +2507,22 @@ def media_grads(sc, cam, card):
         return rnd.render_unsplatted(s, cam, cp, cfg)[0].double().mean() \
             / RADIANCE
 
-    out, cull = {}, integ.WEIGHT_CULL
-    for label, threshold in (('cull_off', 0.0), ('cull_on', cull)):
-        integ.WEIGHT_CULL = threshold
-        try:
+    out = {}
+    for label, cull in (('cull_on', integ.WEIGHT_CULL), ('cull_off', 0.0)):
+        with mock.patch.object(integ, 'WEIGHT_CULL', cull):
             leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
             loss, ms = timed(lambda: loss_of(leaves))
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()))))
             check_grads(grads, f'scene O ({label})')
-            log(f'scene O gradients {w}x{h}x2spp, weight cull '
-                f'{threshold:g} ({card}): forward {ms:.1f} ms')
+            log(f'scene O gradients {w}x{h}x2spp, weight cull {cull:g} '
+                f'({card}): forward {ms:.1f} ms')
             out[label] = {}
             for name, idx, rtol in (('fog_density', (), 0.08),
                                     ('g_ksub', (0, 0), 0.1)):
-                if label == 'cull_on' and name == 'g_ksub':
-                    continue        # within 2.6% with the cull on (PERF.md)
                 step = 5e-3 * max(abs(float(base[name][idx])), 1.0)
                 out[label][name] = dict(index=list(idx), **fd_check(
-                    loss_of, base, name, idx, step,
-                    rtol if label == 'cull_off' else None, grads))
-        finally:
-            integ.WEIGHT_CULL = cull
+                    loss_of, base, name, idx, step, rtol, grads))
     return out
 
 
@@ -2684,7 +2682,8 @@ def main():
         f'inputs, {abl["cluster_sweep_main_ps_per_pair"]:.3f} on the main '
         f'path\'s first round')
     for k in kernels:
-        k['launches_media'] = med_launches.get(k['name'], 0)
+        # a probe record's name carries its script: dot_fp32[prof_sweep]
+        k['launches_media'] = med_launches[k['name'].split('[')[0]]
     log(json.dumps({'media': med}))
     log(json.dumps({'materials': mat}))
     log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))

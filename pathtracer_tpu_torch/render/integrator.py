@@ -379,8 +379,7 @@ def _bounce(sc, depth: int, st: PathState, cp_r12, bg_pixel=None
     nee_gate = is_diffuse & (cos_surf >= 0.0)
     blocked = scn.intersect_shadow(
         sc, shadow_org, wi,
-        torch.where(nee_gate, dist, torch.zeros_like(dist)),
-        avoid_ghosts=True)
+        torch.where(nee_gate, dist, torch.zeros_like(dist)))
     shadowed = (cos_surf < 0.0) | blocked
     f_brdf = _eval_brdf(sc, hit, wi, -ray_dir, nrm)
     # after a subsurface exit the BRDF is Ksub / pi (Raytracer.cpp:540-544)
