@@ -148,6 +148,30 @@
    patched to 0 for the check (the cull's threshold makes the image jump
    where a lane crosses it, which no derivative has).
 
+11. CLI phase (after the media phase; cli_phase): the main path's scene
+   written as files, the 2.4M-triangle sphere as an OBJ (io.obj.save_obj)
+   and the scene as a .scn (io.scn_export.save_scn, the non-lenticular
+   block, has_denoiser 1, the sphere on two keyframes).  load_scn reads it
+   back (triangles, keyframes, size) and save_scn of that parses the same.
+   Then the headless entry point in process, `cli.main([scene.scn,
+   out.hdr, --spp 4, --size 1920x1080, --frame 1, --denoise])` (the .scn
+   carries no compaction flag, so it renders without), with every launch
+   count set to 0 just before and read just after (`launches_cli`), each
+   sample timed by CUDA events (sample_timer) with its sweep launches, and
+   both sweeps recorded: their first and last launches held against the
+   plain versions bit for bit.  On its result: the a-trous denoised
+   display (4 levels, timed); a lenticular camera (10 images, pixel width
+   1, the reference's angle) for one sample, timed, its first launches
+   held the same way; checkpoint/resume (4 samples, one a wave,
+   compaction): two straight renders bit-equal, render_resumable stopped
+   after two waves and resumed bit-equal, its .npz removed; the preview
+   (120x67) and display_fill_in before and after the first wave;
+   KPCN-lite with the shipped weights on the whole frame (timed, peak
+   memory) and on a 256x256 crop against the CPU (KPCN_TOL).  Last,
+   `python -m pathtracer_tpu_torch.cli` as a subprocess at 480x270 x 2
+   spp must exit 0 and write its .hdr.  Its numbers are the `{"cli": ...}`
+   line.  No image is written as PNG or JPEG (PIL may be missing).
+
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
@@ -156,8 +180,9 @@ one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
 rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
 x the same clock), both printed after the card line.
 
-Every failure raises.  The media phase's, the materials phase's and the
-gradient phase's numbers are JSON lines before the card line.  The last
+Every failure raises.  The CLI phase's, the media phase's, the materials
+phase's and the gradient phase's numbers are JSON lines before the card
+line.  The last
 three lines are the card line, the kernel JSON (per kernel: time, plain
 version's time, launches on its main path and on each later phase's
 waves, agreement, and the roofline bound from this run's work) and the
@@ -343,12 +368,13 @@ def cuda_ms(fn, reps=1, warm=True):
 
 
 def same_bits(out_k, out_p):
-    """Kernel and plain outputs (tensors of 32-bit types, or tuples of
-    them) equal bit for bit: -0.0 differs from +0.0."""
+    """Kernel and plain outputs (tensors of 32-bit types or bool, or
+    tuples of them) equal bit for bit: -0.0 differs from +0.0."""
     import torch
     pairs = zip(out_k, out_p) if isinstance(out_k, tuple) else [(out_k,
                                                                  out_p)]
-    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return all(torch.equal(a, b) if a.dtype == torch.bool else
+               torch.equal(a.view(torch.int32), b.view(torch.int32))
                for a, b in pairs)
 
 
@@ -1823,29 +1849,30 @@ def profile_split(r, labels=ANNOTATED):
             {k: v / 1e6 for k, v in inclusive.items()})
 
 
-def record_sweeps():
-    """Replace cluster.cluster_sweep by a recorder: each call's inputs and
-    outputs, cloned (the windowed rounds update a round's t and tri in
-    place), land in the returned list; `restore` undoes it.
-    The wrapper counts its launches on the module's cluster_sweep name,
-    so the recorder carries the count while it stands there."""
+def record_sweeps(name='cluster_sweep'):
+    """Replace cluster.<name> (cluster_sweep or cluster_sweep_any) by a
+    recorder: each call's positional inputs and its outputs, cloned (the
+    windowed rounds update a round's t and tri in place), land in the
+    returned list as (inputs, outputs) with outputs a tuple; `restore`
+    undoes it.  The wrapper counts its launches on the module's name, so
+    the recorder carries the count while it stands there."""
     from pathtracer_tpu_torch.ops import cluster as cl
-    orig = cl.cluster_sweep
+    orig = getattr(cl, name)
     calls = []
 
-    def rec(cm, ids, counts, keys, org, dirn, tmax, tmin, **kw):
-        out = orig(cm, ids, counts, keys, org, dirn, tmax, tmin, **kw)
-        calls.append(((cm,) + tuple(x.clone() for x in (
-            ids, counts, keys, org, dirn, tmax, tmin)),
-            tuple(x.clone() for x in out)))
+    def rec(cm, *args, **kw):
+        out = orig(cm, *args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        calls.append(((cm,) + tuple(x.clone() for x in args),
+                      tuple(x.clone() for x in outs)))
         return out
 
     rec.launches = orig.launches
-    cl.cluster_sweep = rec
+    setattr(cl, name, rec)
 
     def restore():
         orig.launches = rec.launches
-        cl.cluster_sweep = orig
+        setattr(cl, name, orig)
 
     return calls, restore
 
@@ -2373,18 +2400,39 @@ def media_counters():
         scn._mesh_reservoir_march, integ._fog_event = orig_m, orig_f
 
 
+def wrappers():
+    """Every kernel wrapper of the port by its kernel record's name, as
+    (module, attribute): the count is read through the module, where a
+    recorder may stand in for the wrapper."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    return {'cluster_sweep_closest': (cl, 'cluster_sweep'),
+            'cluster_sweep_any': (cl, 'cluster_sweep_any'),
+            'cull_tree': (cl, 'cull_tree'), 'packet_hit': (pb, 'packet_hit'),
+            **{a: (sm, a) for a in ('dot_fp32', 'dot_tf32', 'epilogue',
+                                    'edgemat')},
+            'sweep_ablate': (sa, 'sweep_ablate')}
+
+
+def reset_counts():
+    for mod, attr in wrappers().values():
+        getattr(mod, attr).launches = 0
+
+
+def read_counts():
+    return {k: getattr(mod, attr).launches
+            for k, (mod, attr) in wrappers().items()}
+
+
 def media_main(sc, cam, card):
     """Scene O's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
     compaction: one wave under torch.profiler, which is also the warm-up,
     then MEDIA_WAVES waves timed one by one (every launch count set to 0
     just before them and read just after, the marches' rounds and lanes
     logged).  The overflow stat must stay 0."""
-    import torch
     import pathtracer_tpu_torch as pt
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import packet_bvh as pb
-    from pathtracer_tpu_torch.ops import sweep_ablate as sa
-    from pathtracer_tpu_torch.ops import sweep_micro as sm
     from pathtracer_tpu_torch.scene import scene as scn
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
@@ -2392,14 +2440,7 @@ def media_main(sc, cam, card):
     t0 = time.perf_counter()
     split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
     profile_s = time.perf_counter() - t0
-    counters = {'cluster_sweep_closest': cl.cluster_sweep,
-                'cluster_sweep_any': cl.cluster_sweep_any,
-                'cull_tree': cl.cull_tree, 'packet_hit': pb.packet_hit,
-                **{f.__name__: f for f in (sm.dot_fp32, sm.dot_tf32,
-                                           sm.epilogue, sm.edgemat,
-                                           sa.sweep_ablate)}}
-    for f in counters.values():
-        f.launches = 0
+    reset_counts()
     scn.MARCH_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -2408,7 +2449,7 @@ def media_main(sc, cam, card):
                 ms.append(timed(r.step)[1])
     finally:
         log_m, scn.MARCH_LOG = scn.MARCH_LOG, None
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = read_counts()
     live = r.rays_traced - rays0
     overflow = r.stats(1.0)['ss_reservoir_overflow']
     img = r.display().cpu().numpy()
@@ -2602,6 +2643,377 @@ def media_phase(dev, cam, card):
                           ghost_flagship=ghost, seconds=steps)
 
 
+CLI_SPP = 4             # samples of the CLI's 1080p render (one wave)
+CLI_SMALL = (480, 270)  # the module entry point's subprocess render
+# the .scn mesh's keyframes: at --frame 1 it sits where the main path's does
+CLI_KEYFRAMES = {0.0: {'translation': (-2.0, -15.0, 0.0)},
+                 2.0: {'translation': (2.0, -15.0, 0.0)}}
+KPCN_CROP = 256         # KPCN-lite's card-vs-CPU crop
+KPCN_MARGIN = 8         # its receptive field: six 3x3 convs and the 5x5 taps
+KPCN_TOL = 1e-4         # max |card - CPU| over the crop's max |output|
+
+
+def write_cli_scene(d, lat=1100, size=(W, H)):
+    """The main path's scene as files in `d`: the 2.4M-tri sphere as an
+    OBJ (port's save_obj), the slate and the sphere as a .scn (port's
+    save_scn) with its non-lenticular block, has_denoiser 1 and the
+    sphere on two keyframes.  Vertices are written as (z, y, -x), which
+    the loader's axis swap turns back into the sphere's own.  Returns
+    (.scn path, triangles)."""
+    import copy
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.io import obj as obj_io
+    from pathtracer_tpu_torch.io import scn_export
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    saved = copy.copy(md)
+    saved.vertices = md.vertices[:, [2, 1, 0]] * np.float32([1, 1, -1])
+    obj_path = os.path.join(d, 'sphere.obj')
+    obj_io.save_obj(saved, obj_path)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(md, translation=(0.0, -15.0, 0.0),
+                                keyframes=CLI_KEYFRAMES, name='sphere.obj',
+                                is_centered=False))
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
+    cfg = pt.RenderConfig(width=size[0], height=size[1], nrays=CLI_SPP,
+                          nb_bounces=BOUNCES, has_denoiser=True)
+    path = os.path.join(d, 'scene.scn')
+    scn_export.save_scn(path, objs, scn.default_light_intensity(), cam, cfg,
+                        {})
+    return path, md.num_triangles
+
+
+@contextlib.contextmanager
+def sample_timer():
+    """Renderer.step split into one-sample steps, each timed by CUDA
+    events with the two sweeps' launches counted (samples are keyed by
+    absolute index, so the split changes no bit); restored on exit.
+    Yields a dict of the per-sample lists and the renderers seen."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.render import renderer as rnd
+    orig = rnd.Renderer.step
+    rec = dict(ms=[], closest=[], any=[], renderers=[])
+
+    def step(self, nsamples=None):
+        if not any(r is self for r in rec['renderers']):
+            rec['renderers'].append(self)
+        for _ in range(nsamples or self.cfg.samples_per_wave):
+            c0 = cl.cluster_sweep.launches
+            a0 = cl.cluster_sweep_any.launches
+            rec['ms'].append(timed(lambda: orig(self, 1))[1])
+            rec['closest'].append(cl.cluster_sweep.launches - c0)
+            rec['any'].append(cl.cluster_sweep_any.launches - a0)
+        return self
+
+    rnd.Renderer.step = step
+    try:
+        yield rec
+    finally:
+        rnd.Renderer.step = orig
+
+
+@contextlib.contextmanager
+def recorded_sweeps():
+    """Both sweeps recorded (record_sweeps) while the block runs."""
+    closest, restore_c = record_sweeps('cluster_sweep')
+    anyhit, restore_a = record_sweeps('cluster_sweep_any')
+    try:
+        yield closest, anyhit
+    finally:
+        restore_a()
+        restore_c()
+
+
+def hold_sweeps(closest, anyhit, what, picks=(0, -1)):
+    """The recorded launches at `picks` of each sweep against its plain
+    version on the same inputs, bit for bit; returns how many launches
+    were recorded and held."""
+    from pathtracer_tpu_torch.ops import cluster as cl
+    if not closest or not anyhit:
+        raise AssertionError(f'{what}: a sweep was never launched')
+    held = 0
+    for calls, plain, kind in ((closest, cl.cluster_sweep_plain, 'closest'),
+                               (anyhit, cl.cluster_sweep_any_plain, 'any')):
+        for i in sorted({p % len(calls) for p in picks}):
+            args, out_k = calls[i]
+            out_p = plain(*args)
+            out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            if not same_bits(out_k, out_p):
+                raise AssertionError(f'{what}: {kind} sweep launch {i} '
+                                     f'differs from its plain version')
+            held += 1
+    return dict(closest_launches=len(closest), any_launches=len(anyhit),
+                held=held, lanes=int(closest[0][0][4].shape[0]))
+
+
+class AfterSamples:
+    """A preemption guard whose request stands once `r` has `n` samples."""
+
+    def __init__(self, r, n):
+        self.r, self.n = r, n
+
+    @property
+    def requested(self):
+        return self.r.samples_done >= self.n
+
+
+def resume_check(sc, cam, cfg, d):
+    """Checkpoint and resume on the card: two straight renders give the
+    same bits; render_resumable stopped after two waves writes its .npz,
+    a second call completes bit-equal to the straight render and removes
+    it.  Returns the times."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    out, ms = [], []
+    for _ in range(2):
+        r, t = timed(lambda: pt.Renderer(sc, cam, cfg).render())
+        out.append((r.image.clone(), r.sample_count.clone(),
+                    tuple(a.clone() for a in r.aux)))
+        ms.append(t)
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])
+            and all(torch.equal(a, b) for a, b in zip(out[0][2], out[1][2]))):
+        raise AssertionError('two straight renders differ: the path is not '
+                             'deterministic')
+    path = os.path.join(d, 'resume.npz')
+    r = pt.Renderer(sc, cam, cfg)
+    (_, t_first) = timed(lambda: r.render_resumable(
+        path, guard=AfterSamples(r, 2)))
+    if r.samples_done != 2 or not os.path.exists(path):
+        raise AssertionError(f'render_resumable did not stop at 2 samples '
+                             f'with its checkpoint ({r.samples_done})')
+    nbytes = os.path.getsize(path)
+    r2 = pt.Renderer(sc, cam, cfg)
+    (_, t_second) = timed(lambda: r2.render_resumable(path))
+    if r2.samples_done != cfg.nrays or os.path.exists(path):
+        raise AssertionError('the resumed render did not complete or left '
+                             'its checkpoint')
+    if not (torch.equal(r2.image, out[0][0])
+            and torch.equal(r2.sample_count, out[0][1])
+            and all(torch.equal(a, b) for a, b in zip(r2.aux, out[0][2]))):
+        raise AssertionError('resumed render differs from the straight one')
+    return dict(straight_ms=ms, first_call_ms=t_first,
+                second_call_ms=t_second, checkpoint_bytes=nbytes)
+
+
+def kpcn_check(r, dev):
+    """KPCN-lite with the shipped weights on the CLI render's buffers: the
+    whole 1080p frame on the card (timed, peak memory), and a
+    KPCN_CROP^2 crop on the card and on the CPU; the card's crop and the
+    full frame's crop interior must match the CPU within KPCN_TOL of the
+    crop's largest |output|."""
+    import torch
+    from pathtracer_tpu_torch.render import denoise_net as dnn
+    model = dnn.load_model(device=dev)
+    if model is None:
+        raise AssertionError('the shipped KPCN weights did not load')
+    n = max(r.samples_done, 1)
+    color, albedo = r.aux[0] / n, r.aux[1] / n
+    nrm = r.aux[2] / torch.clamp_min(torch.linalg.vector_norm(
+        r.aux[2], dim=-1, keepdim=True), 1e-9)
+    dnn.denoise_apply(model, color, albedo, nrm)          # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    full, ms = timed(lambda: dnn.denoise_apply(model, color, albedo, nrm))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    learned = dnn.denoise_learned(color, albedo, nrm)
+    if not torch.allclose(learned, full, rtol=0.0,
+                          atol=KPCN_TOL * float(full.abs().max())):
+        raise AssertionError('denoise_learned did not take the learned path')
+    h, w = color.shape[:2]
+    y0, x0 = (h - KPCN_CROP) // 2, (w - KPCN_CROP) // 2
+    crop = [x[y0:y0 + KPCN_CROP, x0:x0 + KPCN_CROP] for x in (color, albedo,
+                                                               nrm)]
+    on_card = dnn.denoise_apply(model, *crop)
+    on_cpu = dnn.denoise_apply(dnn.load_model(device='cpu'),
+                               *(x.cpu() for x in crop))
+    scale = float(on_cpu.abs().max())
+    err_crop = float((on_card.cpu() - on_cpu).abs().max())
+    m = KPCN_MARGIN
+    inner = (slice(m, KPCN_CROP - m), slice(m, KPCN_CROP - m))
+    err_full = float((full[y0:y0 + KPCN_CROP, x0:x0 + KPCN_CROP][inner].cpu()
+                      - on_cpu[inner]).abs().max())
+    if not np.isfinite(full.cpu().numpy()).all() or scale <= 0.0:
+        raise AssertionError('KPCN output not finite or empty')
+    if max(err_crop, err_full) > KPCN_TOL * scale:
+        raise AssertionError(f'KPCN on the card differs from the CPU: '
+                             f'{err_crop:.3g} (crop), {err_full:.3g} (frame)'
+                             f' against {KPCN_TOL * scale:.3g}')
+    return dict(ms=ms, peak_bytes=peak, max_abs_err_crop=err_crop,
+                max_abs_err_frame=err_full, crop_scale=scale)
+
+
+def preview_check(sc, cam, cfg):
+    """--progressive's fill-in at full size: preview() (W/16 x H/16, one
+    sample, timed) and display_fill_in() before the first wave (the pure
+    upsampled preview) and after it (a blend)."""
+    import torch
+    import torch.nn.functional as F
+    import pathtracer_tpu_torch as pt
+    r = pt.Renderer(sc, cam, cfg)
+    low, ms_preview = timed(r.preview)
+    d0, ms_fill0 = timed(r.display_fill_in)
+    up = F.interpolate(low.permute(2, 0, 1)[None], size=d0.shape[:2],
+                       mode='bilinear', align_corners=False)[0]
+    want = torch.clamp(torch.pow(torch.clamp_min(up.permute(1, 2, 0), 0.0),
+                                 1.0 / cfg.gamma), 0.0, 1.0)
+    if not torch.equal(d0, want) or not float(low.max()) > 0.0:
+        raise AssertionError('fill-in before the first wave is not the '
+                             'upsampled preview')
+    r.step(1)
+    d1, ms_fill1 = timed(r.display_fill_in)
+    if not torch.isfinite(d1).all() or torch.equal(d1, r.display()):
+        raise AssertionError('fill-in after one wave is not a blend')
+    return dict(preview_shape=list(low.shape), preview_ms=ms_preview,
+                fill_in_ms_before=ms_fill0, fill_in_ms_after=ms_fill1)
+
+
+def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
+    """The headless entry point on the main path's scene written as .scn:
+    the files round-trip; `cli.main` renders it at `size` (1080p) with
+    --denoise, every sample timed, both sweeps launched and held against
+    their plain versions; the denoised display, the lenticular camera,
+    checkpoint/resume, the preview fill-in and KPCN-lite on its result;
+    then the module entry point as a subprocess.  Returns the launches of
+    the CLI's render and the phase's numbers."""
+    import subprocess as sp
+    import tempfile
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch import cli
+    from pathtracer_tpu_torch.io import image as image_io
+    from pathtracer_tpu_torch.io import scn_export, scn_import
+    steps, rep = {}, {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    w, h = size
+    with tempfile.TemporaryDirectory() as d:
+        path, n_tris = write_cli_scene(d, lat, size)
+        step('write')
+        parsed = scn_import.load_scn(path, device=dev)
+        objs, _, cam, cfg, _ = parsed
+        if objs[-1].mesh_data.num_triangles != n_tris or not (
+                objs[-1].keyframes and len(objs[-1].keyframes) == 2) \
+                or cam.is_lenticular or (cfg.width, cfg.height) != size:
+            raise AssertionError('the .scn did not load back its mesh, '
+                                 'keyframes, camera or size')
+        # save_scn(load_scn(f)) parses the same: both write the same text
+        texts = []
+        for name in ('again.scn', 'again2.scn'):
+            scn_export.save_scn(os.path.join(d, name), *parsed)
+            with open(os.path.join(d, name)) as f:
+                texts.append(f.read())
+            parsed = scn_import.load_scn(os.path.join(d, name), device=dev)
+        if texts[0] != texts[1] or \
+                parsed[0][-1].mesh_data.num_triangles != n_tris:
+            raise AssertionError('save_scn(load_scn(f)) does not parse the '
+                                 'same')
+        del parsed, objs
+        step('load')
+
+        out = os.path.join(d, 'out.hdr')
+        argv = [path, out, '--spp', str(spp), '--size', f'{w}x{h}',
+                '--frame', '1', '--denoise']
+        reset_counts()
+        with recorded_sweeps() as (closest, anyhit), sample_timer() as rec:
+            rc = cli.main(argv)
+        launches = read_counts()
+        step('cli')
+        img = image_io.load_hdr(out)
+        region = img[int(h * 0.55):int(h * 0.9), int(w * 0.4):int(w * 0.6)]
+        if rc != 0 or img.shape != (h, w, 3) or not np.isfinite(img).all() \
+                or not region.mean() > 0.0:
+            raise AssertionError(f'the CLI render failed: rc {rc}, image '
+                                 f'{img.shape}')
+        for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+            if launches[name] <= 0:
+                raise AssertionError(f'{name} never launched by the CLI')
+        r = rec['renderers'][0]
+        held = hold_sweeps(closest, anyhit, 'CLI render')
+        del closest, anyhit
+        rays = r.rays_traced
+        rep['cli'] = dict(argv=argv[2:], ms_per_sample=spread(rec['ms']),
+                          live_rays_per_s=rays / (sum(rec['ms']) / 1e3),
+                          closest_per_sample=rec['closest'],
+                          any_per_sample=rec['any'], sweeps_held=held,
+                          compact_rays=r.cfg.compact_rays,
+                          hdr_mean=float(img.mean()))
+        r.denoised_display()
+        den, ms_den = timed(r.denoised_display)
+        if not np.isfinite(den.cpu().numpy()).all():
+            raise AssertionError('denoised display not finite')
+        rep['atrous_ms'] = ms_den
+        step('sweeps_and_atrous')
+
+        lcam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0),
+                              is_lenticular=True)
+        lcfg = r.cfg._replace(nrays=1)
+        with recorded_sweeps() as (closest, anyhit), sample_timer() as lrec:
+            pt.Renderer(r.scene, lcam, lcfg).step(1)
+        rep['lenticular'] = dict(
+            ms=lrec['ms'][0], closest=lrec['closest'][0],
+            any=lrec['any'][0],
+            sweeps_held=hold_sweeps(closest, anyhit, 'lenticular', (0,)))
+        del closest, anyhit
+        step('lenticular')
+
+        rcfg = r.cfg._replace(nrays=4, samples_per_wave=1, compact_rays=True)
+        rep['resume'] = resume_check(r.scene, r.cam, rcfg, d)
+        step('resume')
+        rep['preview'] = preview_check(r.scene, r.cam, r.cfg)
+        step('preview')
+        rep['kpcn'] = kpcn_check(r, dev)
+        step('kpcn')
+        sc = r.scene
+        del r, rec, sc
+
+        small = os.path.join(d, 'small.hdr')
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = sp.run([sys.executable, '-m', 'pathtracer_tpu_torch.cli',
+                       path, small, '--spp', '2', '--size',
+                       f'{CLI_SMALL[0]}x{CLI_SMALL[1]}'], cwd=here,
+                      capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or not os.path.exists(small):
+            raise AssertionError(f'python -m pathtracer_tpu_torch.cli exited '
+                                 f'{proc.returncode}: {proc.stderr[-2000:]}')
+        small_img = image_io.load_hdr(small)
+        if small_img.shape != (CLI_SMALL[1], CLI_SMALL[0], 3) \
+                or not np.isfinite(small_img).all():
+            raise AssertionError('the subprocess CLI image is wrong')
+        rep['subprocess'] = dict(rc=proc.returncode,
+                                 stdout=proc.stdout.strip().splitlines()[-3:])
+        step('subprocess')
+    rep['seconds'] = steps
+    rep['triangles'] = n_tris
+    c = rep['cli']
+    log(f'CLI {w}x{h} x {spp} spp, {n_tris} tris from .scn, frame 1, '
+        f'--denoise ({card}): ms per sample median '
+        f'{c["ms_per_sample"]["median"]:.1f} (min '
+        f'{c["ms_per_sample"]["min"]:.1f}, max {c["ms_per_sample"]["max"]:.1f})'
+        f'; {c["live_rays_per_s"]:.4g} live rays/s; sweep launches per '
+        f'sample closest {c["closest_per_sample"]}, any {c["any_per_sample"]}'
+        f'; held bit-equal {c["sweeps_held"]}; a-trous (4 levels) '
+        f'{rep["atrous_ms"]:.1f} ms')
+    lt = rep['lenticular']
+    log(f'  lenticular (10 images, pixel width 1) 1 spp: {lt["ms"]:.1f} ms, '
+        f'launches closest {lt["closest"]}, any {lt["any"]}; held '
+        f'{lt["sweeps_held"]}')
+    log(f'  resume: {rep["resume"]}; preview: {rep["preview"]}')
+    log(f'  KPCN-lite {w}x{h}: {rep["kpcn"]["ms"]:.1f} ms, peak '
+        f'{rep["kpcn"]["peak_bytes"] / 2**20:.1f} MiB, crop errors '
+        f'{rep["kpcn"]["max_abs_err_crop"]:.3g} / '
+        f'{rep["kpcn"]["max_abs_err_frame"]:.3g} of scale '
+        f'{rep["kpcn"]["crop_scale"]:.4g}; subprocess {rep["subprocess"]}')
+    log('CLI phase steps (s): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
+    return launches, rep
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -2661,6 +3073,9 @@ def main():
     t0 = time.perf_counter()
     med_launches, med = media_phase(dev, cam, card)
     log(f'media phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    cli_launches, cli_rep = cli_phase(dev, card)
+    log(f'CLI phase {time.perf_counter() - t0:.1f} s')
     for k in kernels:
         k['launches'] = launches[k['name']]
         k['launches_grad_forward'] = mesh['launches_forward'][k['name']]
@@ -2684,6 +3099,8 @@ def main():
     for k in kernels:
         # a probe record's name carries its script: dot_fp32[prof_sweep]
         k['launches_media'] = med_launches[k['name'].split('[')[0]]
+        k['launches_cli'] = cli_launches[k['name'].split('[')[0]]
+    log(json.dumps({'cli': cli_rep}))
     log(json.dumps({'media': med}))
     log(json.dumps({'materials': mat}))
     log(json.dumps({'gradients': {'flagship': flag, 'mesh': mesh}}))

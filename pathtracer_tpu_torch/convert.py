@@ -172,3 +172,25 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         ss_enabled=bool(f.get('ss_enabled', False)),
         ss_obj_ok=opt('ss_obj_ok', bools),
         ghost_enabled=bool(f.get('ghost_enabled', False)))
+
+
+def kpcn_state_dict(flat: dict) -> dict:
+    """The JAX package's KPCN-lite weights, flattened as its
+    denoise_net.save_weights writes them (`Conv_<i>/kernel` HWIO,
+    `Conv_<i>/bias`, numpy arrays), as a state dict of the port's
+    render.denoise_net.KPCNLite: kernels OIHW, biases as they are."""
+    out = {}
+    i = 0
+    while f'Conv_{i}/kernel' in flat:
+        k = np.asarray(flat[f'Conv_{i}/kernel'], np.float32)
+        out[f'convs.{i}.weight'] = torch.as_tensor(
+            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        out[f'convs.{i}.bias'] = torch.as_tensor(
+            np.array(flat[f'Conv_{i}/bias'], np.float32))
+        i += 1
+    extra = set(flat) - {f'Conv_{n}/{p}' for n in range(i)
+                         for p in ('kernel', 'bias')}
+    if extra:
+        raise ValueError(f'keys other than Conv_<i>/kernel, bias: '
+                         f'{sorted(extra)}')
+    return out

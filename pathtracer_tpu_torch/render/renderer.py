@@ -8,16 +8,22 @@ split.  `render_unsplatted` is differentiable with respect to the
 material and light leaves (the detached-sampling estimator of
 render/integrator.py); with `remat_samples` each sample's body runs under
 activation checkpointing and is recomputed in backward, from the same
-streams, so one sample's graph is alive at a time.  The denoiser feed is
-not ported yet (ROADMAP Queue 1 item 10).
+streams, so one sample's graph is alive at a time.  With has_denoiser the
+renderer also accumulates the unsplatted (color, albedo, normal) buffers
+that feed the denoisers (render/denoise.py, render/denoise_net.py).
+`render_resumable` checkpoints the film to an .npz and resumes it bit for
+bit; `preview` and `display_fill_in` give the reference's low-res
+progressive fill-in.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint
 
 from ..core import camera as cam_mod
@@ -39,7 +45,7 @@ class RenderConfig(NamedTuple):
     seed: int = 0
     samples_per_wave: int = 4
     double_frustum_start_t: float = 0.0
-    has_denoiser: bool = False  # not ported yet
+    has_denoiser: bool = False  # accumulate unsplatted aux for denoising
     tile_size: int = -1         # >0 tile-major lanes, 0 row-major, -1 AUTO
                                 # (32 when the scene holds meshes)
     sort_rays: bool = False     # octant re-sort between bounces
@@ -47,12 +53,6 @@ class RenderConfig(NamedTuple):
                                 # (implies the octant sort)
     remat_samples: bool = False  # render_unsplatted: checkpoint each
                                  # sample, recomputed in backward
-
-
-def _check_config(cfg: RenderConfig):
-    if cfg.has_denoiser:
-        raise NotImplementedError('the denoiser feed is not ported yet '
-                                  '(ROADMAP Queue 1 item 10)')
 
 
 def _near_divisor(n: int, ts: int) -> int:
@@ -137,7 +137,6 @@ def render_unsplatted(sc: scn.SceneArrays, cam: cam_mod.Camera, cp_table,
     Time a forward alone under torch.no_grad(): with leaves that require
     grad every sample's graph would stay alive.  Unlike the JAX function,
     the camera backface gate applies here too, as in Renderer."""
-    _check_config(cfg)
     sc = scn.camera_backface_gate(sc, cam.position.cpu().numpy())
     w, h = cfg.width, cfg.height
     pix_i, pix_j, _ = _pixel_order(w, h, 0, sc.device)
@@ -166,11 +165,16 @@ def render_unsplatted(sc: scn.SceneArrays, cam: cam_mod.Camera, cp_table,
 
 class Renderer:
     """Host-side orchestrator: film accumulators, per-pixel CP table and
-    the progressive sample schedule.  Runs on the scene's device."""
+    the progressive sample schedule.  Runs on the scene's device.
+    `render()` is the offline path, `step()` the progressive one."""
+
+    PREVIEW_FACTOR = 16       # 1/16-per-axis low-res buffer (the
+                              # reference's Wlr/Hlr, Raytracer.cpp:1508)
+    PREVIEW_BLEND_SPP = 6     # blend while sample_count <= 5
+                              # (mainApp.cpp:1219-1238: alpha = count/6)
 
     def __init__(self, sc: scn.SceneArrays, cam: cam_mod.Camera,
                  cfg: RenderConfig):
-        _check_config(cfg)
         # a camera inside a closed mesh must see its back faces
         self.scene = scn.camera_backface_gate(sc, cam.position.cpu().numpy())
         self.device = sc.device
@@ -185,18 +189,29 @@ class Renderer:
         if ts < 0:
             ts = 32 if self.scene.meshes else 0
         self._order = _pixel_order(cfg.width, cfg.height, ts, self.device)
+        self._preview_lin = None
         self.reset()
 
     def reset(self):
         self.image, self.sample_count = film_mod.alloc(self.film)
+        h, w = self.cfg.height, self.cfg.width
+        # unsplatted (color, albedo, normal) sums, the denoiser feed (the
+        # reference's OIDN buffers, Raytracer.cpp:1631-1645)
+        self.aux = tuple(torch.zeros((h, w, 3), device=self.device)
+                         for _ in range(3))
         self.samples_done = 0
         self._rays = []         # per-bounce live-lane counts (device)
         self._ss_over = []      # reservoir-march overflows per sample
+
+    def _sync(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
 
     def step(self, nsamples: Optional[int] = None):
         """Trace the next `nsamples` samples per pixel (default: one wave)."""
         nsamples = nsamples or self.cfg.samples_per_wave
         cfg = self.cfg
+        h, w = cfg.height, cfg.width
         pix_i, pix_j, untile = self._order
         bg_pixel = _background_pixels(self.scene, pix_i, pix_j, cfg.width,
                                       cfg.height)
@@ -205,12 +220,17 @@ class Renderer:
             # the JAX renderer does (ROADMAP Queue 3)
             st, org, dirn, dx, dy, cp_r12 = _camera_paths(
                 self.cam, cfg, pix_i, pix_j, k, self.cp_table)
-            color, _, _, live, ss_over = integrator.trace_paths(
+            color, naux, aaux, live, ss_over = integrator.trace_paths(
                 self.scene, org, dirn, st, cp_r12, cfg.nb_bounces,
                 bg_pixel=bg_pixel, sort_rays=cfg.sort_rays or cfg.compact_rays,
                 compact_rays=cfg.compact_rays)
+            color_rm = untile(color)
             film_mod.splat(self.film, self.image, self.sample_count,
-                           untile(color), untile(dx), untile(dy))
+                           color_rm, untile(dx), untile(dy))
+            if cfg.has_denoiser:
+                self.aux = (self.aux[0] + color_rm.reshape(h, w, 3),
+                            self.aux[1] + untile(aaux).reshape(h, w, 3),
+                            self.aux[2] + untile(naux).reshape(h, w, 3))
             # live-lane accounting: one closest-hit and one NEE shadow
             # sweep per live lane per bounce
             self._rays.append(2 * torch.stack(live).sum())
@@ -223,11 +243,101 @@ class Renderer:
         while self.samples_done < self.cfg.nrays:
             self.step(min(self.cfg.samples_per_wave,
                           self.cfg.nrays - self.samples_done))
+        self._sync()
+        return self
+
+    def render_resumable(self, path: str, guard=None,
+                         save_every: Optional[int] = None):
+        """Preemption-safe render: resume `path` if present, checkpoint on
+        preemption (and every `save_every` samples), delete the checkpoint
+        on completion.
+
+        `guard` is a parallel.distributed.PreemptionGuard (or anything
+        with a `requested` flag); when it trips, the wave in flight
+        finishes, the state is saved, and the call returns early with
+        `samples_done < cfg.nrays`.  Calling it again picks up where it
+        left off: samples are keyed by absolute index, so the resumed
+        image is bit-equal to an uninterrupted render."""
+        if not path.endswith('.npz'):
+            raise ValueError('np.savez appends .npz; pass a path ending in '
+                             f'.npz, not {path!r}')
+        if os.path.exists(path):
+            self.load_checkpoint(path)
+        last_saved = self.samples_done
+        while self.samples_done < self.cfg.nrays:
+            self.step(min(self.cfg.samples_per_wave,
+                          self.cfg.nrays - self.samples_done))
+            preempted = guard is not None and guard.requested
+            if preempted or (save_every is not None
+                             and self.samples_done - last_saved
+                             >= save_every):
+                self._sync()
+                self.save_checkpoint(path)
+                last_saved = self.samples_done
+                if preempted:
+                    return self
+        self._sync()
+        if os.path.exists(path):
+            os.remove(path)
         return self
 
     @property
     def rays_traced(self) -> int:
         return int(sum(int(r) for r in self._rays))
+
+    @property
+    def ss_overflow(self) -> int:
+        return int(sum(int(x) for x in self._ss_over))
+
+    def hdr(self):
+        """Accumulated HDR image (before tone mapping), divided by the
+        splat weights."""
+        img = film_mod.crop(self.film, self.image)
+        cnt = film_mod.crop(self.film, self.sample_count)
+        return img / film_mod.RADIANCE_SCALE / torch.clamp_min(
+            cnt, 1e-9)[..., None]
+
+    def preview(self, spp: int = 1):
+        """Render (once) the 1/16-per-axis low-res preview buffer, (hlr,
+        wlr, 3) linear radiance: the reference's Wlr = W/16 accumulation
+        image (Raytracer.cpp:1508-1510), 1/256 of a wave's rays, so an
+        early progressive view is dense."""
+        if self._preview_lin is None:
+            f = self.PREVIEW_FACTOR
+            wlr = max(self.cfg.width // f, 2)
+            hlr = max(self.cfg.height // f, 2)
+            pcfg = self.cfg._replace(width=wlr, height=hlr, nrays=spp,
+                                     remat_samples=False)
+            cp = torch.as_tensor(rng_host.random_per_pixel_fast(wlr, hlr),
+                                 device=self.device)
+            self._preview_lin = render_unsplatted(self.scene, self.cam, cp,
+                                                  pcfg)[0]
+        return self._preview_lin
+
+    def display_fill_in(self):
+        """Display image with the reference's low-res fill-in blend:
+        pixels with sample_count <= 5 mix toward the bilinear-upsampled
+        preview with alpha = count/6 (mainApp.cpp:1214-1240); the plain
+        display once every pixel has PREVIEW_BLEND_SPP samples."""
+        cnt = film_mod.crop(self.film, self.sample_count)
+        if int(cnt.min()) >= self.PREVIEW_BLEND_SPP:
+            return self.display()
+        low = self.preview()
+        h, w = self.cfg.height, self.cfg.width
+        # half-pixel centres with the source coordinate clamped: for an
+        # upsampling this is jax.image.resize's 'bilinear' (which
+        # renormalises the taps that fall outside instead)
+        up = F.interpolate(low.permute(2, 0, 1)[None], size=(h, w),
+                           mode='bilinear', align_corners=False)[0] \
+            .permute(1, 2, 0)
+        img = film_mod.crop(self.film, self.image)
+        lin = img / film_mod.RADIANCE_SCALE / torch.clamp_min(
+            cnt, 1.0)[..., None]
+        alpha = torch.clamp(cnt / float(self.PREVIEW_BLEND_SPP),
+                            0.0, 1.0)[..., None]
+        blended = alpha * lin + (1.0 - alpha) * up
+        return torch.clamp(torch.pow(torch.clamp_min(blended, 0.0),
+                                     1.0 / self.cfg.gamma), 0.0, 1.0)
 
     def display(self):
         return film_mod.to_display(film_mod.crop(self.film, self.image),
@@ -249,5 +359,59 @@ class Renderer:
             'rays_per_second': rays / max(seconds, 1e-12),
             # subsurface probes lost to the crossing march's slot budget
             # (RESERVOIR_MAX_CROSSINGS), each a biased miss
-            'ss_reservoir_overflow': int(sum(int(x) for x in self._ss_over)),
+            'ss_reservoir_overflow': self.ss_overflow,
         }
+
+    def save_checkpoint(self, path: str):
+        """Mid-render checkpoint: film, splat weights, the denoiser feed
+        and progress, with the JAX renderer's .npz keys.  The config is
+        stored as its repr, which differs from the JAX package's, so a
+        checkpoint resumes in the package that wrote it only."""
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        np.savez(path, image=host(self.image),
+                 sample_count=host(self.sample_count),
+                 aux0=host(self.aux[0]), aux1=host(self.aux[1]),
+                 aux2=host(self.aux[2]), samples_done=self.samples_done,
+                 rays_traced=self.rays_traced, ss_overflow=self.ss_overflow,
+                 cfg=repr(self.cfg))
+
+    def load_checkpoint(self, path: str):
+        """Resume a checkpoint written by save_checkpoint with the same
+        RenderConfig; raises ValueError for any other config."""
+        with np.load(path, allow_pickle=False) as d:
+            if str(d['cfg']) != repr(self.cfg):
+                raise ValueError('checkpoint was written with a different '
+                                 f'RenderConfig: {d["cfg"]}')
+
+            def dev(k):
+                return torch.as_tensor(d[k], device=self.device)
+
+            self.image, self.sample_count = dev('image'), dev('sample_count')
+            self.aux = (dev('aux0'), dev('aux1'), dev('aux2'))
+            self.samples_done = int(d['samples_done'])
+            self._rays = [torch.tensor(int(d['rays_traced']))]
+            self._ss_over = [torch.tensor(int(d['ss_overflow']))]
+        return self
+
+    def denoised_display(self, iterations: int = 4):
+        """Display image denoised from the aux buffers by the a-trous
+        filter (the reference's OIDN path, Raytracer.cpp:1719-1756).
+        Needs cfg.has_denoiser."""
+        from . import denoise as dn
+        if not self.cfg.has_denoiser:
+            raise ValueError('denoised_display needs a render with '
+                             'RenderConfig(has_denoiser=True)')
+        n = max(self.samples_done, 1)
+        color = self.aux[0] / n
+        albedo = self.aux[1] / n
+        nrm = self.aux[2]
+        nrm = nrm / torch.clamp_min(torch.linalg.vector_norm(
+            nrm, dim=-1, keepdim=True), 1e-9)
+        out = dn.atrous_denoise(color, albedo, nrm, iterations=iterations)
+        # the buffers are per-sample means, unsplatted; rows flip to image
+        # orientation as the splat does
+        out = out.flip(0) / film_mod.RADIANCE_SCALE
+        return torch.clamp(torch.pow(torch.clamp_min(out, 0.0),
+                                     1.0 / self.cfg.gamma), 0.0, 1.0)

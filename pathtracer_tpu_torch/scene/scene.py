@@ -1019,6 +1019,16 @@ class ObjectSpec:
     use_atlas: Any = None
     cutout_rounds: int = 4
     keyframes: Any = None
+    # where the object came from, for the scene writers (io/scn_export.py,
+    # io/scene_json.py): the .scn object name (a mesh's file), whether
+    # its mesh was centred on load, the dome's env-map file; a JSON
+    # scene's mesh path, scaling and offset
+    name: str = ''
+    is_centered: bool = True
+    envmap_file: Any = None
+    mesh_path: Any = None
+    mesh_scaling: float = 30.0
+    mesh_offset: Any = (0.0, 0.0, 0.0)
 
 
 def sphere(center, radius, **kw) -> ObjectSpec:

@@ -38,6 +38,11 @@ path, per sample with the same allowance; every closest-hit sweep of a
 reservoir march equals its plain version bit for bit under the rising
 floor with the backface cull off, and the march's exit points agree with
 the CPU's within 1e-5; the fog density and ksub gradients within 2% of the CPU route's.
+Headless path: lenticular rays on the card within 1e-5 of the CPU's
+(the same view bands); a render stopped by render_resumable after two
+waves and resumed equals a straight render bit for bit, film, weights
+and denoiser buffers, as two straight renders do; KPCN-lite on the card
+within chip_smoke.KPCN_TOL of its CPU run.
 """
 
 import numpy as np
@@ -980,3 +985,76 @@ def test_fog_and_ksub_gradients_match_cpu_plain_path(cuda):
     for card, cpu in zip(_media_grads(cuda), _media_grads('cpu')):
         assert np.isfinite(card).all() and np.abs(cpu).max() > 0
         assert np.abs(card - cpu).max() <= 0.02 * np.abs(cpu).max()
+
+
+@pytest.mark.gpu
+def test_lenticular_rays_match_cpu(cuda):
+    """The lenticular branch of generate_rays on the card against the CPU:
+    the same view bands (integer arithmetic), rays within 1e-5 (tan and
+    the divides round on each device)."""
+    from pathtracer_tpu_torch.core import camera as tcam
+    w, h = 1920, 8
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0),
+                         is_lenticular=True)
+    ii, jj = torch.meshgrid(torch.arange(h), torch.arange(-16, w),
+                            indexing='ij')
+    rng = np.random.default_rng(5)
+    jit = [torch.as_tensor(rng.uniform(-0.5, 0.5, ii.numel())
+                           .astype(np.float32)) for _ in range(4)]
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        out[dev.type] = [x.cpu() for x in tcam.generate_rays(
+            cam.to(dev), ii.reshape(-1).to(dev), jj.reshape(-1).to(dev),
+            *(x.to(dev) for x in jit), w, h, init_t=0.5)]
+    torch.testing.assert_close(out['cuda'][0], out['cpu'][0], rtol=1e-6,
+                               atol=1e-5)
+    torch.testing.assert_close(out['cuda'][1], out['cpu'][1], rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_resume_bit_equal_on_card(cuda, tmp_path):
+    """The 2k mesh scene at 64x48, 4 samples one a wave, compaction,
+    denoiser feed, through the sweeps: render_resumable stopped after two
+    waves and resumed equals a straight render bit for bit (film, splat
+    weights, aux buffers), as does a second straight render."""
+    md = procgen.sphere_mesh(32, 32, radius=12.0, displace_amp=0.25)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(md, translation=(0.0, -15.0, 0.0)))
+    sc = scn.build_scene(objs, scn.default_light_intensity(), device=cuda)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=4, samples_per_wave=1,
+                           nb_bounces=3, compact_rays=True,
+                           has_denoiser=True)
+    before = tc.cluster_sweep.launches
+    straight = [pt.Renderer(sc, cam, cfg).render() for _ in range(2)]
+    assert tc.cluster_sweep.launches > before
+    path = str(tmp_path / 'ck.npz')
+    r = pt.Renderer(sc, cam, cfg)
+    r.render_resumable(path, guard=chip_smoke.AfterSamples(r, 2))
+    assert r.samples_done == 2
+    r2 = pt.Renderer(sc, cam, cfg).render_resumable(path)
+    assert r2.samples_done == 4
+    for other in (straight[1], r2):
+        assert torch.equal(other.image, straight[0].image)
+        assert torch.equal(other.sample_count, straight[0].sample_count)
+        assert all(torch.equal(a, b) for a, b in zip(other.aux,
+                                                     straight[0].aux))
+
+
+@pytest.mark.gpu
+def test_kpcn_matches_cpu(cuda):
+    """KPCN-lite with the shipped weights on the card against the CPU,
+    within chip_smoke.KPCN_TOL of the largest output (cuDNN sums the
+    convolutions in its own order; TF32 stays off)."""
+    from pathtracer_tpu_torch.render import denoise_net as dnn
+    rng = np.random.default_rng(6)
+    c, a, n = (torch.as_tensor(rng.random((48, 64, 3)).astype(np.float32)
+                               * s) for s in (50.0, 1.0, 1.0))
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        out[dev.type] = dnn.denoise_learned(c.to(dev), a.to(dev),
+                                            n.to(dev)).cpu()
+    tol = chip_smoke.KPCN_TOL * float(out['cpu'].abs().max())
+    torch.testing.assert_close(out['cuda'], out['cpu'], rtol=0, atol=tol)
+    assert not torch.backends.cudnn.allow_tf32

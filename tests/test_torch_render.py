@@ -146,15 +146,17 @@ def test_build_scene_equals_conversion(mesh_scene):
 
 def test_unported_features_raise():
     """Features still outside the port name their ROADMAP item: a
-    lenticular camera, a pointset and the denoiser feed."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpt.make_camera(*CAM, is_lenticular=True)
+    pointset.  The lenticular camera and the denoiser feed, refused until
+    they were ported, now build and render (their parity tests are in
+    test_torch_camera_extras.py and test_torch_denoise.py)."""
     objs = tscn.default_objects()
     objs.append(tscn.ObjectSpec(obj_type=tscn.POINTSET, mesh_data={
         'points': np.zeros((4, 3), np.float32)}))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tscn.build_scene(objs, tscn.default_light_intensity(), device='cpu')
     sc = tscn.build_scene(tscn.default_objects(), 1.0, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpt.Renderer(sc, tpt.make_camera(*CAM),
-                     trnd.RenderConfig(width=8, height=6, has_denoiser=True))
+    cam = tpt.make_camera(*CAM, is_lenticular=True)
+    r = tpt.Renderer(sc, cam, trnd.RenderConfig(
+        width=8, height=6, nrays=1, nb_bounces=1, has_denoiser=True)).render()
+    assert cam.is_lenticular and r.samples_done == 1
+    assert float(r.aux[2].abs().sum()) > 0
