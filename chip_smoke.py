@@ -106,7 +106,7 @@
    and the plain version find that triangle again at t == floor); then a
    64x48x1 spp render on the card against the CPU plain path (the
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
-   sample per wave, compaction: one warm-up and MAT_WAVES (5) waves timed
+   sample per wave, compaction: one warm-up and MAT_WAVES (3) waves timed
    one by one (median, min, max; live rays/s; sweep launches per wave,
    counts set to 0 before them; the cut-out queries and the lanes entering
    each round), and one wave under torch.profiler split into the sweeps,
@@ -154,7 +154,7 @@
    block, has_denoiser 1, the sphere on two keyframes).  load_scn reads it
    back (triangles, keyframes, size) and save_scn of that parses the same.
    Then the headless entry point in process, `cli.main([scene.scn,
-   out.hdr, --spp 4, --size 1920x1080, --frame 1, --denoise])` (the .scn
+   out.hdr, --spp CLI_SPP, --size 1920x1080, --frame 1, --denoise])` (the .scn
    carries no compaction flag, so it renders without), with every launch
    count set to 0 just before and read just after (`launches_cli`), each
    sample timed by CUDA events (sample_timer) with its sweep launches, and
@@ -172,6 +172,35 @@
    spp must exit 0 and write its .hdr.  Its numbers are the `{"cli": ...}`
    line.  No image is written as PNG or JPEG (PIL may be missing).
 
+12. Fluid phase (after the CLI phase; fluid_phase): scene F.  Solid cells
+   by fluid.rasterize_solids through the main path's 2.4M-triangle sphere
+   (12 casts of the 128^3 cell centres, backface cull off) and about
+   320,000 particles by fluid.seed_from_object from a checker-textured
+   sphere_mesh(400, 400, radius=8) at (0, 8, 0) (numpy kd map), both
+   casts' closest-hit sweeps recorded and their first and last launches
+   held bit for bit; fluid.run for 10 frames x 2 substeps of 0.03 on a
+   128^3 grid over (-24, -30, -24)-(24, 18, 24), every substep timed by
+   CUDA events, each solve's CG iterations and residual printed (the cap
+   named if it bit); the particles kept, inside the extent, the mean
+   height falling.  Then the last frame as fluid_pointset(radius=0.2) on
+   the clustered tier beside the sphere at 1920x1080, 3 bounces,
+   compaction: one warm-up and FLUID_WAVES timed waves (every launch count
+   set to 0 before and read after, `launches_fluid`; the particle sweeps'
+   packets, overflows, rerouted lanes and slot steps), the warm-up's
+   sweeps recorded and held, one wave under torch.profiler split into the
+   particle cull, slot sweeps, reroute, brute sweeps and mesh culls; the
+   particle tier on the 1080p primaries against brute force on the card
+   (every 16th lane; the union walk on 2,048 rays started inside the
+   fluid against the brute walk after 12 and 40 passes): index equal on
+   >= 99.9%, the rest ties within 2^-16; the same frame transparent, a
+   warm-up and FLUID_T_WAVES waves.  Last, the gallery fluid (24^3) for
+   one frame on the card and on the CPU (particles within FLUID_CPU_TOL of
+   the extent), a disk cloud (XYZ made with numpy, normals estimated),
+   yarns (a .yarn made with numpy) and the gallery fluid opaque and
+   transparent at 64x48 against the CPU plain path, and the disk cloud's
+   and the yarns' 480x270 waves timed.  Its numbers are the `{"fluid":
+   ...}` line.
+
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
@@ -180,9 +209,9 @@ one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
 rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
 x the same clock), both printed after the card line.
 
-Every failure raises.  The CLI phase's, the media phase's, the materials
-phase's and the gradient phase's numbers are JSON lines before the card
-line.  The last
+Every failure raises.  The fluid phase's, the CLI phase's, the media
+phase's, the materials phase's and the gradient phase's numbers are JSON
+lines before the card line.  The last
 three lines are the card line, the kernel JSON (per kernel: time, plain
 version's time, launches on its main path and on each later phase's
 waves, agreement, and the roofline bound from this run's work) and the
@@ -1678,7 +1707,8 @@ def probe_phase(dev):
 
 MAT_SEED = 0
 MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
-MAT_WAVES = 5           # timed 1080p waves of scene M, after a warm-up
+MAT_WAVES = 3           # timed 1080p waves of scene M, after a warm-up (5
+                        # before the fluid phase: cut for its time)
 GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
 C4_GRAD = 128           # C4's gradient check, square, 4 spp
 ANNOTATED = ('cull', 'texture')
@@ -1746,15 +1776,19 @@ def material_scene(dev, **sizes):
 @contextlib.contextmanager
 def annotated():
     """Label the cluster culls, the texture and env-map lookups, the
-    subsurface reservoir march and the fog event with
-    torch.profiler.record_function ranges ('cull', 'texture', 'march',
-    'fog'), by wrapping the module functions the scene and the integrator
-    call; restored on exit."""
+    subsurface reservoir march, the fog event and the point-set sweeps
+    with torch.profiler.record_function ranges ('cull', 'texture',
+    'march', 'fog'; 'pcull' the particle cull, 'pslots' the particle slot
+    sweeps, 'preroute' their overflow reroute, 'pbrute' the brute point
+    and yarn sweeps), by wrapping the module functions the scene and the
+    integrator call; restored on exit."""
     import torch
     from pathtracer_tpu_torch.models import texture as tex
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.render import integrator as integ
+    from pathtracer_tpu_torch.scene import pointset as tps
     from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.scene import yarns as tya
     saved = []
 
     def wrap(mod, name, label):
@@ -1774,6 +1808,14 @@ def annotated():
     wrap(scn, '_envmap_ke', 'texture')
     wrap(scn, '_mesh_reservoir_march', 'march')
     wrap(integ, '_fog_event', 'fog')
+    wrap(tps, '_cull_spheres', 'pcull')
+    for name in ('_entry_slots', '_union_slots'):
+        wrap(tps, name, 'pslots')
+    for name in ('_reroute_entry', '_reroute_union'):
+        wrap(tps, name, 'preroute')
+    for name in ('sphere_sweep', 'sphere_union_exit', 'disk_sweep'):
+        wrap(tps, name, 'pbrute')
+    wrap(tya, 'cylinder_sweep', 'pbrute')
     try:
         yield
     finally:
@@ -2245,7 +2287,8 @@ def materials_phase(dev, cam, card):
 # path's geometry) and the ghost + background flagship
 # ---------------------------------------------------------------------------
 
-MEDIA_WAVES = 3         # timed 1080p waves of scene O, after a warm-up
+MEDIA_WAVES = 2         # timed 1080p waves of scene O, after a warm-up (3
+                        # before the fluid phase: cut for its time)
 MEDIA_REF_LAT = 200     # the card-vs-CPU check's sphere: 79,600 triangles,
                         # above MESH_RESERVOIR_MAX_TRIS, so its probes march
 MEDIA_LABELS = ('cull', 'march', 'fog', 'texture')
@@ -2643,7 +2686,8 @@ def media_phase(dev, cam, card):
                           ghost_flagship=ghost, seconds=steps)
 
 
-CLI_SPP = 4             # samples of the CLI's 1080p render (one wave)
+CLI_SPP = 2             # samples of the CLI's 1080p render (one wave; 4
+                        # before the fluid phase: cut for its time)
 CLI_SMALL = (480, 270)  # the module entry point's subprocess render
 # the .scn mesh's keyframes: at --frame 1 it sits where the main path's does
 CLI_KEYFRAMES = {0.0: {'translation': (-2.0, -15.0, 0.0)},
@@ -2728,14 +2772,16 @@ def recorded_sweeps():
 def hold_sweeps(closest, anyhit, what, picks=(0, -1)):
     """The recorded launches at `picks` of each sweep against its plain
     version on the same inputs, bit for bit; returns how many launches
-    were recorded and held."""
+    were recorded and held.  anyhit None: a closest-hit query only (the
+    any-hit sweep must not have launched)."""
     from pathtracer_tpu_torch.ops import cluster as cl
-    if not closest or not anyhit:
+    if not closest or anyhit is not None and not anyhit:
         raise AssertionError(f'{what}: a sweep was never launched')
     held = 0
     for calls, plain, kind in ((closest, cl.cluster_sweep_plain, 'closest'),
-                               (anyhit, cl.cluster_sweep_any_plain, 'any')):
-        for i in sorted({p % len(calls) for p in picks}):
+                               (anyhit or [], cl.cluster_sweep_any_plain,
+                                'any')):
+        for i in sorted({p % len(calls) for p in picks} if calls else ()):
             args, out_k = calls[i]
             out_p = plain(*args)
             out_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -2743,8 +2789,9 @@ def hold_sweeps(closest, anyhit, what, picks=(0, -1)):
                 raise AssertionError(f'{what}: {kind} sweep launch {i} '
                                      f'differs from its plain version')
             held += 1
-    return dict(closest_launches=len(closest), any_launches=len(anyhit),
-                held=held, lanes=int(closest[0][0][4].shape[0]))
+    return dict(closest_launches=len(closest),
+                any_launches=len(anyhit or ()), held=held,
+                lanes=int(closest[0][0][4].shape[0]))
 
 
 class AfterSamples:
@@ -3014,6 +3061,549 @@ def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
     return launches, rep
 
 
+FLUID_N = 128           # scene F's grid: 128^3 cells of 0.375 (cubic cells,
+FLUID_LO = (-24.0, -30.0, -24.0)   # as the solver assumes)
+FLUID_HI = (24.0, 18.0, 24.0)
+FLUID_DT = 0.03
+FLUID_SUBSTEPS = 2
+FLUID_FRAMES = 10
+FLUID_PARTICLES = 320_000   # about 8 per inside cell of the r = 8 shape
+FLUID_RADIUS = 0.2
+FLUID_WAVES = 3         # timed opaque 1080p waves of scene F, after a warm-up
+FLUID_T_WAVES = 2       # timed transparent waves, after a warm-up
+FLUID_STRIDE = 16       # every 16th 1080p primary held against brute force
+FLUID_UNION_LANES = 2048   # rays from inside the fluid, union exit held
+FLUID_UNION_ITERS = 40     # passes of the converged brute union walk
+FLUID_LABELS = ('pcull', 'pslots', 'preroute', 'pbrute', 'cull')
+FLUID_SMALL = (480, 270)   # the disk cloud's and the yarns' timed wave
+FLUID_CPU_TOL = 1e-4    # card vs CPU particles, of the extent's size (the
+                        # CPU tests' tolerance against JAX)
+
+
+def checker(n, c0, c1, tiles=8):
+    """An n x n checker of two linear colours in [0, 1]
+    (scripts/gallery_fluid_colored.py's kd map)."""
+    ij = np.add.outer(np.arange(n) * tiles // n,
+                      np.arange(n) * tiles // n) % 2
+    return np.where(ij[..., None] == 0, np.asarray(c0, np.float32),
+                    np.asarray(c1, np.float32)).astype(np.float32)
+
+
+def fluid_config():
+    """Scene F's grid over FLUID_LO..FLUID_HI."""
+    from pathtracer_tpu_torch.sim import fluid as fl
+    n = FLUID_N
+    return fl.FluidConfig(lo=FLUID_LO, hi=FLUID_HI, nx=n, ny=n, nz=n,
+                          dt=FLUID_DT, nsubsteps=FLUID_SUBSTEPS)
+
+
+def shape_objects(lat=400, radius=8.0, center=(0.0, 8.0, 0.0), tex=512):
+    """The default slate and the checker-textured sphere_mesh the fluid
+    is seeded from (row 3)."""
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(
+        procgen.sphere_mesh(lat, lat, radius=radius), translation=center,
+        textures={'kd': checker(tex, (0.9, 0.35, 0.15), (0.2, 0.45, 0.9))}))
+    return objs
+
+
+def solid_objects(lat=1100):
+    """The default slate and the main path's sphere, the solid the fluid
+    is poured on (row 3)."""
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.utils import procgen
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(
+        procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25),
+        translation=(0.0, -15.0, 0.0)))
+    return objs
+
+
+@contextlib.contextmanager
+def substep_timer():
+    """fluid.substep timed by CUDA events, each pressure solve's
+    iterations and final residual logged (fluid.CG_LOG); restored on
+    exit.  Yields {'ms': [...], 'cg': [...]}."""
+    from pathtracer_tpu_torch.sim import fluid as fl
+    orig = fl.substep
+    rec = dict(ms=[], cg=[])
+
+    def step(cfg, st):
+        out, ms = timed(lambda: orig(cfg, st))
+        rec['ms'].append(ms)
+        return out
+
+    fl.substep, fl.CG_LOG = step, rec['cg']
+    try:
+        yield rec
+    finally:
+        fl.substep, fl.CG_LOG = orig, None
+
+
+def check_frames(cfg, frames, n, what):
+    """Every frame holds the n particles, finite and inside the extent;
+    the mean height falls.  Returns the first and last mean heights."""
+    lo, hi = np.asarray(cfg.lo), np.asarray(cfg.hi)
+    for f in frames:
+        if f.shape != (n, 3) or not np.isfinite(f).all() \
+                or (f < lo).any() or (f > hi).any():
+            raise AssertionError(f'{what}: a frame lost particles or left '
+                                 f'the extent')
+    y0, y1 = float(frames[0][:, 1].mean()), float(frames[-1][:, 1].mean())
+    if not y1 < y0:
+        raise AssertionError(f'{what}: the mean height did not fall '
+                             f'({y0:.4f} -> {y1:.4f})')
+    return y0, y1
+
+
+def fluid_sim(dev, solids, card):
+    """Scene F's simulation: the solid cells by rasterize_solids (12 casts
+    through the 2.4M-tri sphere, backface cull off), particles seeded by
+    seed_from_object from the checker sphere (12 casts, from inside the
+    shape), both casts' closest-hit sweeps recorded and their first and
+    last launches held bit for bit; then `run` for FLUID_FRAMES frames of
+    FLUID_SUBSTEPS substeps, each substep timed, each solve's CG
+    iterations and residual read.  Returns (frames, colours, report)."""
+    from pathtracer_tpu_torch.sim import fluid as fl
+    cfg = fluid_config()
+    rep = {}
+    t0 = time.perf_counter()
+    with recorded_sweeps() as (closest, anyhit):
+        solid = fl.rasterize_solids(cfg, solids, device=dev)
+    rep['solid_seconds'] = time.perf_counter() - t0
+    rep['solid_casts_held'] = hold_sweeps(closest, anyhit or None,
+                                          'solid casts')
+    rep['solid_cells'] = int(solid.sum())
+    del closest, anyhit
+    t0 = time.perf_counter()
+    shape = shape_objects()
+    rep['shape_seconds'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with recorded_sweeps() as (closest, anyhit):
+        pts, cols = fl.seed_from_object(cfg, shape, 3, FLUID_PARTICLES,
+                                        device=dev)
+    rep['seed_seconds'] = time.perf_counter() - t0
+    rep['seed_casts_held'] = hold_sweeps(closest, anyhit or None,
+                                         'seeding casts')
+    del closest, anyhit, shape
+    if not 0.5 * FLUID_PARTICLES < len(pts) < 1.5 * FLUID_PARTICLES:
+        raise AssertionError(f'seeded {len(pts)} particles')
+    n_colours = len(np.unique(np.round(cols, 3), axis=0))
+    if n_colours < 2:
+        raise AssertionError('the seeded particles lost the checker colours')
+    st = fl.reclassify(cfg, fl.init_state(cfg, pts, solid, device=dev))
+    with substep_timer() as rec:
+        t0 = time.perf_counter()
+        st, frames = fl.run(cfg, st, FLUID_FRAMES)
+        rep['run_seconds'] = time.perf_counter() - t0
+    y0, y1 = check_frames(cfg, frames, len(pts), 'scene F')
+    iters = [c['iters'] for c in rec['cg']]
+    res = [c['residual'] for c in rec['cg']]
+    capped = sum(r > cfg.cg_tol for r in res)
+    rep.update(grid=FLUID_N, particles=len(pts), colours=n_colours,
+               substeps=len(rec['ms']), ms_per_substep=spread(rec['ms']),
+               cg_iters=iters, cg_residual=res, cg_capped=capped,
+               cg_tol=cfg.cg_tol, cg_cap=cfg.cg_iters, mean_height=[y0, y1],
+               fluid_cells=int((st.celltypes == fl.FLUID).sum()))
+    log(f'scene F simulation {FLUID_N}^3 ({card}): solid cells '
+        f'{rep["solid_cells"]} by rasterize_solids in '
+        f'{rep["solid_seconds"]:.1f} s (closest-hit launches held '
+        f'{rep["solid_casts_held"]}); {len(pts)} particles, {n_colours} '
+        f'colours, seeded in {rep["seed_seconds"]:.1f} s (held '
+        f'{rep["seed_casts_held"]}); {len(rec["ms"])} substeps, ms per '
+        f'substep median {rep["ms_per_substep"]["median"]:.1f} (min '
+        f'{rep["ms_per_substep"]["min"]:.1f}, max '
+        f'{rep["ms_per_substep"]["max"]:.1f}); CG iterations {iters}, '
+        f'final residuals max {max(res):.3g} (cg_tol {cfg.cg_tol:g})'
+        + (f'; the cap of {cfg.cg_iters} iterations bit in {capped} of '
+           f'{len(res)} solves' if capped else '')
+        + f'; mean height {y0:.3f} -> {y1:.3f}')
+    return frames, cols, rep
+
+
+def particle_hold(ps, cam, dev):
+    """The particle tier on the 1080p primaries: clustered_sphere_sweep
+    over every lane (timed), held on every FLUID_STRIDE-th lane against
+    the brute sphere_sweep on the card; clustered_union_exit on
+    FLUID_UNION_LANES rays started just inside the fluid along those
+    primaries, held against the brute walk after 12 passes (what an
+    overflowed packet's lanes get, as in JAX) and after
+    FLUID_UNION_ITERS (the slot walk's fixed point).  Index equal on >= 99.9% of lanes, the rest ties within 2^-16
+    relative t; the overflowed packets counted (pointset.SWEEP_LOG)."""
+    import torch
+    from pathtracer_tpu_torch.scene import pointset as tps
+    org, dirn = primary_rays(cam, dev)
+    big = torch.full((org.shape[0],), BIG_T, device=dev)
+    tps.SWEEP_LOG = []
+    try:
+        (t_c, i_c), ms_c = timed(
+            lambda: tps.clustered_sphere_sweep(ps, org, dirn, big))
+        entry_log = tps.SWEEP_LOG[-1]
+        sub = slice(None, None, FLUID_STRIDE)
+        (t_b, i_b), ms_b = timed(
+            lambda: tps.sphere_sweep(ps, org[sub], dirn[sub], big[sub]))
+        entry = hold_particles(t_c[sub], i_c[sub], t_b, i_b, 'entry')
+        hit = (t_c < BIG_T).nonzero()[:, 0]
+        if hit.numel() < FLUID_UNION_LANES:
+            raise AssertionError('too few primaries hit the fluid')
+        pick = hit[torch.linspace(0, hit.numel() - 1, FLUID_UNION_LANES,
+                                  device=dev).long()]
+        o_in = org[pick] + (t_c[pick] + 0.05)[:, None] * dirn[pick]
+        d_in = dirn[pick].contiguous()
+        (e_c, x_c, n_c), ms_u = timed(
+            lambda: tps.clustered_union_exit(ps, o_in, d_in))
+        union_log = tps.SWEEP_LOG[-1]
+        walks = {}
+        for iters in (12, FLUID_UNION_ITERS):
+            walks[iters], ms_ub = timed(lambda: tps.sphere_union_exit(
+                ps, o_in, d_in, iters=iters))
+        # a ray grazing its first sphere leaves it within the 0.05 step
+        if not all(torch.equal(n_c, w[2]) for w in walks.values()) \
+                or float(n_c.float().mean()) < 0.9:
+            raise AssertionError('union exit: the inside flags differ or '
+                                 'too few rays start inside the fluid')
+        union = hold_particles(e_c, x_c, *zip(*(w[:2] for w in
+                                                 walks.values())),
+                               what='union exit')
+    finally:
+        tps.SWEEP_LOG = None
+    rep = dict(entry=dict(lanes=int(org.shape[0]), held_lanes=int(
+        t_b.numel()), hit_share=float((t_c < BIG_T).float().mean()),
+        ms=ms_c, brute_ms=ms_b, **entry, **entry_log),
+        union=dict(lanes=FLUID_UNION_LANES, inside_share=float(
+            n_c.float().mean()), ms=ms_u, brute_ms=ms_ub, **union,
+            **union_log))
+    log(f'particle tier on the 1080p primaries: clustered_sphere_sweep '
+        f'{ms_c:.1f} ms over {org.shape[0]} lanes ({rep["entry"]["hit_share"]:.3f}'
+        f' hit), {entry_log["overflowed"]} of {entry_log["packets"]} packets '
+        f'overflowed MAXC_P, {entry_log["residual"]} lanes rerouted; against '
+        f'brute on every {FLUID_STRIDE}th lane ({ms_b:.1f} ms): {entry}; '
+        f'clustered_union_exit {ms_u:.1f} ms on {FLUID_UNION_LANES} inside '
+        f'rays ({union_log["overflowed"]} packets overflowed, '
+        f'{union_log["residual"]} lanes rerouted) against the brute walk '
+        f'(12 and {FLUID_UNION_ITERS} passes, {ms_ub:.1f} ms the latter): '
+        f'{union}')
+    return rep
+
+
+def hold_particles(t_c, i_c, t_b, i_b, what):
+    """Clustered (t_c, i_c) against brute force: index equal on >= 99.9%
+    of lanes, the rest both hits and ties within 2^-16 relative t; t
+    equal where the index is.  t_b and i_b may be tuples of brute runs
+    (the union walk after 12 passes, JAX's overflow reroute, and run to
+    its fixed point, the slot walk's): each lane is held to the run its
+    index agrees with, else to the first."""
+    import torch
+    if not isinstance(t_b, tuple):
+        t_b, i_b = (t_b,), (i_b,)
+    same = torch.zeros_like(i_c, dtype=torch.bool)
+    t_ref, i_ref = t_b[0].clone(), i_b[0].clone()
+    for tb, ib in reversed(list(zip(t_b, i_b))):
+        m = (i_c == ib) & (t_c == tb)
+        t_ref[m], i_ref[m] = tb[m], ib[m]
+        same |= m
+    frac = float(same.float().mean())
+    d = ~same
+    if frac < 0.999 or bool(((i_c[d] < 0) | (i_ref[d] < 0)).any()) \
+            or bool(((t_c[d] - t_ref[d]).abs() > TIE * t_ref[d].abs()).any()):
+        raise AssertionError(f'{what}: clustered and brute differ beyond '
+                             f'ties (equal on {frac:.5f})')
+    return dict(index_equal=frac, ties=int(d.sum()))
+
+
+def fluid_scene_f(solids, frames, cols, dev):
+    """Scene F: the solids and the fluid's last frame as a clustered
+    particle-sphere set (FLUID_RADIUS, the seeded colours)."""
+    from pathtracer_tpu_torch.scene import pointset as tps
+    from pathtracer_tpu_torch.scene import scene as scn
+    ps = tps.fluid_pointset(frames[-1], radius=FLUID_RADIUS, color=cols,
+                            device=dev)
+    objs = list(solids) + [scn.pointset_object(ps)]
+    return scn.build_scene(objs, scn.default_light_intensity(), device=dev)
+
+
+def transparent(sc, refr=1.33):
+    """`sc` with its point set's row transparent (union exit, refraction),
+    as pointset_object(ps, transp=True, refr_index=refr) builds it."""
+    row = sc.pointsets[0].obj_row
+    transp, refr_index = sc.transp.clone(), sc.refr_index.clone()
+    transp[row], refr_index[row] = True, refr
+    return sc.replace(transp=transp, refr_index=refr_index, pointsets=(
+        sc.pointsets[0].replace(transparent=True),))
+
+
+def fluid_waves(sc, cam, card, waves, what, profile=False):
+    """`sc` at 1920x1080, 1 sample per wave, 3 bounces, compaction: one
+    warm-up, `waves` waves timed one by one (every launch count set to 0
+    just before them and read just after; the particle sweeps' packets,
+    overflows and rerouted lanes from pointset.SWEEP_LOG); with `profile`
+    the warm-up's sweeps recorded and held bit for bit, and one more wave
+    under torch.profiler split into FLUID_LABELS."""
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.scene import pointset as tps
+    cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    r = pt.Renderer(sc, cam, cfg)
+    rep = {}
+    if profile:
+        with recorded_sweeps() as (closest, anyhit):
+            warm = timed(r.step)[1]
+        rep['sweeps_held'] = hold_sweeps(closest, anyhit, what)
+        del closest, anyhit
+    else:
+        warm = timed(r.step)[1]
+    reset_counts()
+    tps.SWEEP_LOG = []
+    rays0, ms = r.rays_traced, []
+    try:
+        for _ in range(waves):
+            ms.append(timed(r.step)[1])
+    finally:
+        sweeps, tps.SWEEP_LOG = tps.SWEEP_LOG, None
+    launches = read_counts()
+    img = r.display().cpu().numpy()
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f'{what} image not finite / wrong shape')
+    region = img[int(H * 0.2):int(H * 0.6), int(W * 0.35):int(W * 0.65)]
+    if not region.mean() > 0.02 or not region.std() > 0.01:
+        raise AssertionError(f'{what}: the fluid region is not lit')
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+        if launches[name] <= 0:
+            raise AssertionError(f'{name} never launched on {what}')
+    if not sweeps:
+        raise AssertionError(f'{what}: no clustered particle sweep ran')
+    kinds = collections.Counter(e['kind'] for e in sweeps)
+    rep.update(warmup_ms=warm, ms_per_wave=spread(ms),
+               live_rays_per_s=(r.rays_traced - rays0) / (sum(ms) / 1e3),
+               launches_per_wave={k: v / waves for k, v in launches.items()},
+               particle_sweeps_per_wave={k: v / waves
+                                         for k, v in kinds.items()},
+               particle_packets_per_wave=sum(e['packets'] for e in sweeps)
+               / waves,
+               overflowed_packets_per_wave=sum(e['overflowed']
+                                               for e in sweeps) / waves,
+               rerouted_lanes_per_wave=sum(e['residual'] for e in sweeps)
+               / waves,
+               slot_steps_per_wave=sum(e['slots'] for e in sweeps) / waves,
+               image_mean=float(img.mean()))
+    if profile:
+        t0 = time.perf_counter()
+        split, busy, n_kern, inclusive = profile_split(r, FLUID_LABELS)
+        rep.update(profiled_split_ms=split, profiled_inclusive_ms=inclusive,
+                   profiled_busy_ms=busy, profiled_kernels=n_kern,
+                   profile_seconds=time.perf_counter() - t0)
+    log(f'{what} {W}x{H}, {sc.meshes[0].n_tris} tris + '
+        f'{sc.pointsets[0].num_points} particle slots, 3 bounces, '
+        f'compaction ({card}): warm-up {warm:.1f} ms; ms per '
+        f'wave median {rep["ms_per_wave"]["median"]:.1f} (min {min(ms):.1f},'
+        f' max {max(ms):.1f}); {rep["live_rays_per_s"]:.4g} live rays/s; '
+        f'launches per wave {rep["launches_per_wave"]}; particle sweeps per '
+        f'wave {rep["particle_sweeps_per_wave"]}, packets '
+        f'{rep["particle_packets_per_wave"]:.0f}, overflowed '
+        f'{rep["overflowed_packets_per_wave"]:.0f}, rerouted lanes '
+        f'{rep["rerouted_lanes_per_wave"]:.0f}, slot steps '
+        f'{rep["slot_steps_per_wave"]:.0f}')
+    if profile:
+        log(f'  profiled wave (torch.profiler, device time): '
+            + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
+            + '; launched inside each range: '
+            + ', '.join(f'{k} {v:.1f} ms' for k, v in inclusive.items())
+            + f'; all {n_kern} kernels {busy:.1f} ms, busy '
+            f'{busy / rep["ms_per_wave"]["median"]:.3f} of the median wave; '
+            f'sweeps held {rep["sweeps_held"]}')
+    return launches, rep
+
+
+def gallery_fluid(dev):
+    """scripts/gallery_fluid_colored.py's fluid: a 24^3 grid, seeded from
+    a checker sphere_mesh(28, 28, radius=6) with 18,000 particles on
+    `dev`.  Returns (cfg, state, colours)."""
+    from pathtracer_tpu_torch.scene import scene as scn
+    from pathtracer_tpu_torch.sim import fluid as fl
+    from pathtracer_tpu_torch.utils import procgen
+    cfg = fl.FluidConfig(lo=(-12.0, -26.0, -12.0), hi=(12.0, -2.0, 12.0),
+                         nx=24, ny=24, nz=24, dt=FLUID_DT,
+                         nsubsteps=FLUID_SUBSTEPS)
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(
+        procgen.sphere_mesh(28, 28, radius=6.0), translation=(0.0, -10.0, 0.0),
+        textures={'kd': checker(128, (0.9, 0.35, 0.15), (0.2, 0.45, 0.9))}))
+    pts, cols = fl.seed_from_object(cfg, objs, 3, 18000, device=dev)
+    return cfg, fl.reclassify(cfg, fl.init_state(cfg, pts, device=dev)), cols
+
+
+def write_cloud(path, n=20000, seed=MAT_SEED):
+    """A bumpy coloured sheet facing the camera as an XYZ file (x y z r g
+    b, colours 0-255), made with numpy; its columns for load_xyz."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-20.0, 20.0, n)
+    y = rng.uniform(-27.0, -3.0, n)
+    z = 2.5 * np.sin(x * 0.4) * np.cos((y + 15.0) * 0.3)
+    rgb = np.stack([128 + 100 * np.sin(x * 0.2), 128 + 100 * np.cos(y * 0.3),
+                    np.full(n, 90.0)], -1)
+    np.savetxt(path, np.concatenate([np.stack([x, y, z], -1), rgb], 1),
+               fmt='%.5f')
+    return [0, 1, 2, 6, 7, 8]
+
+
+def write_yarns(path, n_yarns=60, n_points=100):
+    """A woven patch of polylines as a .yarn file (scaled x50 on load),
+    made with numpy: half along x, half along y, in front of the slate."""
+    lines = [str(n_yarns)]
+    s = np.linspace(-0.4, 0.4, n_points)
+    for k in range(n_yarns):
+        c = -0.4 + 0.8 * (k // 2) / (n_yarns // 2 - 1)
+        wave = 0.01 * np.sin(s * 120 + k)
+        if k % 2 == 0:
+            pts = np.stack([s, c * 0.5 - 0.3 + 0 * s, wave], -1)
+        else:
+            pts = np.stack([c + 0 * s, s * 0.5 - 0.3, -wave], -1)
+        lines.append(str(n_points))
+        lines += [f'{a:.6f} {b:.6f} {cc:.6f}' for a, b, cc in pts]
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+
+
+def small_point_scenes(dev, d, fluid_pts, fluid_cols):
+    """The card-vs-CPU scenes on the default slate, on `dev`: a disk cloud
+    (load_xyz of write_cloud's file, normals and radii estimated), the
+    yarns of write_yarns, and the gallery fluid's particles as opaque and
+    as transparent spheres (clustered)."""
+    from pathtracer_tpu_torch.scene import pointset as tps
+    from pathtracer_tpu_torch.scene import scene as scn
+    xyz, yarn = os.path.join(d, 'cloud.xyz'), os.path.join(d, 'w.yarn')
+    cols = write_cloud(xyz)
+    write_yarns(yarn)
+    li = scn.default_light_intensity()
+    out = {}
+    cloud = tps.make_pointset(xyz, cols=cols, centered=False, device=dev)
+    for name, obj in (
+            ('disks', scn.pointset_object(cloud, ks=(0.2, 0.2, 0.2))),
+            ('yarns', scn.yarn_object(yarn, kd=(0.8, 0.6, 0.2))),
+            ('fluid', scn.pointset_object(tps.fluid_pointset(
+                fluid_pts, radius=0.55, color=fluid_cols, device=dev))),
+            ('transparent', scn.pointset_object(tps.fluid_pointset(
+                fluid_pts, radius=0.55, color=fluid_cols, device=dev),
+                transp=True, refr_index=1.33))):
+        out[name] = scn.build_scene(scn.default_objects() + [obj], li,
+                                    device=dev)
+    if out['fluid'].pointsets[0].n_clusters == 0 \
+            or not out['transparent'].pointsets[0].transparent:
+        raise AssertionError('the small fluid is not on the clustered tier')
+    return out
+
+
+def small_wave(sc, cam, name, card):
+    """One warm-up and one timed wave of `sc` at FLUID_SMALL, 3 bounces,
+    compaction; the image finite and lit."""
+    import pathtracer_tpu_torch as pt
+    w, h = FLUID_SMALL
+    r = pt.Renderer(sc, cam, pt.RenderConfig(
+        width=w, height=h, nrays=2, nb_bounces=BOUNCES, samples_per_wave=1,
+        compact_rays=True))
+    r.step()
+    ms = timed(r.step)[1]
+    img = r.display().cpu().numpy()
+    if not np.isfinite(img).all() or not img.mean() > 0.02:
+        raise AssertionError(f'{name} {w}x{h} image not finite / not lit')
+    log(f'{name} {w}x{h} wave ({card}): {ms:.1f} ms')
+    return ms
+
+
+def fluid_card_vs_cpu(dev, cam, card):
+    """The gallery fluid for one frame of FLUID_SUBSTEPS substeps on the
+    card and on the CPU from one seeded state (particles within
+    FLUID_CPU_TOL of the extent, cell types on >= 99.9% of cells); the
+    disk cloud, the yarns and the gallery fluid's last frame, opaque and
+    transparent, at 64x48 on the card against the CPU plain path; the
+    disk cloud's and the yarns' timed FLUID_SMALL waves."""
+    import tempfile
+    import torch
+    from pathtracer_tpu_torch.sim import fluid as fl
+    cfg, st, cols = gallery_fluid(dev)
+    out = {}
+    for name, s in (('cuda', st), ('cpu', fl.FluidState(
+            *(x.cpu() for x in st)))):
+        out[name] = fl.run(cfg, s, 1)
+    ext = max(h - l for l, h in zip(cfg.lo, cfg.hi))
+    err = float(np.abs(out['cuda'][1][-1] - out['cpu'][1][-1]).max()) / ext
+    same_ct = float((out['cuda'][0].celltypes.cpu()
+                     == out['cpu'][0].celltypes).float().mean())
+    check_frames(cfg, out['cuda'][1], st.particles.shape[0], 'gallery fluid')
+    if err > FLUID_CPU_TOL or same_ct < 0.999:
+        raise AssertionError(f'gallery fluid card vs CPU: particles '
+                             f'{err:.3g} of the extent, cell types '
+                             f'{same_ct:.5f}')
+    rep = dict(sim=dict(particles=int(st.particles.shape[0]),
+                        max_err_of_extent=err, celltypes_equal=same_ct))
+    log(f'gallery fluid 24^3, {st.particles.shape[0]} particles, one frame '
+        f'of {FLUID_SUBSTEPS} substeps, card vs CPU: particles within '
+        f'{err:.3g} of the extent, cell types equal on {same_ct:.5f}')
+    with tempfile.TemporaryDirectory() as d:
+        scenes = small_point_scenes(dev, d, out['cuda'][1][-1], cols)
+    flips = {name: card_vs_cpu(s, f'point scene {name}')
+             for name, s in scenes.items()}
+    rep['flipped'] = flips
+    rep['small_wave_ms'] = {name: small_wave(scenes[name], cam, name, card)
+                            for name in ('disks', 'yarns')}
+    rep['small_counts'] = dict(disks=scenes['disks'].pointsets[0].num_points,
+                               yarn_segments=scenes['yarns'].yarns[0]
+                               .num_segments)
+    del scenes
+    torch.cuda.empty_cache()
+    return rep
+
+
+def fluid_phase(dev, cam, card):
+    """Scene F: the fluid simulated at FLUID_N^3 (fluid_sim) and rendered
+    at 1080p on the main path's sphere, opaque (fluid_waves with the held
+    wave and the profiled split) and transparent; the particle tier held
+    against brute force on the card (particle_hold); the small card-vs-CPU
+    checks (fluid_card_vs_cpu).  Returns the launches of the opaque waves
+    and the phase's numbers."""
+    import torch
+    steps = {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    solids = solid_objects()
+    step('solid_mesh')
+    frames, cols, sim = fluid_sim(dev, solids, card)
+    step('simulation')
+    sc = fluid_scene_f(solids, frames, cols, dev)
+    ps = sc.pointsets[0]
+    step('build')
+    log(f'scene F build {steps["build"]:.1f} s: {sc.meshes[0].n_tris} tris, '
+        f'{ps.num_points} particle slots in {ps.n_clusters} clusters, '
+        f'backface cull {sc.meshes[0].backface_cull}')
+    if not ps.n_clusters:
+        raise AssertionError('scene F is not on the clustered tier')
+    launches, opaque = fluid_waves(sc, cam, card, FLUID_WAVES, 'scene F',
+                                   profile=True)
+    step('opaque_waves')
+    hold = particle_hold(ps, cam, dev)
+    step('particle_hold')
+    _, transp = fluid_waves(transparent(sc), cam, card, FLUID_T_WAVES,
+                            'scene F transparent')
+    if not transp['particle_sweeps_per_wave'].get('union'):
+        raise AssertionError('the transparent fluid ran no union walk')
+    step('transparent_waves')
+    del sc, ps
+    torch.cuda.empty_cache()
+    small = fluid_card_vs_cpu(dev, cam, card)
+    step('card_vs_cpu')
+    log('fluid phase steps (s): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
+    return launches, dict(simulation=sim, opaque=opaque, transparent=transp,
+                          particle_hold=hold, small=small, seconds=steps)
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -3076,6 +3666,9 @@ def main():
     t0 = time.perf_counter()
     cli_launches, cli_rep = cli_phase(dev, card)
     log(f'CLI phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    fluid_launches, fluid_rep = fluid_phase(dev, cam, card)
+    log(f'fluid phase {time.perf_counter() - t0:.1f} s')
     for k in kernels:
         k['launches'] = launches[k['name']]
         k['launches_grad_forward'] = mesh['launches_forward'][k['name']]
@@ -3100,6 +3693,8 @@ def main():
         # a probe record's name carries its script: dot_fp32[prof_sweep]
         k['launches_media'] = med_launches[k['name'].split('[')[0]]
         k['launches_cli'] = cli_launches[k['name'].split('[')[0]]
+        k['launches_fluid'] = fluid_launches[k['name'].split('[')[0]]
+    log(json.dumps({'fluid': fluid_rep}))
     log(json.dumps({'cli': cli_rep}))
     log(json.dumps({'media': med}))
     log(json.dumps({'materials': mat}))

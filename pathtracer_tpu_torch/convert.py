@@ -8,9 +8,11 @@ re-laid out by ops.cluster.from_tpu_arrays, or the soup, BVH and packed
 packet-tier nodes of a mesh uploaded with use_cluster=False),
 shade_pack, flags and static metadata, the materials (group textures
 and channel atlases, analytic-row textures, the env map and the measured
-BRDF tables with their per-row selector), and the media: fog parameters
-and flags, ghost rows, subsurface flags and the background photo.  So
-both packages can trace exactly the same scene.
+BRDF tables with their per-row selector), the media: fog parameters
+and flags, ghost rows, subsurface flags and the background photo, and
+the point sets (with their particle-cluster boxes and flags) and yarn
+sets.  So both packages can trace exactly the same scene.  `fluid_state`
+carries the fluid simulator's state across.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ from .ops import cluster
 from .ops import packet_bvh
 from .ops import traverse
 from .scene import mesh as mesh_mod
+from .scene import pointset as ps_mod
 from .scene import scene as scn
+from .scene import yarns as yarn_mod
+from .sim import fluid
 
 
 def numpy_fields(obj):
@@ -122,8 +127,6 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
     (None: the card)."""
     f = fields
     device = device_mod.resolve(device)
-    if f.get('pointsets') or f.get('yarns'):
-        _refuse('pointsets and yarns', 'Queue 1 item 9')
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=device)
@@ -171,7 +174,47 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         fog_phase_type=int(f.get('fog_phase_type', 0)),
         ss_enabled=bool(f.get('ss_enabled', False)),
         ss_obj_ok=opt('ss_obj_ok', bools),
-        ghost_enabled=bool(f.get('ghost_enabled', False)))
+        ghost_enabled=bool(f.get('ghost_enabled', False)),
+        pointsets=tuple(_pointset_from_numpy(p, device)
+                        for p in f.get('pointsets') or ()),
+        yarns=tuple(_yarns_from_numpy(y, device)
+                    for y in f.get('yarns') or ()))
+
+
+def _tensor_or_none(x, dev):
+    return None if x is None else torch.as_tensor(
+        np.array(x, np.float32, order='C'), device=dev)
+
+
+def _pointset_from_numpy(p: dict, dev) -> ps_mod.PointSetArrays:
+    arrays = ('px', 'py', 'pz', 'nx', 'ny', 'nz', 'radius', 'colors',
+              'c_lox', 'c_loy', 'c_loz', 'c_hix', 'c_hiy', 'c_hiz')
+    return ps_mod.PointSetArrays(
+        **{k: _tensor_or_none(p.get(k), dev) for k in arrays},
+        obj_row=int(p['obj_row']), n_clusters=int(p['n_clusters']),
+        display_edges=bool(p['display_edges']),
+        as_spheres=bool(p['as_spheres']),
+        transparent=bool(p['transparent']))
+
+
+def _yarns_from_numpy(y: dict, dev) -> yarn_mod.YarnArrays:
+    return yarn_mod.YarnArrays(
+        **{k: _tensor_or_none(y[k], dev)
+           for k in ('ax', 'ay', 'az', 'ux', 'uy', 'uz', 'length', 'radius')},
+        obj_row=int(y['obj_row']))
+
+
+def fluid_state(fields, device=None) -> fluid.FluidState:
+    """The port's FluidState from `numpy_fields(jax_state)` (a JAX
+    FluidState is a NamedTuple, so numpy_fields gives its fields as a
+    list in FluidState order; a dict by field name is taken too), on
+    `device` (None: the card)."""
+    dev = device_mod.resolve(device)
+    if not isinstance(fields, dict):
+        fields = dict(zip(fluid.FluidState._fields, fields))
+    return fluid.FluidState(**{
+        k: torch.as_tensor(np.array(fields[k], order='C'), device=dev)
+        for k in fluid.FluidState._fields})
 
 
 def kpcn_state_dict(flat: dict) -> dict:

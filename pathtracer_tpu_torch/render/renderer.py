@@ -187,7 +187,8 @@ class Renderer:
             device=self.device)
         ts = cfg.tile_size
         if ts < 0:
-            ts = 32 if self.scene.meshes else 0
+            sc = self.scene
+            ts = 32 if (sc.meshes or sc.pointsets or sc.yarns) else 0
         self._order = _pixel_order(cfg.width, cfg.height, ts, self.device)
         self._preview_lin = None
         self.reset()

@@ -23,8 +23,12 @@ intersection with the hit object along a segment, from both quadric roots
 of an analytic row, the dense count-then-pick over a small mesh's
 triangles, or the crossing march (`_mesh_reservoir_march`) on a big one.
 
-Pointsets and yarns (ROADMAP Queue 1 item 9) raise NotImplementedError
-from `build_scene`.
+Point sets (scene/pointset.py: disk splats, fluid particle spheres on the
+brute or the clustered tier, the transparent fluid's union exit) and
+yarns (scene/yarns.py, finite cylinders) are bound to rows like meshes and
+folded into `intersect` after them (`_merge_pointset_hit`,
+`_merge_yarn_hit`); `intersect_shadow` sweeps them unbounded, as JAX does,
+and compares with the light distance.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ from ..ops import cluster
 from ..ops import packet_bvh
 from ..ops import traverse
 from . import mesh as mesh_mod
+from . import pointset as ps_mod
+from . import yarns as yarn_mod
 
 SPHERE = 0
 PLANE = 1
@@ -106,6 +112,8 @@ class SceneArrays:
     # background photo, gamma-linearized and scaled by 196964.699
     # (Geometry.h:1355-1362), or None
     background: Any = None       # (Hb,Wb,3)
+    pointsets: tuple = ()        # pointset.PointSetArrays, one per row
+    yarns: tuple = ()            # yarns.YarnArrays, one per row
 
     @property
     def num_objects(self) -> int:
@@ -131,6 +139,8 @@ class SceneArrays:
               if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(
             self, meshes=tuple(m.to(dev) for m in self.meshes),
+            pointsets=tuple(p.to(dev) for p in self.pointsets),
+            yarns=tuple(y.to(dev) for y in self.yarns),
             obj_textures=tuple(None if t is None else t.to(dev)
                                for t in self.obj_textures),
             measured_brdfs=tuple(t.to(dev) for t in self.measured_brdfs),
@@ -218,8 +228,9 @@ def _candidate_ts(sc: SceneArrays, origins, dirs):
 
 
 def intersect(sc: SceneArrays, origins, dirs) -> Hit:
-    """Closest hit over the analytic rows, then every mesh; ghost rows
-    are hit like any other (`Hit.ghost` marks them)."""
+    """Closest hit over the analytic rows, then every mesh, point set and
+    yarn set; ghost rows are hit like any other (`Hit.ghost` marks
+    them)."""
     t_all, (lox, loy, loz), (ldx, ldy, ldz) = _candidate_ts(
         sc, origins, dirs)
     obj_id = t_all.argmin(dim=-1)
@@ -284,7 +295,122 @@ def intersect(sc: SceneArrays, origins, dirs) -> Hit:
         out = _object_textures(sc, out, is_sphere, px, pz, n_out)
     for mesh in sc.meshes:
         out = _merge_mesh_hit(sc, mesh, origins, dirs, out)
+    for ps in sc.pointsets:
+        out = _merge_pointset_hit(sc, ps, origins, dirs, out)
+    for ya in sc.yarns:
+        out = _merge_yarn_hit(sc, ya, origins, dirs, out)
     return out
+
+
+def _to_world(sc: SceneArrays, row: int, p_l, n_l):
+    """A row's local hit point and normal in world space."""
+    if sc.identity_transform:
+        tr = sc.trans[row]
+        return p_l + torch.stack([tr[3], tr[7], tr[11]]), n_l
+    tr = sc.trans[row].view(3, 4)
+    return (p_l @ tr[:, :3].T + tr[:, 3],
+            vec.normalize(n_l @ sc.rot[row].view(3, 3).T))
+
+
+def _merge_row_hit(sc: SceneArrays, row: int, cur: Hit, win, t, p_w, n_w,
+                   kd) -> Hit:
+    """Fold a point-set or yarn row's hit into the running hit where it
+    wins: its point, normal and Kd, the row's other material constants.
+    The emission is cleared as a mesh clears it (JAX keeps the running
+    hit's, so a point set in front of an env-mapped dome glows with it)."""
+    def sel(new, old):
+        m = win[:, None] if new.dim() > win.dim() else win
+        return torch.where(m, new, old)
+
+    def row3(tbl):
+        return tbl[row].expand_as(p_w)
+
+    brdf_row = (torch.zeros((), dtype=torch.int32, device=t.device)
+                if sc.brdf_type is None else sc.brdf_type[row])
+    return Hit(
+        hit=cur.hit | win,
+        t=torch.where(win, t, cur.t),
+        p=sel(p_w, cur.p),
+        n=sel(n_w, cur.n),
+        obj_id=torch.where(win, row, cur.obj_id),
+        kd=sel(kd, cur.kd),
+        ks=sel(row3(sc.ks), cur.ks),
+        ne=sel(row3(sc.ne), cur.ne),
+        ke=sel(torch.zeros_like(cur.ke), cur.ke),
+        ksub=sel(row3(sc.ksub), cur.ksub),
+        transp=torch.where(win, sc.transp[row], cur.transp),
+        refr_index=torch.where(win, sc.refr_index[row], cur.refr_index),
+        miroir=torch.where(win, sc.miroir[row], cur.miroir),
+        brdf_type=torch.where(win, brdf_row, cur.brdf_type),
+        lkey=torch.where(win, row, cur.lkey),
+        ghost=torch.where(win, sc.ghost[row], cur.ghost),
+    )
+
+
+def _merge_yarn_hit(sc: SceneArrays, ya, origins, dirs, cur: Hit) -> Hit:
+    """Yarn cylinder closest hit (Yarns::intersection via Cylinder,
+    TriangleMesh.h:292-299, Geometry.h:731-846)."""
+    row = ya.obj_row
+    org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
+    t_y, idx, s_ax = yarn_mod.cylinder_sweep(ya, org_l, dir_l, cur.t)
+    win = t_y < cur.t
+    i = idx.clamp_min(0).long()
+    a = torch.stack([ya.ax[i], ya.ay[i], ya.az[i]], dim=-1)
+    u = torch.stack([ya.ux[i], ya.uy[i], ya.uz[i]], dim=-1)
+    p_l = org_l + t_y[:, None] * dir_l
+    n_l = vec.normalize(p_l - a - s_ax[:, None] * u)
+    n_l = torch.where(sc.flip_normals[row], -n_l, n_l)
+    p_w, n_w = _to_world(sc, row, p_l, n_l)
+    return _merge_row_hit(sc, row, cur, win, t_y, p_w, n_w,
+                          sc.kd[row].expand_as(p_w))
+
+
+def _merge_pointset_hit(sc: SceneArrays, ps, origins, dirs, cur: Hit) -> Hit:
+    """Point-set closest hit (PointSet::intersection, PointSet.cpp:124-244):
+    particle spheres (the transparent fluid's interior rays exit at the
+    union boundary) or two-sided disks, per-point colour as Kd, rims
+    darkened under display_edges."""
+    row = ps.obj_row
+    org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
+    if ps.as_spheres:
+        if ps.n_clusters:
+            t_ps, idx = ps_mod.clustered_sphere_sweep(ps, org_l, dir_l,
+                                                      cur.t)
+        else:
+            t_ps, idx = ps_mod.sphere_sweep(ps, org_l, dir_l, cur.t)
+        if ps.transparent:
+            # rays starting inside the particle union exit at its boundary
+            # (fluid.cpp:65-171): refraction at entry and exit only
+            if ps.n_clusters:
+                t_u, idx_u, inside = ps_mod.clustered_union_exit(
+                    ps, org_l, dir_l)
+            else:
+                t_u, idx_u, inside = ps_mod.sphere_union_exit(ps, org_l,
+                                                              dir_l)
+            use_u = inside & (t_u < cur.t) & (t_u > 0)
+            t_ps = torch.where(use_u, t_u, t_ps)
+            idx = torch.where(use_u, idx_u, idx)
+    else:
+        t_ps, idx = ps_mod.disk_sweep(ps, org_l, dir_l, cur.t)
+    win = t_ps < cur.t
+    i = idx.clamp_min(0).long()
+    p_l = org_l + t_ps[:, None] * dir_l
+    cen = torch.stack([ps.px[i], ps.py[i], ps.pz[i]], dim=-1)
+    if ps.as_spheres:
+        n_l = vec.normalize(p_l - cen)
+    else:
+        n_l = torch.stack([ps.nx[i], ps.ny[i], ps.nz[i]], dim=-1)
+        # two-sided disks (PointSet.cpp:205)
+        facing = vec.dot(n_l, dir_l) > 0.0
+        n_l = torch.where(facing[:, None], -n_l, n_l)
+    n_l = torch.where(sc.flip_normals[row], -n_l, n_l)
+    kd = ps.colors[i]
+    if ps.display_edges:
+        r2 = vec.norm2(p_l - cen)
+        r95 = ps.radius[i] * 0.95
+        kd = torch.where((r2 > r95 * r95)[:, None], torch.zeros_like(kd), kd)
+    p_w, n_w = _to_world(sc, row, p_l, n_l)
+    return _merge_row_hit(sc, row, cur, win, t_ps, p_w, n_w, kd)
 
 
 def _envmap_ke(sc: SceneArrays, nx, ny, nz):
@@ -733,6 +859,25 @@ def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light):
             blocked |= traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
                                         max_leaf=mesh.max_leaf,
                                         any_hit_limit=limit).t < limit
+    # point and yarn sets: the closest hit over all of it (unbounded, as
+    # JAX sweeps them) against the limit
+    big = torch.full_like(limit, BIG_T)
+    for ps in sc.pointsets:
+        if sc.ghost_enabled and bool(sc.ghost[ps.obj_row]):
+            continue
+        org_l, dir_l = _local_ray_row(sc, ps.obj_row, origins, dirs)
+        if not ps.as_spheres:
+            sweep = ps_mod.disk_sweep
+        elif ps.n_clusters:
+            sweep = ps_mod.clustered_sphere_sweep
+        else:
+            sweep = ps_mod.sphere_sweep
+        blocked |= sweep(ps, org_l, dir_l, big)[0] < limit
+    for ya in sc.yarns:
+        if sc.ghost_enabled and bool(sc.ghost[ya.obj_row]):
+            continue
+        org_l, dir_l = _local_ray_row(sc, ya.obj_row, origins, dirs)
+        blocked |= yarn_mod.cylinder_sweep(ya, org_l, dir_l, big)[0] < limit
     return blocked
 
 
@@ -1045,6 +1190,25 @@ def plane(point, normal, **kw) -> ObjectSpec:
     return spec
 
 
+def yarn_object(yarn_data, **kw) -> ObjectSpec:
+    """A yarn set occupying one object-table row: `yarn_data` is (seg_a
+    (S,3), seg_b (S,3)) or a .yarn file path."""
+    spec = ObjectSpec(obj_type=YARNS, mesh_data=yarn_data, **kw)
+    if spec.rotation_center is None:
+        spec.rotation_center = (0.0, 0.0, 0.0)
+    return spec
+
+
+def pointset_object(point_data, **kw) -> ObjectSpec:
+    """A point set occupying one object-table row: `point_data` is a
+    pointset.PointSetArrays or a host dict {'points', 'normals',
+    'colors', 'radii'} (missing normals and radii are estimated)."""
+    spec = ObjectSpec(obj_type=POINTSET, mesh_data=point_data, **kw)
+    if spec.rotation_center is None:
+        spec.rotation_center = (0.0, 0.0, 0.0)
+    return spec
+
+
 def mesh_object(mesh_data, **kw) -> ObjectSpec:
     """A triangle mesh occupying one object-table row."""
     spec = ObjectSpec(obj_type=MESH, mesh_data=mesh_data, **kw)
@@ -1071,18 +1235,10 @@ def _build_matrices(spec: ObjectSpec):
             m.astype(np.float32))
 
 
-def _unsupported_object(o: ObjectSpec):
-    """The first feature of this object outside the port's slices, or
-    None."""
-    if o.obj_type in (POINTSET, YARNS):
-        return 'pointsets and yarns (ROADMAP Queue 1 item 9)'
-    return None
-
-
 def _ss_obj_ok(objects) -> np.ndarray:
     """Per-row subsurface-probe support (SceneArrays.ss_obj_ok): every
-    analytic row and every mesh tier has a reservoir path (pointsets and
-    yarns, which have none, are refused by build_scene)."""
+    analytic row and every mesh tier has a reservoir path; point sets and
+    yarns have none, so their rows opt out of the entry RR."""
     return np.asarray([o.obj_type not in (POINTSET, YARNS) for o in objects],
                       bool)
 
@@ -1212,10 +1368,6 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
     n = len(objects)
     if n < 2:
         raise ValueError('scene needs at least light (0) and dome (1) objects')
-    for o in objects:
-        why = _unsupported_object(o)
-        if why is not None:
-            raise NotImplementedError(f'scene feature not ported yet: {why}')
     mesh_items = [(i, o) for i, o in enumerate(objects) if o.obj_type == MESH]
 
     if frame is not None:
@@ -1286,6 +1438,34 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
         tex_mod.make_group_textures(o.textures, device=device)
         if o.textures and o.obj_type in (SPHERE, PLANE) else None
         for o in objects)
+    pointsets = []
+    for i, o in enumerate(objects):
+        if o.obj_type != POINTSET:
+            continue
+        pd = o.mesh_data
+        if isinstance(pd, ps_mod.PointSetArrays):
+            pointsets.append(pd.to(device).replace(
+                obj_row=i, transparent=bool(o.transp)))
+            continue
+        pts = np.asarray(pd['points'], np.float32)
+        nrm, col, radii = pd.get('normals'), pd.get('colors'), pd.get('radii')
+        if nrm is None or radii is None:
+            est_n, est_r = ps_mod.estimate_normals(pts)
+            nrm = est_n if nrm is None else np.asarray(nrm, np.float32)
+            radii = est_r if radii is None else np.asarray(radii, np.float32)
+        if col is None:
+            col = np.full((len(pts), 3), 1.0 / 255, np.float32)
+        pointsets.append(ps_mod.upload_pointset(pts, nrm, col, radii, i,
+                                                device=device))
+    yarns = []
+    for i, o in enumerate(objects):
+        if o.obj_type != YARNS:
+            continue
+        yd = o.mesh_data
+        seg_a, seg_b = (yarn_mod.load_yarn(yd) if isinstance(yd, str) else
+                        (np.asarray(yd[0], np.float32),
+                         np.asarray(yd[1], np.float32)))
+        yarns.append(yarn_mod.upload_yarns(seg_a, seg_b, i, device=device))
     # measured BRDFs, tables deduplicated by identity
     tables, brdf_type = [], []
     for o in objects:
@@ -1351,7 +1531,8 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
             np.asarray(o.ksub, np.float32), (3,))))) > 1e-8 for o in objects),
         ss_obj_ok=torch.as_tensor(_ss_obj_ok(objects), device=device),
         ghost_enabled=any(bool(o.ghost) for o in objects),
-        background=None if background is None else f32(background))
+        background=None if background is None else f32(background),
+        pointsets=tuple(pointsets), yarns=tuple(yarns))
 
 
 def default_objects():

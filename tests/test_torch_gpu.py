@@ -1058,3 +1058,88 @@ def test_kpcn_matches_cpu(cuda):
     tol = chip_smoke.KPCN_TOL * float(out['cpu'].abs().max())
     torch.testing.assert_close(out['cuda'], out['cpu'], rtol=0, atol=tol)
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.gpu
+def test_clustered_particle_sweeps_match_brute(cuda):
+    """The particle tier on the card: clustered_sphere_sweep and
+    clustered_union_exit against the brute sweeps on the card
+    (chip_smoke.hold_particles: index and t equal on >= 99.9% of lanes,
+    the rest ties within 2^-16 relative t; the union walk held to the
+    brute walk after 12 passes, what a rerouted lane gets, and after 40,
+    the slot walk's fixed point), with enough overflowed packets that the
+    reroute runs; and against the CPU within 1e-6 relative t."""
+    from pathtracer_tpu_torch.scene import pointset as tps
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(60000, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pts = (u * (8.0 * rng.uniform(0, 1, (60000, 1)) ** (1 / 3))).astype(
+        np.float32)
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        ps = tps.fluid_pointset(pts, radius=0.3, device=dev)
+        org, d = _rays(4096, 8)
+        org, d = (torch.as_tensor(x, device=dev) for x in (org, d))
+        big = torch.full((org.shape[0],), BIG_T, device=dev)
+        tps.SWEEP_LOG = []
+        try:
+            t_c, i_c = tps.clustered_sphere_sweep(ps, org, d, big)
+            inside = (t_c < BIG_T).nonzero()[:, 0][:512]
+            o_in = org[inside] + (t_c[inside] + 0.05)[:, None] * d[inside]
+            d_in = d[inside].contiguous()
+            e_c, x_c, n_c = tps.clustered_union_exit(ps, o_in, d_in)
+            log = tps.SWEEP_LOG
+        finally:
+            tps.SWEEP_LOG = None
+        out[dev.type] = (t_c, i_c, e_c, x_c)
+        if dev.type != 'cuda':
+            continue
+        assert sum(e['residual'] for e in log) > 0
+        t_b, i_b = tps.sphere_sweep(ps, org, d, big)
+        chip_smoke.hold_particles(t_c, i_c, t_b, i_b, 'entry')
+        walks = [tps.sphere_union_exit(ps, o_in, d_in, iters=k)
+                 for k in (12, 40)]
+        assert all(torch.equal(n_c, w[2]) for w in walks)
+        chip_smoke.hold_particles(e_c, x_c, *zip(*(w[:2] for w in walks)),
+                                  what='union exit')
+        assert float((t_c < BIG_T).float().mean()) > 0.1
+    for a, b in zip(out['cuda'], out['cpu']):
+        a = a.cpu()
+        if a.dtype == torch.int32:
+            assert float((a == b).float().mean()) >= 0.999
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_fluid_substep_matches_cpu(cuda):
+    """The gallery fluid (24^3, seeded from a checker sphere through the
+    sweeps) for one frame of two substeps on the card against the CPU from
+    the same state: particles within chip_smoke.FLUID_CPU_TOL of the
+    extent, cell types on >= 99.9% of cells (only the CG's reductions sum
+    in another order)."""
+    from pathtracer_tpu_torch.sim import fluid as fl
+    cfg, st, _ = chip_smoke.gallery_fluid(cuda)
+    fc = fl.run(cfg, st, 1)
+    fh = fl.run(cfg, fl.FluidState(*(x.cpu() for x in st)), 1)
+    ext = max(h - lo for lo, h in zip(cfg.lo, cfg.hi))
+    assert np.abs(fc[1][-1] - fh[1][-1]).max() <= chip_smoke.FLUID_CPU_TOL \
+        * ext
+    assert float((fc[0].celltypes.cpu() == fh[0].celltypes).float().mean()) \
+        >= 0.999
+    assert fc[1][-1][:, 1].mean() < fc[1][0][:, 1].mean()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['disks', 'yarns', 'fluid', 'transparent'])
+def test_point_scenes_match_cpu_plain_path(cuda, scene, tmp_path):
+    """A disk cloud (normals estimated from an XYZ file), yarns from a
+    .yarn file, and a clustered fluid, opaque and transparent, at 64x48 on
+    the card against the CPU plain path, per sample with the reference
+    render's allowance (chip_smoke.card_vs_cpu)."""
+    rng = np.random.default_rng(4)
+    pts = (rng.uniform(-7, 7, (9000, 3)) * np.float32([1.0, 0.6, 1.0])
+           + np.float32([0.0, -20.0, 0.0])).astype(np.float32)
+    cols = rng.uniform(0.2, 0.9, (9000, 3)).astype(np.float32)
+    scenes = chip_smoke.small_point_scenes(cuda, str(tmp_path), pts, cols)
+    assert chip_smoke.card_vs_cpu(scenes[scene], scene) < 0.05

@@ -145,16 +145,29 @@ def test_build_scene_equals_conversion(mesh_scene):
 
 
 def test_unported_features_raise():
-    """Features still outside the port name their ROADMAP item: a
-    pointset.  The lenticular camera and the denoiser feed, refused until
-    they were ported, now build and render (their parity tests are in
-    test_torch_camera_extras.py and test_torch_denoise.py)."""
-    objs = tscn.default_objects()
-    objs.append(tscn.ObjectSpec(obj_type=tscn.POINTSET, mesh_data={
-        'points': np.zeros((4, 3), np.float32)}))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tscn.build_scene(objs, tscn.default_light_intensity(), device='cpu')
+    """Features still outside the port name their ROADMAP item: a mesh
+    sharded over a scene axis, carried across by scene_from_numpy.  The
+    point sets and yarns, the lenticular camera and the denoiser feed,
+    refused until they were ported, now build and render (their parity
+    tests are in test_torch_pointset.py, test_torch_camera_extras.py and
+    test_torch_denoise.py)."""
     sc = tscn.build_scene(tscn.default_objects(), 1.0, device='cpu')
+    fields = convert.numpy_fields(sc)
+    fields['meshes'] = [{'scene_axis': 'scene'}]
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        convert.scene_from_numpy(fields, device='cpu')
+    objs = tscn.default_objects()
+    rng = np.random.default_rng(0)
+    objs.append(tscn.pointset_object({
+        'points': rng.normal(0, 3, (40, 3)).astype(np.float32)}))
+    objs.append(tscn.yarn_object((np.float32([[-5, -10, 0]]),
+                                  np.float32([[5, -10, 0]]))))
+    ps_sc = tscn.build_scene(objs, tscn.default_light_intensity(),
+                             device='cpu')
+    assert len(ps_sc.pointsets) == 1 and len(ps_sc.yarns) == 1
+    r = tpt.Renderer(ps_sc, tpt.make_camera(*CAM), trnd.RenderConfig(
+        width=8, height=6, nrays=1, nb_bounces=1)).render()
+    assert r.samples_done == 1 and bool(torch.isfinite(r.image).all())
     cam = tpt.make_camera(*CAM, is_lenticular=True)
     r = tpt.Renderer(sc, cam, trnd.RenderConfig(
         width=8, height=6, nrays=1, nb_bounces=1, has_denoiser=True)).render()
