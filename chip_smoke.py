@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-all]
+
+--profile-all also profiles one wave of scene M and one of scene O (items
+9 and 10); without it those phases keep every check and timed wave but
+skip their profiled split (scene O's costs about 110 s, scene M's about
+40 s on an H100), so the whole run stays well inside its time limit.
 
 1. Refuses to run without a CUDA device (no CPU fallback); prints the
    torch version, the card's name and power limit, and its fp32 issue
@@ -27,8 +32,9 @@
 5. Main path: Renderer on the 2.4M-triangle scene at 1920x1080, 3
    bounces, one sample per wave, compaction on; one warm-up wave, two
    timed waves (launch counts read here), two more timed waves, and one
-   wave under torch.profiler for the sweeps' device time.  Both sweep
-   kernels' launch counters must rise; the image must be finite and lit.
+   wave under torch.profiler for the sweeps' device time
+   (profile_split).  Both sweep kernels' launch counters must rise; the
+   image must be finite and lit.
 6. Tree-cull phase: a 3.4M-triangle displaced sphere cut into 256-triangle
    clusters (more than DENSE_CULL_MAX), on its 1080p primaries and on one
    bounce of the primaries that hit (cosine-weighted, from a seeded
@@ -106,37 +112,40 @@
    and the plain version find that triangle again at t == floor); then a
    64x48x1 spp render on the card against the CPU plain path (the
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
-   sample per wave, compaction: one warm-up and MAT_WAVES (3) waves timed
+   sample per wave, compaction: one warm-up and MAT_WAVES (2) waves timed
    one by one (median, min, max; live rays/s; sweep launches per wave,
    counts set to 0 before them; the cut-out queries and the lanes entering
-   each round), and one wave under torch.profiler split into the sweeps,
-   the culls and the texture and env-map lookups (record_function ranges
-   put around them by `annotated`) and the rest; both sweeps must launch
+   each round), and, with --profile-all, one wave under torch.profiler
+   split into the sweeps, the culls and the texture and env-map lookups
+   (record_function ranges put around them by `annotated`) and the rest;
+   both sweeps must launch
    and the image be finite and lit; then autograd of a 480x270x2 spp
    float64 mean image with respect to the kd atlas and the env map, each
    at its largest-|grad| texel against a central difference (5e-2).
    Scene C4: configs/config4_merl_dof.json through the port's scene_json
    with the synthetic full-size MERL table written beside it in a
    temporary directory, 512x512 x 64 spp, aperture 1.5: one warm-up and
-   three timed frames (median, min, max); the MERL table's gradient on a
-   128x128x4 spp render at its largest-|grad| entry against a central
-   difference.  No image is read from a PNG: every map is made with numpy.
+   C4_FRAMES (1) timed frames (median, min, max); the MERL table's
+   gradient on a 128x128x4 spp render at its largest-|grad| entry against
+   a central difference.  No image is read from a PNG: every map is made
+   with numpy.
 10. Media phase (after the materials phase): scene O (media_objects):
    config 5's fog block and mesh material, read from
    configs/config5_office.json, on the main path's 2.4M-triangle sphere
    (its ksub clears the backface cull), config 5's slate, a 1024x2048 env
    map.  First every closest-hit sweep launch of one reservoir march (the
-   1080p primaries' bounce-1 subsurface probes, drawn as the integrator
-   draws them) against cluster_sweep_plain bit for bit under the rising
-   strict floor with the backface cull off (march_sweep_check); then
+   MARCH_SIZE (960x540) primaries' bounce-1 subsurface probes, drawn as
+   the integrator draws them) against cluster_sweep_plain bit for bit
+   under the rising strict floor with the backface cull off
+   (march_sweep_check); then
    64x48x1 spp renders on the card against the CPU plain path (the
    reference's allowance) of scene O's geometry at a 79,600-triangle
    sphere (whose probes march) and of the flagship with a ghost sphere
    and a 1080x1920 background photo; the ghost flagship's 1080p waves
    (one warm-up, MEDIA_WAVES timed); then scene O's Renderer at 1920x1080,
-   3 bounces, 1 sample per wave, compaction: one wave under
-   torch.profiler, which is also the warm-up, split into the sweeps, the
-   culls, the march, the fog and the rest, with the device-busy share;
+   3 bounces, 1 sample per wave, compaction: one warm-up wave (with
+   --profile-all under torch.profiler, split into the sweeps, the culls,
+   the march, the fog and the rest, with the device-busy share);
    MEDIA_WAVES waves timed one by one (median, min, max; live rays/s;
    every launch count set to 0 before them; closest-hit launches inside
    the march and inside the fog probe; fog probe queries and lanes;
@@ -162,14 +171,15 @@
    plain versions bit for bit.  On its result: the a-trous denoised
    display (4 levels, timed); a lenticular camera (10 images, pixel width
    1, the reference's angle) for one sample, timed, its first launches
-   held the same way; checkpoint/resume (4 samples, one a wave,
-   compaction): two straight renders bit-equal, render_resumable stopped
-   after two waves and resumed bit-equal, its .npz removed; the preview
+   held the same way; checkpoint/resume (RESUME_SPP (2) samples, one a
+   wave, compaction): two straight renders bit-equal, render_resumable
+   stopped after one wave and resumed bit-equal, its .npz removed; the preview
    (120x67) and display_fill_in before and after the first wave;
    KPCN-lite with the shipped weights on the whole frame (timed, peak
    memory) and on a 256x256 crop against the CPU (KPCN_TOL).  Last,
    `python -m pathtracer_tpu_torch.cli` as a subprocess at 480x270 x 2
-   spp must exit 0 and write its .hdr.  Its numbers are the `{"cli": ...}`
+   spp, on the same slate written with a CLI_SUB_LAT (200) sphere, must
+   exit 0 and write its .hdr.  Its numbers are the `{"cli": ...}`
    line.  No image is written as PNG or JPEG (PIL may be missing).
 
 12. Fluid phase (after the CLI phase; fluid_phase): scene F.  Solid cells
@@ -256,6 +266,8 @@ EDGE_PAIR_OPS = 41      # one probe edge-matrix test (sweep_micro.cu)
 RADIANCE = 196964.7     # the gradient loss's scale (tests/test_gradients.py)
 DESCENT_TARGET = [0.8, 0.3, 0.2]   # g_kd of the descent's target image
 DESCENT_LR = 1.0
+FLAGSHIP_RUNS = 1       # timed flagship runs a mode, after a warm-up (3
+                        # before the time limit's cuts)
 
 
 def log(*a):
@@ -631,34 +643,6 @@ def reference_phase():
         raise AssertionError('card render disagrees with the CPU reference')
 
 
-def profile_wave(r):
-    """One Renderer wave under torch.profiler: device time of each sweep
-    kernel (summed over its launches), the sum over all kernels, and the
-    number of kernel launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r.step()
-        torch.cuda.synchronize()
-    sweeps = {'cluster_sweep_closest': 0.0, 'cluster_sweep_any': 0.0}
-    busy, n = 0.0, 0
-    for e in prof.key_averages():
-        us = getattr(e, 'self_device_time_total', None)
-        if us is None:
-            us = e.self_cuda_time_total
-        busy += us
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n += e.count
-        if 'sweep_kernel<false' in e.key:
-            sweeps['cluster_sweep_closest'] += us
-        elif 'sweep_kernel<true' in e.key:
-            sweeps['cluster_sweep_any'] += us
-    if busy == 0.0:
-        raise AssertionError('torch.profiler recorded no device time')
-    return {k: v / 1e3 for k, v in sweeps.items()}, busy / 1e3, n
-
-
 def main_path(sc, cam, card):
     import torch
     import pathtracer_tpu_torch as pt
@@ -688,7 +672,7 @@ def main_path(sc, cam, card):
         stop.record()
         torch.cuda.synchronize()
         ms_wave.append(start.elapsed_time(stop))
-    sweeps_ms, busy_ms, n_kern = profile_wave(r)
+    split, busy_ms, n_kern, _ = profile_split(r, ())
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('image not finite / wrong shape')
@@ -707,8 +691,9 @@ def main_path(sc, cam, card):
         f'in the warm-up and two timed waves {launches}; mesh region mean '
         f'{region.mean():.3f} std {region.std():.3f}')
     log(f'profiled wave (torch.profiler): sweep kernels device time '
-        + ', '.join(f'{k} {v:.1f} ms' for k, v in sweeps_ms.items())
-        + f'; all {n_kern} kernels {busy_ms:.1f} ms (sum of kernel times)')
+        f'cluster_sweep_closest {split["sweep_closest"]:.1f} ms, '
+        f'cluster_sweep_any {split["sweep_any"]:.1f} ms; all {n_kern} '
+        f'kernels {busy_ms:.1f} ms (sum of kernel times)')
     return launches
 
 
@@ -773,7 +758,7 @@ def flagship_grad(dev, cam, card):
     on the analytic flagship (no kernel runs): the mean 1920x1080 x 64 spp
     image, 3 bounces, remat_samples, forward under torch.no_grad() and
     forward + backward with respect to kd and light_intensity; one
-    warm-up and three timed runs each."""
+    warm-up and FLAGSHIP_RUNS timed runs each."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
@@ -793,9 +778,9 @@ def flagship_grad(dev, cam, card):
         return dict(zip(leaves, torch.autograd.grad(loss,
                                                     list(leaves.values()))))
 
-    fwd_ms = [timed(fwd)[1] for _ in range(4)][1:]
+    fwd_ms = [timed(fwd)[1] for _ in range(1 + FLAGSHIP_RUNS)][1:]
     torch.cuda.reset_peak_memory_stats()
-    runs = [timed(fwd_bwd) for _ in range(4)]
+    runs = [timed(fwd_bwd) for _ in range(1 + FLAGSHIP_RUNS)]
     peak = torch.cuda.max_memory_allocated()
     grads = runs[-1][0]
     check_grads(grads, 'flagship')
@@ -1707,10 +1692,13 @@ def probe_phase(dev):
 
 MAT_SEED = 0
 MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
-MAT_WAVES = 3           # timed 1080p waves of scene M, after a warm-up (5
-                        # before the fluid phase: cut for its time)
+MAT_WAVES = 2           # timed 1080p waves of scene M, after a warm-up (5
+                        # before the fluid phase, 3 before the time
+                        # limit's cuts)
 GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
 C4_GRAD = 128           # C4's gradient check, square, 4 spp
+C4_FRAMES = 1           # timed C4 frames, after a warm-up (3 before the
+                        # time limit's cuts)
 ANNOTATED = ('cull', 'texture')
 
 
@@ -1832,14 +1820,16 @@ def profile_split(r, labels=ANNOTATED):
     sweeps, launched outside torch's ops, not included).  ms.  Reads the
     raw Kineto events: building torch's FunctionEvent tree for the wave's
     million events takes minutes; a kernel's linked correlation id names
-    the op that launched it, as in torch's own parsing.  Returns (split,
-    busy, kernels, inclusive)."""
+    the op that launched it, as in torch's own parsing.  With no labels
+    only the device is traced, which spares recording every CPU op.
+    Returns (split, busy, kernels, inclusive)."""
     import bisect
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] if labels else []
     t0 = time.perf_counter()
-    with annotated(), profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
+    with annotated(), profile(activities=acts + [ProfilerActivity.CUDA]) \
+            as prof:
         r.step()
         torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2010,11 +2000,12 @@ def card_vs_cpu(sc, name):
     return float(flipped.mean())
 
 
-def material_main(sc, cam, card):
+def material_main(sc, cam, card, profile):
     """Scene M's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
     compaction: one warm-up wave, then MAT_WAVES waves timed one by one (the
     sweep launch counts set to 0 just before them and read just after),
-    the cut-out rounds logged, then one wave under torch.profiler."""
+    the cut-out rounds logged, then, if `profile`, one wave under
+    torch.profiler."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -2036,9 +2027,11 @@ def material_main(sc, cam, card):
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
                 'cluster_sweep_any': cl.cluster_sweep_any.launches}
     live = r.rays_traced - rays0
-    t0 = time.perf_counter()
-    split, busy, n_kern, _ = profile_split(r)
-    profile_s = time.perf_counter() - t0
+    split = busy = n_kern = profile_s = None
+    if profile:
+        t0 = time.perf_counter()
+        split, busy, n_kern, _ = profile_split(r)
+        profile_s = time.perf_counter() - t0
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('scene M image not finite / wrong shape')
@@ -2076,10 +2069,11 @@ def material_main(sc, cam, card):
                     f'{v["lanes_mean"]:.0f}, max {v["lanes_max"]}'
                     for k, v in rounds.items())
         + f'; lanes still cut out after the last round {left}')
-    log(f'  profiled wave (torch.profiler, device time): '
-        + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
-        + f'; all {n_kern} kernels {busy:.1f} ms (profiled and read in '
-        f'{profile_s:.1f} s)')
+    if profile:
+        log(f'  profiled wave (torch.profiler, device time): '
+            + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
+            + f'; all {n_kern} kernels {busy:.1f} ms (profiled and read in '
+            f'{profile_s:.1f} s)')
     return launches, rep
 
 
@@ -2175,7 +2169,7 @@ def write_merl(path):
 def c4_phase(dev, card):
     """configs/config4_merl_dof.json through the port's scene_json with
     the synthetic MERL table beside it in a temporary directory: 512 x 512
-    x 64 spp, aperture 1.5, one warm-up and three timed frames (CUDA
+    x 64 spp, aperture 1.5, one warm-up and C4_FRAMES timed frames (CUDA
     events); then the gradient of a C4_GRAD^2 x 4 spp float64 mean image
     with respect to the MERL table, checked at its largest-|grad| entry
     against a central difference."""
@@ -2206,7 +2200,7 @@ def c4_phase(dev, card):
 
     t_load = time.perf_counter() - t0
     frame()
-    runs = [timed(frame) for _ in range(3)]
+    runs = [timed(frame) for _ in range(C4_FRAMES)]
     img = runs[-1][0].display().cpu().numpy()
     if not np.isfinite(img).all() or not img.mean() > 0.01:
         raise AssertionError('config 4 image not finite / not lit')
@@ -2242,10 +2236,11 @@ def c4_phase(dev, card):
                     (grads['merl'] != 0).sum()), **fd))
 
 
-def materials_phase(dev, cam, card):
+def materials_phase(dev, cam, card, profile=False):
     """Scene M: build, the cut-out sweep check, the card against the CPU,
-    the 1080p waves, the texture gradients; then C4.  Returns the sweep
-    launches of scene M's waves and the phase's numbers."""
+    the 1080p waves (one profiled if `profile`), the texture gradients;
+    then C4.  Returns the sweep launches of scene M's waves and the
+    phase's numbers."""
     steps = {}
     t0 = time.perf_counter()
 
@@ -2269,7 +2264,7 @@ def materials_phase(dev, cam, card):
     step('cutout_check')
     card_vs_cpu(sc, 'scene M')
     step('reference')
-    launches, rep = material_main(sc, cam, card)
+    launches, rep = material_main(sc, cam, card, profile)
     step('waves')
     grads = texture_grads(sc, cam, card)
     step('texture_grads')
@@ -2287,12 +2282,17 @@ def materials_phase(dev, cam, card):
 # path's geometry) and the ghost + background flagship
 # ---------------------------------------------------------------------------
 
-MEDIA_WAVES = 2         # timed 1080p waves of scene O, after a warm-up (3
-                        # before the fluid phase: cut for its time)
+MEDIA_WAVES = 1         # timed 1080p waves of scene O and of the ghost
+                        # flagship, after a warm-up (3 before the fluid
+                        # phase, 2 before the time limit's cuts)
 MEDIA_REF_LAT = 200     # the card-vs-CPU check's sphere: 79,600 triangles,
                         # above MESH_RESERVOIR_MAX_TRIS, so its probes march
 MEDIA_LABELS = ('cull', 'march', 'fog', 'texture')
 MEDIA_GRAD_W, MEDIA_GRAD_H = 320, 180   # scene O's gradient check, 2 spp
+MARCH_SIZE = (960, 540)  # the march sweep check's primaries; on an H100
+                         # its time follows its launches, each held against
+                         # its plain version: 44 s for 32 at 1080p, 25 s
+                         # for 20 here, 42.8 s for 32 at 480x270
 
 
 def config5():
@@ -2340,7 +2340,7 @@ def background_photo(h=H, w=W, seed=MAT_SEED):
     return (np.power(u8 / 255.0, 2.2) * 196964.699).astype(np.float32)
 
 
-def march_sweep_check(sc, cam, dev, size=(W, H)):
+def march_sweep_check(sc, cam, dev, size=MARCH_SIZE):
     """One reservoir march on scene O's bounce-1 subsurface probes (the
     primaries' hits at `size`, sample 0, drawn as the integrator draws
     them):
@@ -2469,9 +2469,9 @@ def read_counts():
             for k, (mod, attr) in wrappers().items()}
 
 
-def media_main(sc, cam, card):
+def media_main(sc, cam, card, profile):
     """Scene O's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
-    compaction: one wave under torch.profiler, which is also the warm-up,
+    compaction: one warm-up wave (under torch.profiler if `profile`),
     then MEDIA_WAVES waves timed one by one (every launch count set to 0
     just before them and read just after, the marches' rounds and lanes
     logged).  The overflow stat must stay 0."""
@@ -2480,9 +2480,13 @@ def media_main(sc, cam, card):
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
-    t0 = time.perf_counter()
-    split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
-    profile_s = time.perf_counter() - t0
+    split = busy = n_kern = inclusive = profile_s = None
+    if profile:
+        t0 = time.perf_counter()
+        split, busy, n_kern, inclusive = profile_split(r, MEDIA_LABELS)
+        profile_s = time.perf_counter() - t0
+    else:
+        timed(r.step)
     reset_counts()
     scn.MARCH_LOG = []
     rays0, ms = r.rays_traced, []
@@ -2549,13 +2553,14 @@ def media_main(sc, cam, card):
                     f'{v["lanes_mean"]:.0f}, max {v["lanes_max"]}'
                     for k, v in rounds.items())
         + f'; overflow stat {overflow}')
-    log(f'  profiled wave (torch.profiler, device time): '
-        + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
-        + f'; launched inside each range: '
-        + ', '.join(f'{k} {v:.1f} ms' for k, v in inclusive.items())
-        + f'; all {n_kern} kernels {busy:.1f} ms, busy '
-        f'{busy / rep["ms_per_wave"]["median"]:.3f} of the median wave '
-        f'(profiled and read in {profile_s:.1f} s)')
+    if profile:
+        log(f'  profiled wave (torch.profiler, device time): '
+            + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
+            + f'; launched inside each range: '
+            + ', '.join(f'{k} {v:.1f} ms' for k, v in inclusive.items())
+            + f'; all {n_kern} kernels {busy:.1f} ms, busy '
+            f'{busy / rep["ms_per_wave"]["median"]:.3f} of the median wave '
+            f'(profiled and read in {profile_s:.1f} s)')
     return launches, rep
 
 
@@ -2637,12 +2642,12 @@ def ghost_flagship(dev, cam, card):
     return sc, rep
 
 
-def media_phase(dev, cam, card):
+def media_phase(dev, cam, card, profile=False):
     """Scene O: build, the march sweep check, the card against the CPU
     (scene O's geometry at MEDIA_REF_LAT, and the ghost + background
-    flagship), the 1080p waves, the fog and ksub gradients; the ghost
-    flagship's waves.  Returns the launches of scene O's waves and the
-    phase's numbers."""
+    flagship), the 1080p waves (the warm-up profiled if `profile`), the
+    fog and ksub gradients; the ghost flagship's waves.  Returns the
+    launches of scene O's waves and the phase's numbers."""
     steps = {}
     t0 = time.perf_counter()
 
@@ -2675,7 +2680,7 @@ def media_phase(dev, cam, card):
                                             'ghost + background flagship')
     del ghost_sc
     step('reference_ghost')
-    launches, rep = media_main(sc, cam, card)
+    launches, rep = media_main(sc, cam, card, profile)
     step('waves')
     grads = media_grads(sc, cam, card)
     step('grads')
@@ -2686,9 +2691,14 @@ def media_phase(dev, cam, card):
                           ghost_flagship=ghost, seconds=steps)
 
 
-CLI_SPP = 2             # samples of the CLI's 1080p render (one wave; 4
-                        # before the fluid phase: cut for its time)
+CLI_SPP = 1             # samples of the CLI's 1080p render (one wave; 4
+                        # before the fluid phase, 2 before the time
+                        # limit's cuts)
 CLI_SMALL = (480, 270)  # the module entry point's subprocess render
+CLI_SUB_LAT = 200       # its sphere: 79,600 triangles (the 2.4M-triangle
+                        # file took it 27 s to parse and build)
+RESUME_SPP = 2          # checkpoint/resume's samples, stopped after half
+                        # (4 before the time limit's cuts)
 # the .scn mesh's keyframes: at --frame 1 it sits where the main path's does
 CLI_KEYFRAMES = {0.0: {'translation': (-2.0, -15.0, 0.0)},
                  2.0: {'translation': (2.0, -15.0, 0.0)}}
@@ -2807,9 +2817,9 @@ class AfterSamples:
 
 def resume_check(sc, cam, cfg, d):
     """Checkpoint and resume on the card: two straight renders give the
-    same bits; render_resumable stopped after two waves writes its .npz,
-    a second call completes bit-equal to the straight render and removes
-    it.  Returns the times."""
+    same bits; render_resumable stopped after half the samples (one a
+    wave) writes its .npz, a second call completes bit-equal to the
+    straight render and removes it.  Returns the times."""
     import torch
     import pathtracer_tpu_torch as pt
     out, ms = [], []
@@ -2824,12 +2834,14 @@ def resume_check(sc, cam, cfg, d):
         raise AssertionError('two straight renders differ: the path is not '
                              'deterministic')
     path = os.path.join(d, 'resume.npz')
+    half = cfg.nrays // 2
     r = pt.Renderer(sc, cam, cfg)
     (_, t_first) = timed(lambda: r.render_resumable(
-        path, guard=AfterSamples(r, 2)))
-    if r.samples_done != 2 or not os.path.exists(path):
-        raise AssertionError(f'render_resumable did not stop at 2 samples '
-                             f'with its checkpoint ({r.samples_done})')
+        path, guard=AfterSamples(r, half)))
+    if r.samples_done != half or not os.path.exists(path):
+        raise AssertionError(f'render_resumable did not stop at {half} '
+                             f'samples with its checkpoint '
+                             f'({r.samples_done})')
     nbytes = os.path.getsize(path)
     r2 = pt.Renderer(sc, cam, cfg)
     (_, t_second) = timed(lambda: r2.render_resumable(path))
@@ -3009,7 +3021,8 @@ def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
         del closest, anyhit
         step('lenticular')
 
-        rcfg = r.cfg._replace(nrays=4, samples_per_wave=1, compact_rays=True)
+        rcfg = r.cfg._replace(nrays=RESUME_SPP, samples_per_wave=1,
+                              compact_rays=True)
         rep['resume'] = resume_check(r.scene, r.cam, rcfg, d)
         step('resume')
         rep['preview'] = preview_check(r.scene, r.cam, r.cfg)
@@ -3020,9 +3033,12 @@ def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
         del r, rec, sc
 
         small = os.path.join(d, 'small.hdr')
+        sub_dir = os.path.join(d, 'sub')
+        os.mkdir(sub_dir)
+        sub_path, _ = write_cli_scene(sub_dir, CLI_SUB_LAT, CLI_SMALL)
         here = os.path.dirname(os.path.abspath(__file__))
         proc = sp.run([sys.executable, '-m', 'pathtracer_tpu_torch.cli',
-                       path, small, '--spp', '2', '--size',
+                       sub_path, small, '--spp', '2', '--size',
                        f'{CLI_SMALL[0]}x{CLI_SMALL[1]}'], cwd=here,
                       capture_output=True, text=True, timeout=600)
         if proc.returncode != 0 or not os.path.exists(small):
@@ -3334,26 +3350,70 @@ def transparent(sc, refr=1.33):
         sc.pointsets[0].replace(transparent=True),))
 
 
+HOST_TIMED = (('pointset', '_cull_spheres'), ('pointset', '_entry_slots'),
+              ('pointset', '_union_slots'), ('pointset', '_reroute_entry'),
+              ('pointset', '_reroute_union'), ('cluster', '_cull'))
+
+
+@contextlib.contextmanager
+def host_timers():
+    """Time each call of the HOST_TIMED functions on the host clock, the
+    card synchronized before and after it (the particle tier's steps and
+    the mesh culls); restored on exit.  Yields {name: [seconds, calls]}
+    (a nested call counts in both)."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.scene import pointset as tps
+    mods = {'pointset': tps, 'cluster': cl}
+    acc, saved = {}, []
+    for mod_name, name in HOST_TIMED:
+        mod = mods[mod_name]
+        f = getattr(mod, name)
+        saved.append((mod, name, f))
+        acc[name] = [0.0, 0]
+
+        def g(*a, _f=f, _rec=acc[name], **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _f(*a, **k)
+            torch.cuda.synchronize()
+            _rec[0] += time.perf_counter() - t0
+            _rec[1] += 1
+            return out
+
+        setattr(mod, name, functools.wraps(f)(g))
+    try:
+        yield acc
+    finally:
+        for mod, name, f in reversed(saved):
+            setattr(mod, name, f)
+
+
 def fluid_waves(sc, cam, card, waves, what, profile=False):
     """`sc` at 1920x1080, 1 sample per wave, 3 bounces, compaction: one
     warm-up, `waves` waves timed one by one (every launch count set to 0
     just before them and read just after; the particle sweeps' packets,
-    overflows and rerouted lanes from pointset.SWEEP_LOG); with `profile`
-    the warm-up's sweeps recorded and held bit for bit, and one more wave
-    under torch.profiler split into FLUID_LABELS."""
+    overflows and rerouted lanes from pointset.SWEEP_LOG), the warm-up
+    split on the host clock by host_timers; with `profile` the warm-up's
+    sweeps recorded and held bit for bit, and one more wave under
+    torch.profiler split into FLUID_LABELS."""
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.scene import pointset as tps
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
     rep = {}
-    if profile:
-        with recorded_sweeps() as (closest, anyhit):
+    with host_timers() as split_s:
+        if profile:
+            with recorded_sweeps() as (closest, anyhit):
+                warm = timed(r.step)[1]
+        else:
             warm = timed(r.step)[1]
+    if profile:
         rep['sweeps_held'] = hold_sweeps(closest, anyhit, what)
         del closest, anyhit
-    else:
-        warm = timed(r.step)[1]
+    rep['warmup_host_split'] = {k: dict(seconds=v[0], calls=v[1])
+                                for k, v in split_s.items()}
     reset_counts()
     tps.SWEEP_LOG = []
     rays0, ms = r.rays_traced, []
@@ -3405,6 +3465,9 @@ def fluid_waves(sc, cam, card, waves, what, profile=False):
         f'{rep["overflowed_packets_per_wave"]:.0f}, rerouted lanes '
         f'{rep["rerouted_lanes_per_wave"]:.0f}, slot steps '
         f'{rep["slot_steps_per_wave"]:.0f}')
+    log(f'  warm-up on the host clock (card synchronized around each call): '
+        + ', '.join(f'{k} {v["seconds"]:.2f} s in {v["calls"]} calls'
+                    for k, v in rep['warmup_host_split'].items()))
     if profile:
         log(f'  profiled wave (torch.profiler, device time): '
             + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items())
@@ -3626,6 +3689,14 @@ def build_kernels():
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description='Smoke run of the PyTorch port '
+                                 'on one CUDA card.')
+    ap.add_argument('--profile-all', action='store_true',
+                    help='also profile a wave of scene M and of scene O '
+                    '(about 150 s more on an H100)')
+    args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke.py needs a CUDA device; none found')
@@ -3652,16 +3723,22 @@ def main():
     log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
         f'{sc.meshes[0].n_clusters} clusters, backface cull '
         f'{sc.meshes[0].backface_cull}')
+    t0 = time.perf_counter()
     kernels = kernel_phase(sc, cam, dev)
+    log(f'kernel phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     reference_phase()
+    log(f'reference phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     launches = main_path(sc, cam, card)
+    log(f'main path {time.perf_counter() - t0:.1f} s')
     flag, mesh = grad_phase(sc, cam, card)
     del sc
     t0 = time.perf_counter()
-    mat_launches, mat = materials_phase(dev, cam, card)
+    mat_launches, mat = materials_phase(dev, cam, card, args.profile_all)
     log(f'materials phase {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    med_launches, med = media_phase(dev, cam, card)
+    med_launches, med = media_phase(dev, cam, card, args.profile_all)
     log(f'media phase {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     cli_launches, cli_rep = cli_phase(dev, card)
@@ -3694,6 +3771,8 @@ def main():
         k['launches_media'] = med_launches[k['name'].split('[')[0]]
         k['launches_cli'] = cli_launches[k['name'].split('[')[0]]
         k['launches_fluid'] = fluid_launches[k['name'].split('[')[0]]
+    log(f'whole run {time.perf_counter() - t_start:.1f} s after the start '
+        f'of main')
     log(json.dumps({'fluid': fluid_rep}))
     log(json.dumps({'cli': cli_rep}))
     log(json.dumps({'media': med}))

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from .. import device
+from ..utils import hostcache
 
 _NATIVE_DIR = os.path.join(device.PKG_DIR, 'native')
 _native_lib = None
@@ -79,11 +80,18 @@ class FlatBVH(NamedTuple):
 
 def build_bvh(tri_verts: np.ndarray, max_leaf_size: int = 4,
               n_split_tests: int = 16) -> FlatBVH:
-    """Build from (T,3,3) triangle vertices (3 corners x xyz)."""
+    """Build from (T,3,3) triangle vertices (3 corners x xyz).  The same
+    triangles and parameters return the cached build (utils.hostcache;
+    its arrays are read-only)."""
     v = tri_verts.astype(np.float32)
-    return build_bvh_from_bounds(v.min(axis=1), v.max(axis=1),
-                                 v.mean(axis=1),  # (A+B+C)/3, ref :1074
-                                 max_leaf_size, n_split_tests)
+
+    def build():
+        return build_bvh_from_bounds(v.min(axis=1), v.max(axis=1),
+                                     v.mean(axis=1),  # (A+B+C)/3, ref :1074
+                                     max_leaf_size, n_split_tests)
+
+    return hostcache.cached('bvh', hostcache.digest(
+        v, max_leaf_size, n_split_tests), build)
 
 
 def build_bvh_native(lo_tri, hi_tri, centers, max_leaf_size=4,

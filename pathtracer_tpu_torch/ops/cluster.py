@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from .. import device
+from ..utils import hostcache
 from . import bvh as bvh_mod
 from .packet_bvh import pair_records, tree_depth
 from .traverse import TriSoup, make_soup
@@ -235,11 +236,38 @@ def build_clustered(tri_verts: np.ndarray, fb=None,
 
     tris_c defaults to 2048 above 1.5M triangles and TRIS_C below, doubled
     until the cluster count fits the dense culls (<= DENSE_CULL_MAX); an
-    explicit tris_c may give more clusters, which the tree tier serves."""
+    explicit tris_c may give more clusters, which the tree tier serves.
+    The host arrays are cached for the same triangles, BVH and parameters
+    (utils.hostcache); the tensors are made anew."""
     dev = device.resolve(dev)
-    t = tri_verts.shape[0]
     if fb is None:
         fb = bvh_mod.build_bvh(tri_verts)
+    key = hostcache.digest(np.asarray(tri_verts), fb.order, fb.node_a,
+                           fb.node_b, fb.node_leaf, tris_c, merge_factor,
+                           float(nrm_sign))
+    ctab, starts, sub_bounds, planes, nrm, top, ordered = hostcache.cached(
+        'clusters', key, lambda: _cluster_host(tri_verts, fb, tris_c,
+                                               merge_factor, nrm_sign))
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32, order='C'), device=dev)
+
+    top_b = np.where(top.node_leaf, top.node_b - top.node_a, top.node_b)
+    return ClusteredMesh(
+        ctab=f32(ctab),
+        starts=torch.as_tensor(np.array(starts, np.int32), device=dev),
+        sub_bounds=f32(sub_bounds),
+        planes=f32(planes),
+        nrm=f32(nrm),
+        **_top_fields(np.concatenate([top.node_lo, top.node_hi], axis=1),
+                      top.node_a, top_b, top.node_leaf, top.order, dev),
+        host_tris=ordered)
+
+
+def _cluster_host(tri_verts, fb, tris_c, merge_factor, nrm_sign):
+    """build_clustered's host arrays: (ctab, starts, sub_bounds, planes,
+    nrm, the top BVH, the triangles in BVH order)."""
+    t = tri_verts.shape[0]
     if tris_c is None:
         tris_c = 2048 if t > 1_500_000 else TRIS_C
         ranges = _subtree_ranges(fb, tris_c, merge_factor)
@@ -324,19 +352,9 @@ def build_clustered(tri_verts: np.ndarray, fb=None,
     ctab = np.concatenate([clo, chi, centers, np.zeros((c, 3), np.float32)],
                           axis=1)
 
-    def f32(x):
-        return torch.as_tensor(np.array(x, np.float32, order='C'), device=dev)
-
-    top_b = np.where(top.node_leaf, top.node_b - top.node_a, top.node_b)
-    return ClusteredMesh(
-        ctab=f32(ctab),
-        starts=torch.as_tensor(starts.astype(np.int32), device=dev),
-        sub_bounds=f32(np.concatenate([slo, shi], axis=2)),
-        planes=f32(planes),
-        nrm=f32(np.concatenate([nrm_lo, nrm_hi], axis=1)),
-        **_top_fields(np.concatenate([top.node_lo, top.node_hi], axis=1),
-                      top.node_a, top_b, top.node_leaf, top.order, dev),
-        host_tris=ordered)
+    return (ctab, starts.astype(np.int32),
+            np.concatenate([slo, shi], axis=2).astype(np.float32),
+            planes, np.concatenate([nrm_lo, nrm_hi], axis=1), top, ordered)
 
 
 def _top_fields(box, a, b, leaf, order, dev) -> dict:

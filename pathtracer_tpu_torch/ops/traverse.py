@@ -164,7 +164,8 @@ def upload_bvh(fb, device=None) -> BVHArrays:
     device = device_mod.resolve(device)
 
     def t(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+        # a copy: a cached FlatBVH's arrays are shared and read-only
+        return torch.as_tensor(np.array(x, order='C'), device=device)
 
     return BVHArrays(
         lo_x=t(fb.node_lo[:, 0]), lo_y=t(fb.node_lo[:, 1]),

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import hostcache
+
 
 def _weld_vertices(vertices: np.ndarray, vtx_idx: np.ndarray):
     """Remap triangle indices so exactly-coincident positions share one
@@ -46,6 +48,13 @@ def _cc_roots(n: int, edges: np.ndarray) -> np.ndarray:
 
 
 def closed_orientation(vertices: np.ndarray, vtx_idx: np.ndarray) -> int:
+    """_closed_orientation, cached for the same arrays (utils.hostcache)."""
+    vertices, vtx_idx = np.asarray(vertices), np.asarray(vtx_idx)
+    return hostcache.cached('orientation', hostcache.digest(
+        vertices, vtx_idx), lambda: _closed_orientation(vertices, vtx_idx))
+
+
+def _closed_orientation(vertices: np.ndarray, vtx_idx: np.ndarray) -> int:
     """+1 / -1 iff the indexed mesh is a CLOSED, consistently wound
     2-manifold whose shells all agree on orientation (+1 = outward
     normals, -1 = inward, via per-shell signed volume); 0 otherwise.
