@@ -112,7 +112,7 @@ skip their profiled split (scene O's costs about 110 s, scene M's about
    and the plain version find that triangle again at t == floor); then a
    64x48x1 spp render on the card against the CPU plain path (the
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
-   sample per wave, compaction: one warm-up and MAT_WAVES (2) waves timed
+   sample per wave, compaction: one warm-up and MAT_WAVES (1) waves timed
    one by one (median, min, max; live rays/s; sweep launches per wave,
    counts set to 0 before them; the cut-out queries and the lanes entering
    each round), and, with --profile-all, one wave under torch.profiler
@@ -211,6 +211,32 @@ skip their profiled split (scene O's costs about 110 s, scene M's about
    and the yarns' 480x270 waves timed.  Its numbers are the `{"fluid":
    ...}` line.
 
+13. Training phase (after the gradient phase, on the main path's scene;
+   train_phase): A parallel.sharding.make_train_step at 1920x1080 x 2
+   spp, 3 bounces, compaction, remat, world 1 on NCCL: three SGD steps
+   (TRAIN_LR) on kd, ks and light_intensity toward the image with the
+   ground plane's kd at TRAIN_TARGET_KD; the loss must fall, both sweeps
+   launch in the forward and in the recompute (`launches_train`,
+   `launches_train_forward`, `launches_train_recompute`), ms per step by
+   CUDA events, peak memory.  B the loss and gradients at 480x270 with
+   dp = 2 processes sharing the card over gloo against
+   one process: loss within 1e-5, gradients within 5e-4 of each leaf's
+   largest |grad|; the step's time in each.  C the 2.4M-tri sphere
+   partitioned by shard_clustered_mesh into two scene ranks (gloo, each
+   loading its partition from a file; the same two processes as B,
+   `--worker`), one 1080p x 1
+   spp wave with the backface cull off against the unsharded render:
+   counts equal, the image within rtol = atol = 1e-5, both sweeps launch
+   on each rank and their first launches equal the plain versions bit for
+   bit (`launches_scene_ranks`); each rank's collectives timed on the
+   host clock (distributed.COLLECTIVE_LOG).  D the KPCN-lite trainer on
+   KPCN_SCENES + 1 scenes, KPCN_STEPS steps of 8 x 64^2 crops: the mean
+   of the last 10 losses below the first 10's, the saved flax-layout file
+   reads back to the same outputs; the denoiser gate on the shipped
+   weights at 96x64 (2 vs 64 spp).  Its numbers are the `{"training":
+   ...}` line.  The rank processes share the card: no time here says
+   anything of scaling across cards.
+
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
@@ -219,7 +245,8 @@ one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
 rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
 x the same clock), both printed after the card line.
 
-Every failure raises.  The fluid phase's, the CLI phase's, the media
+Every failure raises.  The training phase's, the fluid phase's, the CLI
+phase's, the media
 phase's, the materials phase's and the gradient phase's numbers are JSON
 lines before the card line.  The last
 three lines are the card line, the kernel JSON (per kernel: time, plain
@@ -757,8 +784,10 @@ def flagship_grad(dev, cam, card):
     """bench.py's fwd_ms_per_frame_1080p64 and fwd_bwd_ms_per_frame_1080p64
     on the analytic flagship (no kernel runs): the mean 1920x1080 x 64 spp
     image, 3 bounces, remat_samples, forward under torch.no_grad() and
-    forward + backward with respect to kd and light_intensity; one
-    warm-up and FLAGSHIP_RUNS timed runs each."""
+    forward + backward with respect to kd and light_intensity;
+    FLAGSHIP_RUNS timed runs each, the forward's after a warm-up (the
+    forward + backward's warm-up, dropped for time, took what its timed
+    run took: 10637.5 against 10468.9 ms on an H100)."""
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
@@ -780,13 +809,12 @@ def flagship_grad(dev, cam, card):
 
     fwd_ms = [timed(fwd)[1] for _ in range(1 + FLAGSHIP_RUNS)][1:]
     torch.cuda.reset_peak_memory_stats()
-    runs = [timed(fwd_bwd) for _ in range(1 + FLAGSHIP_RUNS)]
+    runs = [timed(fwd_bwd) for _ in range(FLAGSHIP_RUNS)]
     peak = torch.cuda.max_memory_allocated()
     grads = runs[-1][0]
     check_grads(grads, 'flagship')
     rep = dict(fwd_ms_per_frame_1080p64=spread(fwd_ms),
-               fwd_bwd_ms_per_frame_1080p64=spread([ms for _, ms in
-                                                    runs[1:]]),
+               fwd_bwd_ms_per_frame_1080p64=spread([ms for _, ms in runs]),
                fwd_bwd_peak_bytes=int(peak),
                grad_light_intensity=float(grads['light_intensity']))
     log(f'flagship 1080p x 64 spp, 3 bounces, remat ({card}): forward '
@@ -795,8 +823,8 @@ def flagship_grad(dev, cam, card):
         f'{", ".join(f"{x:.1f}" for x in fwd_ms)}); forward + backward wrt '
         f'kd and light_intensity median '
         f'{rep["fwd_bwd_ms_per_frame_1080p64"]["median"]:.1f} ms (runs '
-        f'{", ".join(f"{ms:.1f}" for _, ms in runs[1:])}; warm-up '
-        f'{runs[0][1]:.1f}); backward peak memory {peak / 2**30:.2f} GiB; '
+        f'{", ".join(f"{ms:.1f}" for _, ms in runs)}); backward peak '
+        f'memory {peak / 2**30:.2f} GiB; '
         f'd loss / d light_intensity {rep["grad_light_intensity"]:.4g}, '
         f'|d loss / d kd| sum {float(grads["kd"].abs().sum()):.4g}')
     return rep
@@ -808,7 +836,7 @@ def mesh_grad(sc, cam, card):
     mesh's g_kd and light_intensity: both sweeps must launch in forward
     and again in backward (the recompute); autograd against a central
     difference on the card with the same seed (tests/test_gradients.py's
-    steps and tolerances); then three plain gradient steps on g_kd toward
+    steps and tolerances); then two plain gradient steps on g_kd toward
     a target image rendered with another g_kd, with the MSE loss of the
     JAX package's make_train_step: the loss must fall.  Returns the
     sweeps' launch counts in forward and backward, and the numbers."""
@@ -884,7 +912,8 @@ def mesh_grad(sc, cam, card):
             raise AssertionError(f'{name}: autograd {got:.6g} against a '
                                  f'central difference {want:.6g}')
 
-    # three plain gradient steps on g_kd toward another g_kd's image
+    # two plain gradient steps on g_kd toward another g_kd's image (three
+    # before the training phase, whose train step descends on this scene)
     with torch.no_grad():
         target = mean_image(sc, cam, cp, cfg, {
             **base, 'g_kd': torch.tensor([DESCENT_TARGET], device=dev)}) \
@@ -896,7 +925,7 @@ def mesh_grad(sc, cam, card):
                 - target) ** 2).mean()
         return mse.item(), torch.autograd.grad(mse, [q])[0]
 
-    for _ in range(3):
+    for _ in range(2):
         (mse, g), ms = timed(lambda: step_of(p.clone().requires_grad_()))
         fwd_bwd_ms.append(ms)
         losses.append(mse)
@@ -909,7 +938,7 @@ def mesh_grad(sc, cam, card):
     losses.append(mse)
     log(f'  descent toward g_kd {DESCENT_TARGET} (lr {DESCENT_LR}): MSE '
         f'{", ".join(f"{x:.6g}" for x in losses)}; g_kd {p.tolist()}')
-    if not losses[3] < losses[0]:
+    if not losses[2] < losses[0]:
         raise AssertionError(f'the descent loss did not fall: {losses}')
     log(f'  mesh forward (no_grad) ms: {", ".join(f"{x:.1f}" for x in fwd_ms)}'
         f' (first: warm-up); forward + backward ms: '
@@ -1692,9 +1721,9 @@ def probe_phase(dev):
 
 MAT_SEED = 0
 MAT_GROUPS = 8          # latitude bands of the main mesh, each textured
-MAT_WAVES = 2           # timed 1080p waves of scene M, after a warm-up (5
+MAT_WAVES = 1           # timed 1080p waves of scene M, after a warm-up (5
                         # before the fluid phase, 3 before the time
-                        # limit's cuts)
+                        # limit's cuts, 2 before the training phase)
 GRAD_W, GRAD_H = 480, 270   # scene M's gradient check
 C4_GRAD = 128           # C4's gradient check, square, 4 spp
 C4_FRAMES = 1           # timed C4 frames, after a warm-up (3 before the
@@ -3085,8 +3114,10 @@ FLUID_SUBSTEPS = 2
 FLUID_FRAMES = 10
 FLUID_PARTICLES = 320_000   # about 8 per inside cell of the r = 8 shape
 FLUID_RADIUS = 0.2
-FLUID_WAVES = 3         # timed opaque 1080p waves of scene F, after a warm-up
-FLUID_T_WAVES = 2       # timed transparent waves, after a warm-up
+FLUID_WAVES = 1         # timed opaque 1080p waves of scene F, after a warm-up
+                        # (3 before the training phase)
+FLUID_T_WAVES = 1       # timed transparent waves, after a warm-up (2 before
+                        # the training phase)
 FLUID_STRIDE = 16       # every 16th 1080p primary held against brute force
 FLUID_UNION_LANES = 2048   # rays from inside the fluid, union exit held
 FLUID_UNION_ITERS = 40     # passes of the converged brute union walk
@@ -3667,6 +3698,417 @@ def fluid_phase(dev, cam, card):
                           particle_hold=hold, small=small, seconds=steps)
 
 
+TRAIN_SPP = 2           # the train step's samples per pixel at 1080p
+TRAIN_LR = 100.0        # its SGD rate: the HDR image's MSE is about 1e-5
+                        # and its kd gradient about 1e-4, so lr 100 moves
+                        # kd by about 1e-2 a step (the loss falls about 1%
+                        # a step on a CPU rehearsal at 96x54)
+TRAIN_TARGET_KD = [0.8, 0.3, 0.2]   # the ground plane's kd in the target
+TRAIN_SMALL = (480, 270)    # the two-process world-size check
+TRAIN_RANKS = 2             # processes sharing the card (gloo)
+KPCN_SCENES = 2             # the trainer's scenes (+ 1 held out; 10 + 1 in
+KPCN_STEPS = 100            # the script), steps (1500) and target spp (128)
+KPCN_SPP_TGT = 64
+WORKER_TIMEOUT = 300        # seconds a rank process may take
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def hdr_target(sc, cam, cp, cfg, mesh):
+    """The HDR image (make_train_step's loss space) of sc with the ground
+    plane's kd set to TRAIN_TARGET_KD."""
+    import torch
+    from pathtracer_tpu_torch.parallel import sharding
+    from pathtracer_tpu_torch.render import film as film_mod
+    kd = sc.kd.clone()
+    kd[2] = torch.tensor(TRAIN_TARGET_KD, device=kd.device)
+    film = film_mod.make_film(cfg.width, cfg.height, cfg.sigma_filter,
+                              device=sc.device)
+    with torch.no_grad():
+        img, cnt = sharding.make_sharded_render(mesh, cfg)(
+            sc.replace(kd=kd), cam, cp)
+    return film_mod.crop(film, img) / film_mod.RADIANCE_SCALE \
+        / torch.clamp_min(film_mod.crop(film, cnt), 1e-9)[..., None]
+
+
+def train_params(sc):
+    return {k: getattr(sc, k).clone() for k in ('kd', 'ks',
+                                                'light_intensity')}
+
+
+def grads_agree(got, want, what):
+    """tests/test_torch_grad.py's rule: every leaf within 5e-4 of its
+    largest |grad|."""
+    for k, w in want.items():
+        w = np.asarray(w)
+        err = float(np.abs(np.asarray(got[k]) - w).max())
+        if err > 5e-4 * max(float(np.abs(w).max()), 1e-30):
+            raise AssertionError(f'{what}: gradient of {k} differs by {err:.3g}'
+                                 f' (largest |grad| {np.abs(w).max():.3g})')
+
+
+def spawn_ranks(world, d):
+    """Run `chip_smoke.py --worker rank world init d` (rank_worker) in
+    `world` processes sharing the card (gloo); each must end within
+    WORKER_TIMEOUT s, and all are killed otherwise.  Returns each rank's
+    results."""
+    init = os.path.join(d, 'ranks.init')
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--worker', str(r),
+         str(world), init, d], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f'rank {r} exited {p.returncode}:\n'
+                                 f'{out[-4000:]}')
+        for line in out.strip().splitlines()[-4:]:
+            log(f'  [rank {r}] {line}')
+    return [dict(np.load(os.path.join(d, f'ranks_out_r{r}.npz')))
+            for r in range(world)]
+
+
+def rank_worker(argv):
+    """One rank of the training phase's checks B and C (spawn_ranks):
+    joins a gloo group; B: loads the scene from the parent's file, the
+    loss and gradients at dp = world; C: loads its partition, one wave at
+    dp = 1 x scene = world with both sweeps recorded and held and the
+    collectives timed.  Writes one npz."""
+    import torch
+    from pathtracer_tpu_torch.parallel import distributed as pd
+    from pathtracer_tpu_torch.parallel import sharding
+    rank, world, init, d = argv
+    rank, world = int(rank), int(world)
+    pd.init_multihost(f'file://{init}', world, rank, backend='gloo')
+
+    def load(kind):
+        blob = torch.load(os.path.join(d, f'{kind}_r{rank}.pt'),
+                          weights_only=False)
+        return blob, blob['sc'], blob['cam'], blob['cp'], blob['cfg']
+
+    blob, sc, cam, cp, cfg = load('world')
+    fn = sharding.make_loss_and_grads(sharding.make_mesh(dp=world), cfg)
+    params = train_params(sc)
+    fn(params, sc, cam, cp, blob['target'])                  # warm-up
+    (loss, grads), ms = timed(lambda: fn(params, sc, cam, cp,
+                                         blob['target']))
+    out = dict(world_loss=float(loss), world_ms=ms,
+               **{f'world_grad_{k}': g.cpu().numpy()
+                  for k, g in grads.items()})
+    print(f'loss and gradients at {cfg.width}x{cfg.height}: {ms:.1f} ms '
+          f'(two processes on one card)', flush=True)
+    del blob, sc, fn, params, grads
+    torch.cuda.empty_cache()
+
+    _, sc, cam, cp, cfg = load('scene')
+    render = sharding.make_sharded_render(
+        sharding.make_mesh(dp=1, scene=world), cfg)
+    reset_counts()
+    pd.COLLECTIVE_LOG = []
+    with recorded_sweeps() as (closest, anyhit), torch.no_grad():
+        (img, cnt), ms = timed(lambda: render(sc, cam, cp))
+    coll, pd.COLLECTIVE_LOG = pd.COLLECTIVE_LOG, None
+    n = read_counts()
+    held = hold_sweeps(closest, anyhit, f'scene shard {rank}', picks=(0,))
+    coll_ms = 1e3 * sum(sec for _, sec, _ in coll)
+    out.update(image=img.cpu().numpy(), count=cnt.cpu().numpy(), ms=ms,
+               closest=n['cluster_sweep_closest'],
+               any=n['cluster_sweep_any'], held=held['held'],
+               collective_ms=coll_ms, collectives=len(coll),
+               collective_bytes=sum(b for _, _, b in coll))
+    print(f'scene shard {rank}: 1080p wave {ms:.1f} ms, sweep launches '
+          f'{n["cluster_sweep_closest"]} + {n["cluster_sweep_any"]}, the '
+          f'first of each bit-equal; {len(coll)} collectives {coll_ms:.1f} '
+          f'ms on the host clock, {out["collective_bytes"] / 2**20:.1f} MiB '
+          f'in', flush=True)
+    np.savez(os.path.join(d, f'ranks_out_r{rank}.npz'), **out)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def lean(sc):
+    """sc without the host copy of its mesh's triangles (oracles only)."""
+    m = sc.meshes[0]
+    return sc.replace(meshes=(m.replace(clustered=dataclasses.replace(
+        m.clustered, host_tris=None)),) + sc.meshes[1:])
+
+
+def train_step_phase(sc, cam, card):
+    """A: make_train_step at 1920x1080 x TRAIN_SPP on the main path's scene
+    at world 1 (NCCL), three steps toward hdr_target: the loss must fall
+    and both sweeps launch in the forward and in the recompute.  Returns
+    the launches and the numbers."""
+    import unittest.mock as mock
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.parallel import sharding
+    dev = sc.device
+    mesh = sharding.make_mesh(dp=1, sp=1)
+    cfg = pt.RenderConfig(width=W, height=H, nrays=TRAIN_SPP,
+                          nb_bounces=BOUNCES, compact_rays=True,
+                          remat_samples=True)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(W, H), device=dev)
+    target = hdr_target(sc, cam, cp, cfg, mesh)
+    step = sharding.make_train_step(mesh, cfg, lr=TRAIN_LR)
+    params = train_params(sc)
+    orig_grad = torch.autograd.grad
+    split = []
+
+    def counted_grad(*a, **kw):
+        before = read_counts()
+        out = orig_grad(*a, **kw)
+        after = read_counts()
+        split.append(({k: before[k] - base[k] for k in before},
+                      {k: after[k] - before[k] for k in after}))
+        return out
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(3):
+        base = read_counts()
+        with mock.patch.object(torch.autograd, 'grad', counted_grad):
+            (loss, params), t = timed(lambda: step(params, sc, cam, cp,
+                                                   target))
+        losses.append(float(loss))
+        ms.append(t)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, rec = split[0]
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+        if fwd[name] <= 0 or rec[name] <= 0:
+            raise AssertionError(f'train step: {name} launched {fwd[name]} '
+                                 f'times in forward, {rec[name]} in the '
+                                 f'recompute')
+    if not losses[2] < losses[0]:
+        raise AssertionError(f'the train step\'s loss did not fall: {losses}')
+    log(f'train step 1080p x {TRAIN_SPP} spp, 2.4M tris, {BOUNCES} bounces, '
+        f'compaction, remat, world 1 (nccl), lr {TRAIN_LR} toward ground kd '
+        f'{TRAIN_TARGET_KD} ({card}): ms per step '
+        f'{", ".join(f"{x:.1f}" for x in ms)}; loss '
+        f'{", ".join(f"{x:.6g}" for x in losses)}; peak memory '
+        f'{peak / 2**30:.2f} GiB; sweep launches a step in forward '
+        f'{fwd}, in the recompute {rec}; ground kd {params["kd"][2].tolist()}')
+    return launches, fwd, rec, dict(ms=ms, loss=losses, peak_bytes=int(peak),
+                                    lr=TRAIN_LR)
+
+
+def world_inputs(sc, cam, d):
+    """B's inputs for the ranks (the scene, TRAIN_SMALL rays, the target)
+    and the one-process loss and gradients they must give."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.parallel import sharding
+    w, h = TRAIN_SMALL
+    cfg = pt.RenderConfig(width=w, height=h, nrays=TRAIN_SPP,
+                          nb_bounces=BOUNCES)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(w, h),
+                         device=sc.device)
+    mesh = sharding.make_mesh(dp=1, sp=1)
+    target = hdr_target(sc, cam, cp, cfg, mesh)
+    fn = sharding.make_loss_and_grads(mesh, cfg)
+    fn(train_params(sc), sc, cam, cp, target)                  # warm-up
+    (loss, grads), ms = timed(lambda: fn(train_params(sc), sc, cam, cp,
+                                         target))
+    blob = dict(sc=lean(sc), cam=cam, cp=cp, cfg=cfg, target=target)
+    for r in range(TRAIN_RANKS):
+        torch.save(blob, os.path.join(d, f'world_r{r}.pt'))
+    return dict(loss=float(loss), ms=ms,
+                grads={k: g.cpu().numpy() for k, g in grads.items()})
+
+
+def world_check(ref, outs, card):
+    """B: the loss and gradients at TRAIN_SMALL with dp = TRAIN_RANKS
+    processes sharing the card over gloo equal the one-process step's."""
+    for r, o in enumerate(outs):
+        if abs(float(o['world_loss']) - ref['loss']) > 1e-5 * ref['loss']:
+            raise AssertionError(f'rank {r} loss {float(o["world_loss"])} '
+                                 f'against {ref["loss"]}')
+        grads_agree({k: o[f'world_grad_{k}'] for k in ref['grads']},
+                    ref['grads'], f'rank {r}')
+    ms2 = [float(o['world_ms']) for o in outs]
+    w, h = TRAIN_SMALL
+    log(f'world-size check {w}x{h} x {TRAIN_SPP} spp ({card}): dp = '
+        f'{TRAIN_RANKS} (gloo, two processes on one card) loss and gradients '
+        f'equal one process\'s; step {ref["ms"]:.1f} ms in one process, '
+        f'{", ".join(f"{x:.1f}" for x in ms2)} ms in the two (two processes '
+        f'on one card: says nothing of scaling across cards)')
+    return dict(one_process_ms=ref['ms'], two_process_ms=ms2,
+                loss=ref['loss'])
+
+
+def scene_inputs(sc, cam, d):
+    """C's inputs: the 2.4M-tri mesh in TRAIN_RANKS partitions
+    (shard_clustered_mesh here, one file a rank) and the unsharded 1080p x
+    1 spp wave they must give.  The mesh's backface cull is off on both
+    sides: with it on, a bounce ray that starts a float error inside the
+    surface and meets a back face is hit or not by its packet's other rays
+    (the cull keeps a cluster that any ray of the packet may see), and a
+    partition's packets cull against other clusters and another root box
+    (2 of 129,600 lanes at 480x270 on a 500 x 500 sphere, CPU); the
+    combine itself is exact."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.core import rng_host
+    from pathtracer_tpu_torch.parallel import scene_shard, sharding
+    cfg = pt.RenderConfig(width=W, height=H, nrays=1, nb_bounces=BOUNCES)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(W, H),
+                         device=sc.device)
+    sc = sc.replace(meshes=(sc.meshes[0].replace(backface_cull=False),))
+    render = sharding.make_sharded_render(sharding.make_mesh(dp=1, sp=1), cfg)
+    with torch.no_grad():
+        (img, cnt), ms = timed(lambda: render(sc, cam, cp))
+    shards = scene_shard.shard_clustered_mesh(sc.meshes[0], TRAIN_RANKS)
+    for r, m in enumerate(shards):
+        torch.save(dict(sc=lean(sc).replace(meshes=(m,)), cam=cam, cp=cp,
+                        cfg=cfg), os.path.join(d, f'scene_r{r}.pt'))
+    ref = dict(image=img.cpu().numpy(), count=cnt.cpu().numpy(), ms=ms,
+               rows=[m.shard_rows for m in shards],
+               c_pad=shards[0].n_clusters)
+    del shards
+    torch.cuda.empty_cache()
+    return ref
+
+
+def scene_check(ref, outs, card):
+    """C: one 1080p wave of 1 spp through make_sharded_render at dp = 1 x
+    scene = TRAIN_RANKS against the unsharded render: counts exactly, the
+    image within rtol = atol = 1e-5; both sweeps launch on every rank and
+    their first launches equal the plain version bit for bit."""
+    img, cnt = ref['image'], ref['count']
+    for r, o in enumerate(outs):
+        if not np.array_equal(o['count'], cnt):
+            raise AssertionError(f'scene rank {r}: counts differ')
+        bad = ~np.isclose(o['image'], img, rtol=1e-5, atol=1e-5)
+        if bad.any():
+            px = np.argwhere(bad.any(-1))
+            raise AssertionError(
+                f'scene rank {r}: image differs beyond 1e-5 at {len(px)} '
+                f'pixels, e.g. {px[:8].tolist()}: {o["image"][bad][:8]} '
+                f'against {img[bad][:8]}')
+        if o['closest'] <= 0 or o['any'] <= 0 or o['held'] < 2:
+            raise AssertionError(f'scene rank {r}: sweeps {o["closest"]} + '
+                                 f'{o["any"]}, {o["held"]} held')
+    per_rank = [dict(ms=float(o['ms']), closest=int(o['closest']),
+                     any=int(o['any']),
+                     collective_ms=float(o['collective_ms']),
+                     collectives=int(o['collectives']),
+                     collective_bytes=int(o['collective_bytes']))
+                for o in outs]
+    log(f'scene axis 1080p x 1 spp, {BOUNCES} bounces, backface cull off, '
+        f'2.4M tris in {TRAIN_RANKS} partitions of {ref["c_pad"]} cluster '
+        f'slots, rows {ref["rows"]} ({card}): unsharded wave '
+        f'{ref["ms"]:.1f} ms; per rank (gloo, two processes on one card) '
+        f'{per_rank}; counts equal, image within 1e-5')
+    return dict(unsharded_ms=ref['ms'], ranks=per_rank, rows=ref['rows'],
+                c_pad=ref['c_pad'])
+
+
+def kpcn_trainer_phase(dev, card, d):
+    """D: the KPCN-lite trainer (scripts/train_denoiser.py) at its crop and
+    batch on KPCN_SCENES + 1 scenes (targets at KPCN_SPP_TGT spp) for
+    KPCN_STEPS steps: the loss falls,
+    the saved file reads back to the same outputs; the denoiser gate
+    (scripts/denoiser_eval.py at the JAX test's size) on the shipped
+    weights."""
+    import torch
+    from pathtracer_tpu_torch.render import denoise_net as dnn
+    from pathtracer_tpu_torch.scripts import denoiser_eval as de
+    from pathtracer_tpu_torch.scripts import train_denoiser as td
+    t0 = time.perf_counter()
+    data = td.make_dataset(KPCN_SCENES, spp_tgt=KPCN_SPP_TGT, device=dev,
+                           log=lambda *a: None)
+    t_data = time.perf_counter() - t0
+    (model, losses), ms = timed(lambda: td.train(data, KPCN_STEPS,
+                                                 log=lambda *a: None))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first:
+        raise AssertionError(f'KPCN trainer: loss {first:.4f} -> {last:.4f}')
+    path = os.path.join(d, 'kpcn.npz')
+    td.save_weights(model, path)
+    back = dnn.load_model(path, device=dev)
+    cin, alb, nrm, _ = data[-1]
+    if not torch.equal(dnn.denoise_apply(model, cin, alb, nrm),
+                       dnn.denoise_apply(back, cin, alb, nrm)):
+        raise AssertionError('KPCN weights do not read back to the same '
+                             'outputs')
+    held = td.held_out_mse(model, data[-1])
+    gate = de.evaluate(96, 64, 2, 64, device=dev)
+    if not (gate['learned_minus_noisy_db'] > 2.0
+            and gate['learned_minus_atrous_db'] > 1.0):
+        raise AssertionError(f'denoiser gate: {gate}')
+    log(f'KPCN trainer ({card}): {KPCN_SCENES} + 1 scenes at {td.W}x{td.H}, '
+        f'{td.SPP_IN} / {KPCN_SPP_TGT} spp, {t_data:.1f} s; {KPCN_STEPS} steps '
+        f'of {td.BATCH} x {td.CROP}^2 crops, {ms / KPCN_STEPS:.1f} ms a step; '
+        f'loss {first:.4f} -> {last:.4f} (means of the first and last 10); '
+        f'held-out log-MSE {held}; gate on the shipped weights at 96x64 '
+        f'(2 vs 64 spp): noisy {gate["psnr_noisy_db"]:.2f}, a-trous '
+        f'{gate["psnr_atrous_db"]:.2f}, learned {gate["psnr_learned_db"]:.2f}'
+        f' dB')
+    return dict(dataset_s=t_data, ms_per_step=ms / KPCN_STEPS,
+                loss_first10=first, loss_last10=last, held_out=held,
+                gate=gate)
+
+
+def train_phase(sc, cam, card):
+    """The training paths (after the gradient phase, on the main path's
+    scene): A the train step at 1080p on NCCL (world 1), B the world-size
+    check, C the scene axis, D the KPCN-lite trainer.  Refuses to run
+    without a card.  Returns the sweeps' launches on the train step and
+    per scene rank, and the numbers."""
+    import tempfile
+    import torch
+    from pathtracer_tpu_torch.parallel import distributed as pd
+    if not torch.cuda.is_available():
+        raise SystemExit('the training phase needs a CUDA device')
+    steps = {}
+    t0 = time.perf_counter()
+
+    def step(name):
+        nonlocal t0
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    pd.init_multihost(f'localhost:{free_port()}', 1, 0, backend='nccl')
+    try:
+        launches, fwd, rec, rep_a = train_step_phase(sc, cam, card)
+        step('train_step')
+        with tempfile.TemporaryDirectory() as d:
+            ref_b = world_inputs(sc, cam, d)
+            ref_c = scene_inputs(sc, cam, d)
+            outs = spawn_ranks(TRAIN_RANKS, d)
+            rep_b = world_check(ref_b, outs, card)
+            rep_c = scene_check(ref_c, outs, card)
+            step('world_size_and_scene_axis')
+    finally:
+        torch.distributed.destroy_process_group()
+    with tempfile.TemporaryDirectory() as d:
+        rep_d = kpcn_trainer_phase(sc.device, card, d)
+    step('kpcn')
+    log('train phase steps (s): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in steps.items()))
+    return (launches, fwd, rec, rep_c['ranks'],
+            dict(train_step=rep_a, world_size=rep_b, scene_axis=rep_c,
+                 kpcn=rep_d, seconds=steps))
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -3690,6 +4132,8 @@ def build_kernels():
 
 def main():
     import argparse
+    if sys.argv[1:2] == ['--worker']:
+        return rank_worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description='Smoke run of the PyTorch port '
                                  'on one CUDA card.')
     ap.add_argument('--profile-all', action='store_true',
@@ -3733,6 +4177,10 @@ def main():
     launches = main_path(sc, cam, card)
     log(f'main path {time.perf_counter() - t0:.1f} s')
     flag, mesh = grad_phase(sc, cam, card)
+    t0 = time.perf_counter()
+    train_launches, train_fwd, train_rec, scene_ranks, train_rep = \
+        train_phase(sc, cam, card)
+    log(f'train phase {time.perf_counter() - t0:.1f} s')
     del sc
     t0 = time.perf_counter()
     mat_launches, mat = materials_phase(dev, cam, card, args.profile_all)
@@ -3771,8 +4219,15 @@ def main():
         k['launches_media'] = med_launches[k['name'].split('[')[0]]
         k['launches_cli'] = cli_launches[k['name'].split('[')[0]]
         k['launches_fluid'] = fluid_launches[k['name'].split('[')[0]]
+        name = k['name'].split('[')[0]
+        k['launches_train'] = train_launches[name]
+        k['launches_train_forward'] = train_fwd[name]
+        k['launches_train_recompute'] = train_rec[name]
+        k['launches_scene_ranks'] = [
+            r.get(name.replace('cluster_sweep_', ''), 0) for r in scene_ranks]
     log(f'whole run {time.perf_counter() - t_start:.1f} s after the start '
         f'of main')
+    log(json.dumps({'training': train_rep}))
     log(json.dumps({'fluid': fluid_rep}))
     log(json.dumps({'cli': cli_rep}))
     log(json.dumps({'media': med}))

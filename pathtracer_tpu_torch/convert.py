@@ -28,6 +28,7 @@ from .models import texture as tex_mod
 from .ops import cluster
 from .ops import packet_bvh
 from .ops import traverse
+from .parallel import scene_shard
 from .scene import mesh as mesh_mod
 from .scene import pointset as ps_mod
 from .scene import scene as scn
@@ -46,10 +47,6 @@ def numpy_fields(obj):
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     return np.asarray(obj)
-
-
-def _refuse(what, roadmap):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP {roadmap})')
 
 
 def _textures(d: dict, dev):
@@ -71,9 +68,18 @@ def _atlas(d, dev):
         has=torch.as_tensor(np.array(d['has'], bool), device=dev))
 
 
-def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
-    if m.get('scene_axis') is not None:
-        _refuse('scene-axis sharding', 'Queue 1 item 12')
+def _mesh_from_numpy(m: dict, dev, scene_rank=None) -> mesh_mod.MeshArrays:
+    sharded = m.get('scene_axis') is not None
+    if sharded:
+        # a JAX scene-axis mesh holds every partition under a leading
+        # (D,) axis; a rank of the port holds its own only
+        if scene_rank is None:
+            raise NotImplementedError(
+                'a port mesh holds one rank\'s partition of a scene-axis '
+                'mesh, never all of them (ROADMAP Queue 1 item 12): pass '
+                'scene_rank')
+        m = dict(m, shade_pack=np.asarray(m['shade_pack'])[scene_rank],
+                 soup=None, use_packet=False, use_brute=False)
 
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32, order="C"), device=dev)
@@ -96,9 +102,14 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
     n_tris = int(m['n_tris'])
     if n_tris < 0:
         n_tris = int(np.asarray(m['shade_pack']).shape[0])
+    if sharded:
+        clustered = scene_shard.shard_from_numpy_arrays(m['clustered'],
+                                                        scene_rank, dev)
+    else:
+        clustered = (cluster.from_tpu_arrays(m['clustered'], dev)
+                     if m['use_cluster'] else None)
     return mesh_mod.MeshArrays(
-        clustered=(cluster.from_tpu_arrays(m['clustered'], dev)
-                   if m['use_cluster'] else None),
+        clustered=clustered,
         shade_pack=f32(m['shade_pack']),
         shade_cols=tuple((str(nm), int(s), int(w))
                          for nm, s, w in m['shade_cols']),
@@ -119,12 +130,19 @@ def _mesh_from_numpy(m: dict, dev) -> mesh_mod.MeshArrays:
         display_edges=bool(m.get('display_edges', False)),
         group_rows=(None if m.get('group_rows') is None else torch.as_tensor(
             np.array(m['group_rows'], np.int64), device=dev)),
-        world_space=bool(m.get('world_space', False)))
+        world_space=bool(m.get('world_space', False)),
+        shard_row0=(int(np.asarray(m['shard_row0'])[scene_rank])
+                    if sharded else None),
+        shard_rows=(int(np.asarray(m['shard_rows'])[scene_rank])
+                    if sharded else None))
 
 
-def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
+def scene_from_numpy(fields: dict, device=None,
+                     scene_rank=None) -> scn.SceneArrays:
     """The port's SceneArrays from `numpy_fields(jax_scene)`, on `device`
-    (None: the card)."""
+    (None: the card).  A scene-axis mesh converts to rank `scene_rank`'s
+    partition (parallel/scene_shard.py), not yet bound to a process
+    group."""
     f = fields
     device = device_mod.resolve(device)
 
@@ -154,7 +172,8 @@ def scene_from_numpy(fields: dict, device=None) -> scn.SceneArrays:
         envmap_intensity=f32(f['envmap_intensity']),
         center_light=f32(f['center_light']),
         radius_light=f32(f['radius_light']),
-        meshes=tuple(_mesh_from_numpy(m, device) for m in f['meshes']),
+        meshes=tuple(_mesh_from_numpy(m, device, scene_rank)
+                     for m in f['meshes']),
         envmap=None if f.get('envmap') is None else f32(f['envmap']),
         obj_textures=tuple(None if t is None else _textures(t, device)
                            for t in f.get('obj_textures') or ()),

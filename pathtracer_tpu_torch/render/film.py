@@ -62,30 +62,39 @@ def crop(film: FilmSpec, padded):
     return padded[f:f + film.height, f:f + film.width]
 
 
-def splat(film: FilmSpec, image, sample_count, colors, dx, dy):
-    """Splat one sample per pixel (row-major (H*W, 3) colors, (H*W,)
-    jitter) into the padded accumulators, in place, as a (2F+1)^2 stencil:
+def splat(film: FilmSpec, image, sample_count, colors, dx, dy, row0: int = 0,
+          block_rows=None):
+    """Splat one sample per pixel of a row-contiguous block (row-major
+    (Nb, 3) colors, (Nb,) jitter, Nb = block_rows * W, sensor rows
+    [row0, row0 + block_rows); default the whole image) into the padded
+    accumulators, in place, as a (2F+1)^2 stencil:
     w = exp(-((oi-dy)^2 + (oj-dx)^2) / (2 sigma^2)) * ratio / (2 pi sigma^2);
-    image rows are flipped (row 0 = top = sensor row H-1)."""
+    image rows are flipped (row 0 = top = sensor row H-1).  A block's
+    stencil reaches F rows past its edges, so a row-sharded render splats
+    each block into a full film and sums the films
+    (parallel/sharding.py)."""
     h, w, fs = film.height, film.width, film.filter_size
+    hs = h if block_rows is None else block_rows
     sigma = film.sigma
     denom2 = float(np.float32(1.0 / (2.0 * sigma * sigma)))
     base = float(np.float32(1.0 / (sigma * sigma * 2.0 * np.pi)))
-    cg = colors.view(h, w, 3).flip(0)
-    dxg = dx.view(h, w).flip(0)
-    dyg = dy.view(h, w).flip(0)
-    ratio_f = film.ratio.flip(0) * base
-    part_img = torch.zeros_like(image)
-    part_cnt = torch.zeros_like(sample_count)
+    cg = colors.view(hs, w, 3).flip(0)
+    dxg = dx.view(hs, w).flip(0)
+    dyg = dy.view(hs, w).flip(0)
+    # sensor rows [row0, row0 + hs) are image rows [h - row0 - hs, h - row0)
+    start = h - row0 - hs
+    ratio_f = film.ratio.flip(0)[start:start + hs] * base
+    part_img = image.new_zeros((hs + 2 * fs, w + 2 * fs, 3))
+    part_cnt = sample_count.new_zeros((hs + 2 * fs, w + 2 * fs))
     for oi in range(-fs, fs + 1):
         for oj in range(-fs, fs + 1):
             wgt = torch.exp(-((oi - dyg) ** 2 + (oj - dxg) ** 2) * denom2) \
                 * ratio_f
             r0, c0 = fs - oi, fs + oj
-            part_img[r0:r0 + h, c0:c0 + w] += cg * wgt[..., None]
-            part_cnt[r0:r0 + h, c0:c0 + w] += wgt
-    image += part_img
-    sample_count += part_cnt
+            part_img[r0:r0 + hs, c0:c0 + w] += cg * wgt[..., None]
+            part_cnt[r0:r0 + hs, c0:c0 + w] += wgt
+    image[start:start + hs + 2 * fs] += part_img
+    sample_count[start:start + hs + 2 * fs] += part_cnt
     return image, sample_count
 
 

@@ -94,6 +94,16 @@ class MeshArrays:
     # merged meshes: triangles in world space, group -> source object row
     group_rows: Optional[torch.Tensor] = None   # (G,) int64
     world_space: bool = False
+    # scene axis (parallel/scene_shard.py): this rank's partition of a
+    # cluster-tier mesh.  `clustered` holds the partition's clusters (tri
+    # ids stay global BVH positions) and `shade_pack` the rows
+    # [shard_row0, shard_row0 + shard_rows) of the whole pack; the hit
+    # queries and the shading fetch combine over `scene_group`, the
+    # process group of the ranks holding the other partitions (None: an
+    # unsharded mesh, or a partition not bound to its group yet)
+    scene_group: Optional[object] = None
+    shard_row0: Optional[int] = None
+    shard_rows: Optional[int] = None
 
     @property
     def has_alpha(self) -> bool:
@@ -135,7 +145,7 @@ class MeshArrays:
         return dataclasses.replace(self, **{
             f.name: move(getattr(self, f.name))
             for f in dataclasses.fields(self)
-            if f.name != 'shade_cols'})
+            if f.name not in ('shade_cols', 'scene_group')})
 
 
 

@@ -47,6 +47,7 @@ from ..models import texture as tex_mod
 from ..ops import cluster
 from ..ops import packet_bvh
 from ..ops import traverse
+from ..parallel import distributed as pd
 from . import mesh as mesh_mod
 from . import pointset as ps_mod
 from . import yarns as yarn_mod
@@ -478,12 +479,28 @@ def _local_ray_row(sc: SceneArrays, row: int, origins, dirs):
     return origins @ rotm[:, :3].T + rotm[:, 3], dirs @ rotm[:, :3].T
 
 
+def _shade_fetch(mesh, tri):
+    """The shade_pack rows of triangles `tri` (a miss, -1, reads row 0).
+    A scene-axis partition holds the rows [shard_row0, shard_row0 +
+    shard_rows) only: each rank gathers the rows it owns, zeros
+    elsewhere, and a sum over the scene group assembles every row (each
+    triangle has one owner), as the JAX package's psum does."""
+    idx = tri.clamp_min(0).long()
+    if mesh.scene_group is None:
+        return mesh.shade_pack[idx]
+    local = idx - mesh.shard_row0
+    mine = (local >= 0) & (local < mesh.shard_rows)
+    rows = mesh.shade_pack[local.clamp(0, mesh.shade_pack.shape[0] - 1)]
+    rows = torch.where(mine[:, None], rows, torch.zeros_like(rows))
+    return pd.group_sum_(rows, mesh.scene_group)
+
+
 def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf=None):
     """Winner barycentrics from the shade_pack 'bary' columns
     (a(3) u(3) v(3) m11 m12 m22 invdet), edge-matrix formula; pass the
     rows already fetched as `sf`."""
     if sf is None:
-        sf = mesh.shade_pack[tri.clamp_min(0).long()]
+        sf = _shade_fetch(mesh, tri)
     bb = sf[:, mesh.col('bary')]
     p_b = org_l + t[:, None] * dir_l
     pxv = p_b - bb[:, 0:3]
@@ -529,7 +546,7 @@ def _atlas(mesh, ch):
 def _mesh_alpha(mesh, tri, al, be, ga):
     """Per-lane alpha-map red value; 1.0 where the group has no map
     (TriangleMesh.cpp:1199-1205)."""
-    sf = mesh.shade_pack[tri.clamp_min(0).long()]
+    sf = _shade_fetch(mesh, tri)
     u, v = _mesh_uv(mesh, sf, al, be, ga)
     grp = _shade_grp(mesh, sf)
     aval = torch.ones_like(al)
@@ -557,6 +574,10 @@ def _one_hit(mesh, org_l, dir_l, t_max, t_min=None, backface=None):
             # the windowed rounds leave no residual lane
             t, tri = cluster.two_level_hit(cm, org_l, dir_l, t_max,
                                            tmin=t_min, backface_cull=bf)
+            if mesh.scene_group is not None:
+                # a scene-axis partition: tri ids are global, so the
+                # partitions' winners combine by t
+                t, tri = pd.group_closest(t, tri, mesh.scene_group)
             return t, tri, None
         # tree tier: residual lanes re-traverse the lockstep BVH
         t, tri, res = cluster.two_level_hit(
@@ -754,7 +775,7 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit) -> Hit:
     else:
         org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
     t, tri, bary = _mesh_closest_hit(mesh, org_l, dir_l, cur.t)
-    sf = mesh.shade_pack[tri.clamp_min(0).long()]
+    sf = _shade_fetch(mesh, tri)
     win = t < cur.t
     if bary is None:
         bary = _bary_from_pack(mesh, org_l, dir_l, t, tri, sf)
@@ -845,9 +866,12 @@ def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light):
         else:
             org_l, dir_l = _local_ray_row(sc, mesh.obj_row, origins, dirs)
         if mesh.use_cluster and not mesh.has_alpha:
-            blocked |= cluster.two_level_any(
-                mesh.clustered, org_l, dir_l, limit,
-                backface_cull=mesh.backface_cull)
+            occ = cluster.two_level_any(mesh.clustered, org_l, dir_l, limit,
+                                        backface_cull=mesh.backface_cull)
+            if mesh.scene_group is not None:
+                # occlusion is an OR over the scene axis' partitions
+                occ = pd.group_sum_(occ.to(torch.int32), mesh.scene_group) > 0
+            blocked |= occ
         elif mesh.has_alpha or mesh.use_packet:
             # closest hit bounded by the limit (t is transform-invariant,
             # dir_l unnormalized); the packet tier has no any-hit variant
@@ -980,7 +1004,7 @@ def _mesh_reservoir_march(mesh, org_m, dir_m, tmax, u,
 def _mesh_normal(mesh, tri, al, be, ga):
     """Interpolated vertex normal of triangle `tri` at (al, be, ga), the
     face normal on a mesh without vertex-normal columns (not normalized)."""
-    sf = mesh.shade_pack[tri.long()]
+    sf = _shade_fetch(mesh, tri)
     if mesh.col('n0') is None:
         return sf[:, mesh.col('fn')]
     return (sf[:, mesh.col('n0')] * al[:, None]
@@ -1343,8 +1367,13 @@ def camera_backface_gate(sc: SceneArrays, cam_pos) -> SceneArrays:
     out, changed = [], False
     for m in sc.meshes:
         if m.backface_cull:
-            b = m.clustered.bounds.cpu().numpy().astype(np.float64)
-            lo, hi = b[:, 0:3].min(0), b[:, 3:6].max(0)
+            b = m.clustered.bounds
+            box = torch.cat([b[:, 0:3].amin(0), -b[:, 3:6].amax(0)])
+            if m.scene_group is not None:
+                # a partition's box is its own; the gate needs the mesh's
+                box = pd.group_gather(box, m.scene_group).amin(0)
+            box = box.cpu().numpy().astype(np.float64)
+            lo, hi = box[0:3], -box[3:6]
             pad = 1e-3 + 1e-4 * float(np.linalg.norm(hi - lo))
             inv = sc.inv_trans[m.obj_row].cpu().numpy().astype(
                 np.float64).reshape(3, 4)

@@ -43,6 +43,9 @@ Headless path: lenticular rays on the card within 1e-5 of the CPU's
 waves and resumed equals a straight render bit for bit, film, weights
 and denoiser buffers, as two straight renders do; KPCN-lite on the card
 within chip_smoke.KPCN_TOL of its CPU run.
+Training: the sharded train step's loss and gradients on the card equal
+the CPU's; a scene-axis render by two processes sharing the card over
+gloo (tests/torch_dist_worker.py) equals the unsharded render.
 """
 
 import numpy as np
@@ -1143,3 +1146,61 @@ def test_point_scenes_match_cpu_plain_path(cuda, scene, tmp_path):
     cols = rng.uniform(0.2, 0.9, (9000, 3)).astype(np.float32)
     scenes = chip_smoke.small_point_scenes(cuda, str(tmp_path), pts, cols)
     assert chip_smoke.card_vs_cpu(scenes[scene], scene) < 0.05
+
+
+@pytest.mark.gpu
+def test_train_step_grads_match_cpu(cuda):
+    """parallel.sharding's loss and gradients (world 1) at 64x48 on the
+    card, through the sweep kernels, against the CPU plain path: a finite
+    loss within 1e-5 relative, each gradient within 5e-4 of its leaf's
+    largest |grad| (tests/test_torch_grad.py's rule)."""
+    import torch_dist_worker as wk
+    from pathtracer_tpu_torch.parallel import sharding
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=2, nb_bounces=2)
+    cp = rng_host.random_per_pixel_fast(64, 48)
+    target = np.random.default_rng(5).uniform(0, 1, (48, 64, 3)).astype(
+        np.float32)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        sc = wk.cluster_scene(device=dev)
+        params = {k: getattr(sc, k) for k in ('kd', 'ks', 'light_intensity')}
+        tc.cluster_sweep.launches = 0
+        loss, grads = sharding.make_loss_and_grads(
+            sharding.make_mesh(n_devices=1, dp=1), cfg)(
+            params, sc, pt.make_camera(*wk.CAM),
+            torch.as_tensor(cp, device=dev),
+            torch.as_tensor(target, device=dev))
+        out[dev] = (float(loss), {k: g.cpu().numpy() for k, g in
+                                  grads.items()})
+        if dev == 'cuda':
+            assert tc.cluster_sweep.launches > 0
+    (lc, gc), (lh, gh) = out['cuda'], out['cpu']
+    assert np.isfinite(lc) and abs(lc - lh) <= 1e-5 * lh
+    assert np.abs(gh['kd']).max() > 0
+    for k, g in gh.items():
+        assert np.abs(gc[k] - g).max() <= 5e-4 * max(np.abs(g).max(), 1e-30)
+
+
+@pytest.mark.gpu
+def test_scene_axis_render_on_card(cuda, tmp_path):
+    """Two processes share the card over gloo, each with one partition of
+    a 7,200-triangle sphere (dp=1 x scene=2), and render 160x90 through
+    the sweep kernels: counts equal the unsharded render's, the image
+    within rtol = atol = 1e-5."""
+    import torch_dist_worker as wk
+    from pathtracer_tpu_torch.parallel import sharding
+    ranks = wk.spawn('gpu_scene', 2, str(tmp_path))
+    w, h = wk.GPU_SIZE
+    cfg = rnd.RenderConfig(width=w, height=h, nrays=1, nb_bounces=2)
+    with torch.no_grad():
+        img, cnt = sharding.make_sharded_render(
+            sharding.make_mesh(n_devices=1, dp=1), cfg)(
+            wk.cluster_scene(wk.GPU_LAT, device='cuda'),
+            pt.make_camera(*wk.CAM),
+            torch.as_tensor(rng_host.random_per_pixel_fast(w, h),
+                            device='cuda'))
+    assert float(img.sum()) > 0
+    for r in ranks:
+        np.testing.assert_array_equal(r['count'], cnt.cpu().numpy())
+        np.testing.assert_allclose(r['image'], img.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
