@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py [--profile-all]
 
---profile-all also profiles one wave of scene M and one of scene O (items
-9 and 10); without it those phases keep every check and timed wave but
-skip their profiled split (scene O's costs about 110 s, scene M's about
-40 s on an H100), so the whole run stays well inside its time limit.
+--profile-all also profiles one wave of the main path, of scene M and of
+scene O (items 5, 9 and 10); without it those phases keep every check and
+timed wave but skip their profiled split (scene O's costs about 110 s,
+scene M's about 40 s, the main path's 14-19 s on an H100), so the whole
+run stays well inside its time limit.
 
 1. Refuses to run without a CUDA device (no CPU fallback); prints the
    torch version, the card's name and power limit, and its fp32 issue
@@ -31,9 +32,9 @@ skip their profiled split (scene O's costs about 110 s, scene M's about
    sample with the boundary-flip allowance of the CPU tests.
 5. Main path: Renderer on the 2.4M-triangle scene at 1920x1080, 3
    bounces, one sample per wave, compaction on; one warm-up wave, two
-   timed waves (launch counts read here), two more timed waves, and one
-   wave under torch.profiler for the sweeps' device time
-   (profile_split).  Both sweep kernels' launch counters must rise; the
+   timed waves (launch counts read here), two more timed waves, and with
+   --profile-all one wave under torch.profiler for the sweeps' device
+   time (profile_split).  Both sweep kernels' launch counters must rise; the
    image must be finite and lit.
 6. Tree-cull phase: a 3.4M-triangle displaced sphere cut into 256-triangle
    clusters (more than DENSE_CULL_MAX), on its 1080p primaries and on one
@@ -237,6 +238,30 @@ skip their profiled split (scene O's costs about 110 s, scene M's about
    ...}` line.  The rank processes share the card: no time here says
    anything of scaling across cards.
 
+14. Routed phase (routed_phase after the main path, routed_tree after the
+   tree phase): the routed cluster tier, upload_mesh(use_routed=True), on
+   the main path's paths.  R1: the main path's sphere uploaded routed
+   (soup and BVH kept); on its 1080p primaries and one bounce of them
+   (every ROUTED_BOUNCE_STRIDE-th 512-ray packet) routed_hit through the
+   kernels equals the same call with
+   cluster_sweep's plain version on the card bit for bit (t, tri,
+   residual lanes), and after the bvh_hit_sparse net agrees with
+   two_level_hit (backface cull off) by the tree phase's standard (agree:
+   tri on >= 99.9% of lanes, at most 0.05% hit in one only, t within 1e-5
+   relative, the net's lanes within the plane and edge-matrix formulas'
+   tolerance).  R2: Renderer on the routed scene at 1920x1080, 3 bounces,
+   1 sample a wave, compaction: a warm-up (its routed queries' run
+   packets, padding share and residual lanes from
+   routed_cluster.ROUTE_LOG, the net's host-clock time), ROUTED_WAVES
+   timed waves (median; live rays/s; every launch count set to 0 before
+   and read after, `launches_routed`) beside the main path's two-level
+   waves, and one 1 spp render_unsplatted of each scene, per sample
+   within PERF.md §2's rule.  R3: the tree phase's 3.4M-triangle sphere
+   (its host builds from utils/hostcache) through routed_hit and the net
+   on the 1080p primaries against the tree tier's two_level_hit and net
+   by the same standard; cull_tree must launch (`launches_routed_tree`).
+   Its numbers are the `{"routed": ...}` line.
+
 Bounds: bytes over 3.35 TB/s, and operations over the card's fp32 issue
 rate read at the start (issue_rate: SMs x 128 lanes x the maximum SM
 clock; the kernels are built with -fmad=false, so each counted operation
@@ -245,8 +270,8 @@ one FFMA each: DOT_OUT_OPS, DOT_ROW_OPS), or over the card's dense TF32
 rate for the tensor-core product (tf32_rate: SMs x 1024 multiply-adds x 2
 x the same clock), both printed after the card line.
 
-Every failure raises.  The training phase's, the fluid phase's, the CLI
-phase's, the media
+Every failure raises.  The routed phase's, the training phase's, the
+fluid phase's, the CLI phase's, the media
 phase's, the materials phase's and the gradient phase's numbers are JSON
 lines before the card line.  The last
 three lines are the card line, the kernel JSON (per kernel: time, plain
@@ -670,7 +695,7 @@ def reference_phase():
         raise AssertionError('card render disagrees with the CPU reference')
 
 
-def main_path(sc, cam, card):
+def main_path(sc, cam, card, profile=False):
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
@@ -699,7 +724,8 @@ def main_path(sc, cam, card):
         stop.record()
         torch.cuda.synchronize()
         ms_wave.append(start.elapsed_time(stop))
-    split, busy_ms, n_kern, _ = profile_split(r, ())
+    if profile:
+        split, busy_ms, n_kern, _ = profile_split(r, ())
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('image not finite / wrong shape')
@@ -717,11 +743,15 @@ def main_path(sc, cam, card):
         f'{live / (2 * ms_wave[0] / 1e3):.4g} live rays/s ({card}); launches '
         f'in the warm-up and two timed waves {launches}; mesh region mean '
         f'{region.mean():.3f} std {region.std():.3f}')
-    log(f'profiled wave (torch.profiler): sweep kernels device time '
-        f'cluster_sweep_closest {split["sweep_closest"]:.1f} ms, '
-        f'cluster_sweep_any {split["sweep_any"]:.1f} ms; all {n_kern} '
-        f'kernels {busy_ms:.1f} ms (sum of kernel times)')
-    return launches
+    if profile:
+        log(f'profiled wave (torch.profiler): sweep kernels device time '
+            f'cluster_sweep_closest {split["sweep_closest"]:.1f} ms, '
+            f'cluster_sweep_any {split["sweep_any"]:.1f} ms; all {n_kern} '
+            f'kernels {busy_ms:.1f} ms (sum of kernel times)')
+    rep = dict(ms_wave=ms_wave, ms_median=float(np.median(ms_wave[1:])),
+               live_rays_per_s=live / (2 * ms_wave[0] / 1e3),
+               launches_per_wave={k: v / 3 for k, v in launches.items()})
+    return launches, rep
 
 
 def flagship_scene(dev, ghost=False, background=None):
@@ -1189,6 +1219,342 @@ def tree_phase(dev, cam):
         registers=info[0], blocks_per_sm=info[1], threads=info[3])
     rec['launches'] = launches
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Routed phase: the routed cluster tier (upload_mesh(use_routed=True))
+# ---------------------------------------------------------------------------
+
+ROUTED_WAVES = 2        # timed 1080p routed waves, after a warm-up (median)
+ROUTED_BOUNCE_STRIDE = 4   # R1 holds every 4th 512-ray packet of the bounce:
+                           # nearly all its lanes are residual, and the
+                           # lockstep net took 19.3 s on all 1,118 packets
+                           # (an H100 at 700 W)
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """cluster.cluster_sweep replaced by its plain version on the same
+    tensors (on the card too): no launch, no count."""
+    from unittest import mock
+    from pathtracer_tpu_torch.ops import cluster as cl
+
+    def plain(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
+              order=None, stats=None):
+        return cl.cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax,
+                                      tmin, group, stats)
+
+    with mock.patch.object(cl, 'cluster_sweep', plain):
+        yield
+
+
+@contextlib.contextmanager
+def net_timer():
+    """Time each traverse.bvh_hit_sparse call (the residual lanes' net) on
+    the host clock, the card synchronized before and after.  Yields
+    [seconds, calls, lanes]."""
+    import torch
+    from unittest import mock
+    from pathtracer_tpu_torch.ops import traverse as tt
+    f = tt.bvh_hit_sparse
+    acc = [0.0, 0, 0]
+
+    def timed_net(bvh, soup, org, dirn, res, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = f(bvh, soup, org, dirn, res, *a, **k)
+        torch.cuda.synchronize()
+        acc[0] += time.perf_counter() - t0
+        acc[1] += 1
+        acc[2] += int(res.sum())
+        return out
+
+    with mock.patch.object(tt, 'bvh_hit_sparse', timed_net):
+        yield acc
+
+
+def routed_net(cm, soup, bvh, max_leaf, org, dirn, tmax):
+    """routed_hit with its residual lanes, then scene.py's net: ((t, tri)
+    after the net, the residual mask, the route log of the call)."""
+    import torch
+    from pathtracer_tpu_torch.ops import routed_cluster as rc
+    from pathtracer_tpu_torch.ops import traverse as tt
+    rc.ROUTE_LOG = []
+    try:
+        t, tri, res = rc.routed_hit(cm, org, dirn, tmax, return_residual=True,
+                                    with_bary=False)
+        route = rc.ROUTE_LOG[0]
+    finally:
+        rc.ROUTE_LOG = None
+    t, tri, _, _ = tt.bvh_hit_sparse(bvh, soup, org, dirn, res, max_leaf, t,
+                                     tri, torch.ones_like(t),
+                                     torch.zeros_like(t))
+    return (t, tri), res, route
+
+
+def agree(t, tri, t_d, tri_d, what, net=None):
+    """The tree phase's standard for one tier against another: tri equal on
+    >= 99.9% of lanes, at most 0.05% of lanes hit in one only, t within
+    1e-5 relative where tri agrees.  `net` ((N,) bool, optional): lanes a
+    bvh_hit_sparse net resolved in either tier, whose t comes from the
+    edge-matrix formula, not the sweep's plane formula: there t is held
+    within 1e-5 relative + 1e-5, the tolerance between the two formulas of
+    tests/test_torch_tiers.py (a bounce ray hits at t ~ 1e-2, where the
+    formulas' rounding at the scene's scale exceeds 1e-5 of t).  Returns
+    the numbers."""
+    import torch
+    same = tri == tri_d
+    frac = float(same.float().mean())
+    one = int(((tri >= 0) != (tri_d >= 0)).sum())
+    hit = same & (tri_d >= 0)
+    net = torch.zeros_like(tri, dtype=torch.bool) if net is None else net
+    err = (t - t_d).abs()
+    sweep = hit & ~net
+    rel = float((err[sweep] / t_d[sweep].abs()).max()) \
+        if bool(sweep.any()) else 0.0
+    formula = hit & net
+    net_bad = int((err[formula] > 1e-5 * t_d[formula].abs() + 1e-5).sum())
+    if frac < 0.999 or one > 0.0005 * tri.shape[0] or rel > 1e-5 \
+            or net_bad:
+        raise AssertionError(f'{what}: tri agrees on {frac:.6f}, {one} '
+                             f'lanes hit in one only, t rel {rel:.3g}, '
+                             f'{net_bad} net lanes beyond the formulas\' '
+                             f'tolerance')
+    return dict(tri_agree=frac, hit_in_one=one, t_rel_max=rel,
+                net_lanes_compared=int(formula.sum()),
+                hit_share=float((tri_d >= 0).float().mean()))
+
+
+def route_numbers(logs):
+    """Per routed_hit call of `logs` (routed_cluster.ROUTE_LOG entries):
+    run packets and routed lanes a round, the share of the run packets'
+    lanes that are padding, packets refined, residual lanes."""
+    runs = [r for e in logs for r in e['runs']]
+    lanes = [x for e in logs for x in e['lanes']]
+    return dict(calls=len(logs), run_packets=runs, routed_lanes=lanes,
+                padding_share=1.0 - sum(lanes) / max(1, sum(runs) * 512),
+                refined_packets=[x for e in logs for x in e['refined']],
+                residual_lanes=[e['residual'] for e in logs])
+
+
+def routed_hits(mesh, org, dirn, name):
+    """R1 on one ray set: routed_hit through the kernels, bit-equal in t,
+    tri and residual lanes to the same call with the sweeps' plain
+    versions on the card; after the net, against two_level_hit (backface
+    cull off, exhaustive).  Returns (numbers, (t, tri) after the net)."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import routed_cluster as rc
+    cm = mesh.clustered
+    tmax = torch.full((org.shape[0],), BIG_T, device=org.device)
+    reset_counts()
+    (hits, res, route), ms = timed(lambda: routed_net(
+        cm, mesh.soup, mesh.bvh, mesh.max_leaf, org, dirn, tmax))
+    launches = cl.cluster_sweep.launches
+    with plain_sweeps():
+        (t_p, tri_p, res_p), plain_ms = timed(lambda: rc.routed_hit(
+            cm, org, dirn, tmax, return_residual=True, with_bary=False))
+    if cl.cluster_sweep.launches != launches:
+        raise AssertionError('the plain sweeps launched a kernel')
+    (t_k, tri_k, res_k), ms_k = timed(lambda: rc.routed_hit(
+        cm, org, dirn, tmax, return_residual=True, with_bary=False))
+    if not (same_bits((t_k, tri_k), (t_p, tri_p))
+            and torch.equal(res_k, res_p)):
+        raise AssertionError(f'routed_hit, {name}: the kernels differ from '
+                             f'the plain sweeps')
+    (t_d, tri_d), two_ms = timed(lambda: cl.two_level_hit(cm, org, dirn,
+                                                          tmax))
+    rep = dict(rays=org.shape[0], ms_with_net=ms, ms=ms_k,
+               plain_sweeps_ms=plain_ms, two_level_ms=two_ms,
+               sweep_launches=launches, residual=int(res.sum()),
+               **route_numbers([route]),
+               **agree(hits[0], hits[1], t_d, tri_d, f'routed, {name}',
+                       net=res))
+    log(f'routed_hit, {name}: {rep["rays"]} rays, {ms_k:.1f} ms ({ms:.1f} '
+         f'with the net; two_level_hit {two_ms:.1f} ms); bit-equal to the '
+         f'plain sweeps ({plain_ms:.1f} ms); {launches} sweep launches; run '
+         f'packets {rep["run_packets"]}, padding '
+         f'{rep["padding_share"]:.3f}; refined {rep["refined_packets"]}; '
+         f'{rep["residual"]} residual lanes; vs two_level_hit tri '
+         f'{rep["tri_agree"]:.6f}, {rep["hit_in_one"]} hit in one only')
+    return rep, hits
+
+
+def routed_scene(sc, dev, lat=1100):
+    """The main path's scene (big_scene: its sphere at `lat`) with the
+    sphere uploaded routed, the mesh's own backface flag kept for its
+    shadows, as build_scene gated it."""
+    import dataclasses as dc
+    from pathtracer_tpu_torch.scene import mesh as mesh_mod
+    from pathtracer_tpu_torch.utils import procgen
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    m0 = sc.meshes[0]
+    m = mesh_mod.upload_mesh(md, obj_row=m0.obj_row, use_routed=True,
+                             dev=dev)
+    if m.soup is None or m.bvh is None or m.n_clusters != m0.n_clusters:
+        raise AssertionError('the routed upload must keep soup and BVH')
+    m = dc.replace(m, backface_cull=m0.backface_cull)
+    return sc.replace(meshes=(m,))
+
+
+def samples_agree(a, b, what):
+    """PERF.md §2's per-sample rule: < 5% of samples beyond 1e-3 of the
+    image scale, means within 2%.  Returns the numbers."""
+    scale = max(float(np.abs(b).max()), 1e-6)
+    rel = np.abs(a - b).max(-1) / scale
+    flipped = float((rel > 1e-3).mean())
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / scale
+    if flipped >= 0.05 or mean_rel >= 0.02 or not np.isfinite(a).all():
+        raise AssertionError(f'{what}: {flipped:.5f} of samples flipped, '
+                             f'mean rel {mean_rel:.4g}')
+    return dict(flipped=flipped, mean_rel=mean_rel)
+
+
+def routed_phase(sc, cam, card, main_rep, lat=1100):
+    """R1 and R2 on the main path's scene (`lat` as routed_scene): the
+    routed tier's hits against the kernels' plain versions and
+    two_level_hit, its 1080p wave beside the main path's.  Returns (launch
+    counts of the timed waves, the numbers)."""
+    import torch
+    import pathtracer_tpu_torch as pt
+    from pathtracer_tpu_torch.ops import routed_cluster as rc
+    from pathtracer_tpu_torch.render import renderer as rnd
+    from pathtracer_tpu_torch.core import rng_host
+    dev = cam.position.device
+    t0 = time.perf_counter()
+    rsc = routed_scene(sc, dev, lat)
+    mesh = rsc.meshes[0]
+    rep = dict(upload_s=time.perf_counter() - t0)
+    log(f'routed upload {rep["upload_s"]:.1f} s: {mesh.n_tris} tris, '
+        f'{mesh.n_clusters} clusters, soup and BVH kept')
+
+    # ---- R1: hits on the 1080p primaries and one bounce of them ----
+    org, dirn = primary_rays(cam, dev)
+    org = org - torch.tensor([0.0, -15.0, 0.0], device=dev)   # mesh space
+    rep['primaries'], (t, tri) = routed_hits(mesh, org, dirn,
+                                             '1080p primaries')
+    b_org, b_dir = bounce_rays(org, dirn, t, tri, mesh.soup, seed=5)
+    keep = torch.arange(b_org.shape[0], device=dev) // 512 \
+        % ROUTED_BOUNCE_STRIDE == 0
+    b_org, b_dir = b_org[keep], b_dir[keep]
+    rep['bounce'], _ = routed_hits(
+        mesh, b_org, b_dir, f'one bounce, every {ROUTED_BOUNCE_STRIDE}th '
+        f'packet ({b_org.shape[0]} rays)')
+
+    # ---- R2: the 1080p wave ----
+    cfg = pt.RenderConfig(width=W, height=H, nrays=8, nb_bounces=BOUNCES,
+                          samples_per_wave=1, compact_rays=True)
+    r = pt.Renderer(rsc, cam, cfg)
+    rc.ROUTE_LOG = []
+    try:
+        with net_timer() as net:
+            reset_counts()
+            r.step()                            # warm-up, instrumented
+            torch.cuda.synchronize()
+            warm = read_counts()
+        logs = rc.ROUTE_LOG
+    finally:
+        rc.ROUTE_LOG = None
+    ms, live = [], []
+    reset_counts()
+    for _ in range(ROUTED_WAVES):
+        rays0 = r.rays_traced
+        _, t_ms = timed(r.step)
+        ms.append(t_ms)
+        live.append(r.rays_traced - rays0)
+    launches = read_counts()
+    img = r.display().cpu().numpy()
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError('routed image not finite / wrong shape')
+    if launches['cluster_sweep_closest'] <= 0:
+        raise AssertionError('cluster_sweep never launched on the routed '
+                             'path')
+    med = float(np.median(ms))
+    rays_s = float(np.median([n / (m / 1e3) for n, m in zip(live, ms)]))
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(W, H), device=dev)
+    one = rnd.RenderConfig(width=W, height=H, nrays=1, nb_bounces=BOUNCES,
+                           compact_rays=True)
+    smp = [rnd.render_unsplatted(s, cam, cp, one)[1].cpu().numpy()
+           for s in (rsc, sc)]
+    rep['wave'] = dict(
+        ms=spread(ms), live_rays_per_s=rays_s,
+        launches_per_wave={k: v / ROUTED_WAVES for k, v in launches.items()
+                           if v},
+        warm_up_launches={k: v for k, v in warm.items() if v},
+        net_ms=net[0] * 1e3, net_calls=net[1], net_lanes=net[2],
+        **route_numbers(logs),
+        two_level=main_rep,
+        image=samples_agree(smp[0], smp[1], 'routed vs two-level 1080p'))
+    w = rep['wave']
+    log(f'routed wave 1080p x 2.4M tris, 3 bounces, compaction: {med:.1f} ms '
+        f'median of {ROUTED_WAVES} ({", ".join(f"{x:.1f}" for x in ms)}), '
+        f'{rays_s:.4g} live rays/s; two-level main path '
+        f'{main_rep["ms_median"]:.1f} ms, {main_rep["live_rays_per_s"]:.4g} '
+        f'live rays/s ({card}); launches per wave '
+        f'{w["launches_per_wave"]} (two-level '
+        f'{main_rep["launches_per_wave"]}); warm-up: {w["calls"]} routed '
+        f'queries, run packets a round {w["run_packets"]}, padding share '
+        f'{w["padding_share"]:.3f}, residual lanes {w["residual_lanes"]}, '
+        f'net {w["net_ms"]:.1f} ms on {w["net_lanes"]} lanes in '
+        f'{w["net_calls"]} calls (host clock); image vs two-level per '
+        f'sample: flipped {w["image"]["flipped"]:.5f}, mean rel '
+        f'{w["image"]["mean_rel"]:.3g}')
+    return launches, rep
+
+
+def routed_tree(dev, cam, lat=1300):
+    """R3: the tree phase's 3.4M-tri sphere (`lat` 1300: 19,006 clusters
+    of 256; its host builds come from utils/hostcache) through routed_hit
+    and the net on the 1080p primaries, against the tree phase's
+    two_level_hit and net.  The tree cull kernel must launch."""
+    import torch
+    from pathtracer_tpu_torch.ops import bvh as bvh_mod
+    from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import traverse as tt
+    from pathtracer_tpu_torch.utils import procgen
+    t0 = time.perf_counter()
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    tri = md.vertices[md.vtx_idx]
+    fb = bvh_mod.build_bvh(tri)
+    cm = cl.build_clustered(tri, fb=fb, tris_c=256, dev=dev)
+    soup = tt.make_soup(tri[fb.order], device=dev)
+    bvh = tt.upload_bvh(fb, device=dev)
+    build_s = time.perf_counter() - t0
+    if not cm.n_clusters > cl.DENSE_CULL_MAX:
+        raise AssertionError('R3 needs a tree-tier build')
+    org, dirn = primary_rays(cam, dev)
+    org = org - torch.tensor([0.0, -15.0, 0.0], device=dev)
+    tmax = torch.full((org.shape[0],), BIG_T, device=dev)
+    reset_counts()
+    ((t, tri_id), res, route), ms = timed(lambda: routed_net(
+        cm, soup, bvh, fb.max_leaf, org, dirn, tmax))
+    counts = read_counts()
+
+    def two_level():
+        t_, tri_, res_ = cl.two_level_hit(cm, org, dirn, tmax,
+                                          return_residual=True)
+        return tt.bvh_hit_sparse(bvh, soup, org, dirn, res_, fb.max_leaf,
+                                 t_, tri_, torch.ones_like(t_),
+                                 torch.zeros_like(t_))[:2] + (res_,)
+
+    (t_d, tri_d, res_d), two_ms = timed(two_level)
+    rep = dict(build_s=build_s, clusters=cm.n_clusters, ms_with_net=ms,
+               two_level_ms_with_net=two_ms,
+               launches={k: v for k, v in counts.items() if v},
+               residual=int(res.sum()), **route_numbers([route]),
+               **agree(t, tri_id, t_d, tri_d, 'routed tree tier',
+                       net=res | res_d))
+    if counts['cull_tree'] <= 0:
+        raise AssertionError('cull_tree never launched on the routed tree '
+                             'tier')
+    log(f'routed tree tier: build {build_s:.1f} s (host cache), '
+        f'{cm.n_clusters} clusters; 1080p primaries {ms:.1f} ms with the '
+        f'net (two_level_hit + net {two_ms:.1f} ms); launches '
+        f'{rep["launches"]}; run packets {rep["run_packets"]}, padding '
+        f'{rep["padding_share"]:.3f}; {rep["residual"]} residual lanes; vs '
+        f'the tree phase\'s tier tri {rep["tri_agree"]:.6f}, '
+        f'{rep["hit_in_one"]} hit in one only')
+    return rep
 
 
 def walk_set(mesh, org, dirn, tmax, name):
@@ -4137,8 +4503,8 @@ def main():
     ap = argparse.ArgumentParser(description='Smoke run of the PyTorch port '
                                  'on one CUDA card.')
     ap.add_argument('--profile-all', action='store_true',
-                    help='also profile a wave of scene M and of scene O '
-                    '(about 150 s more on an H100)')
+                    help='also profile a wave of the main path, of scene M '
+                    'and of scene O (about 165 s more on an H100)')
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -4174,8 +4540,12 @@ def main():
     reference_phase()
     log(f'reference phase {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    launches = main_path(sc, cam, card)
+    launches, main_rep = main_path(sc, cam, card, args.profile_all)
     log(f'main path {time.perf_counter() - t0:.1f} s')
+    t_routed = time.perf_counter()
+    routed_launches, routed_rep = routed_phase(sc, cam, card, main_rep)
+    t_routed = time.perf_counter() - t_routed
+    log(f'routed phase (R1, R2) {t_routed:.1f} s')
     flag, mesh = grad_phase(sc, cam, card)
     t0 = time.perf_counter()
     train_launches, train_fwd, train_rec, scene_ranks, train_rep = \
@@ -4205,6 +4575,14 @@ def main():
         t0 = time.perf_counter()
         kernels.extend(fn())
         log(f'{name} phase {time.perf_counter() - t0:.1f} s')
+        if name == 'tree':
+            # R3 next to the tree phase, whose host builds it reuses
+            t0 = time.perf_counter()
+            routed_rep['tree'] = routed_tree(dev, cam)
+            t_tree = time.perf_counter() - t0
+            routed_rep['phase_s'] = t_routed + t_tree
+            log(f'routed phase (R3) {t_tree:.1f} s; the phase '
+                f'{routed_rep["phase_s"]:.1f} s')
     from pathtracer_tpu_torch.ops import cluster as cl
     recs = {k['name']: k for k in kernels}
     main_sweep, abl = recs['cluster_sweep_closest'], recs['sweep_ablate']
@@ -4225,8 +4603,12 @@ def main():
         k['launches_train_recompute'] = train_rec[name]
         k['launches_scene_ranks'] = [
             r.get(name.replace('cluster_sweep_', ''), 0) for r in scene_ranks]
+        k['launches_routed'] = routed_launches[name]
+        k['launches_routed_tree'] = routed_rep['tree']['launches'].get(name,
+                                                                       0)
     log(f'whole run {time.perf_counter() - t_start:.1f} s after the start '
         f'of main')
+    log(json.dumps({'routed': routed_rep}))
     log(json.dumps({'training': train_rep}))
     log(json.dumps({'fluid': fluid_rep}))
     log(json.dumps({'cli': cli_rep}))

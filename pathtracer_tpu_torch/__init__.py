@@ -7,14 +7,14 @@ cluster-tier ray/triangle sweeps are hand-written CUDA kernels for Hopper
 """
 
 from . import device  # noqa: F401  (precision rules)
-from .core.camera import Camera, make_camera
+from .core.camera import Camera, make_camera, rotate_camera_np
 from .io.obj import load_mesh
 from .render.renderer import RenderConfig, Renderer
 from .scene.scene import (SceneArrays, build_scene, default_light_intensity,
                           default_objects, mesh_object, plane, sphere)
 
 __all__ = [
-    'Camera', 'make_camera', 'load_mesh', 'RenderConfig', 'Renderer',
+    'Camera', 'make_camera', 'rotate_camera_np', 'load_mesh', 'RenderConfig', 'Renderer',
     'SceneArrays',
     'build_scene', 'default_light_intensity', 'default_objects',
     'mesh_object', 'plane', 'sphere',

@@ -78,6 +78,10 @@ def _mesh_from_numpy(m: dict, dev, scene_rank=None) -> mesh_mod.MeshArrays:
                 'a port mesh holds one rank\'s partition of a scene-axis '
                 'mesh, never all of them (ROADMAP Queue 1 item 12): pass '
                 'scene_rank')
+        if m.get('use_routed'):
+            raise NotImplementedError(
+                'a scene-axis partition of a routed mesh (use_routed=True) '
+                'is not ported (ROADMAP Queue 1 item 13)')
         m = dict(m, shade_pack=np.asarray(m['shade_pack'])[scene_rank],
                  soup=None, use_packet=False, use_brute=False)
 
@@ -123,6 +127,7 @@ def _mesh_from_numpy(m: dict, dev, scene_rank=None) -> mesh_mod.MeshArrays:
         soup=soup, bvh=bvh, packed=packed, max_leaf=int(m['max_leaf']),
         use_brute=bool(m['use_brute']), use_packet=packed is not None,
         use_cluster=bool(m['use_cluster']),
+        use_routed=bool(m.get('use_routed', False)),
         textures=tuple(_textures(gt, dev) for gt in m['textures']),
         atlases=tuple(_atlas(a, dev) for a in m.get('atlases') or ()),
         bilinear=bool(m.get('bilinear', False)),

@@ -61,6 +61,30 @@ def make_camera(position, direction, up, fov=35.0 * math.pi / 180.0,
                   lenticular_pixel_width=int(lenticular_pixel_width))
 
 
+def rotate_camera_np(direction, up, angle_x, angle_y):
+    """Host-side camera orbit used during scene setup (pallas
+    rotate_camera_np; reference: Vector.h:740-765, called e.g.
+    Raytracer.cpp:1273): direction and up rotated by angle_y around x,
+    then by angle_x around y, in the reference's axis order.  Returns two
+    (3,) float32 numpy arrays."""
+    d = np.asarray(direction, np.float64).copy()
+    u = np.asarray(up, np.float64).copy()
+
+    def rot(v):
+        tmp = np.array([
+            v[0],
+            math.cos(angle_y) * v[1] - math.sin(angle_y) * v[2],
+            math.sin(angle_y) * v[1] + math.cos(angle_y) * v[2],
+        ])
+        return np.array([
+            math.cos(angle_x) * tmp[0] - math.sin(angle_x) * tmp[2],
+            tmp[1],
+            math.sin(angle_x) * tmp[0] + math.cos(angle_x) * tmp[2],
+        ])
+
+    return rot(d).astype(np.float32), rot(u).astype(np.float32)
+
+
 def camera_array(cam: Camera, nbview_x: int, nbview_y: int,
                  max_spacing_x: float, max_spacing_y: float):
     """Camera-array grid (the render_video camera-array mode,

@@ -38,3 +38,20 @@ def random_uniform_sphere(r1, r2):
     return torch.stack([2.0 * torch.cos(TWO_PI * r1) * s,
                         2.0 * torch.sin(TWO_PI * r1) * s,
                         1.0 - 2.0 * r2], dim=-1)
+
+
+def random_uniform_hemisphere(n, r1, r2):
+    """Uniform hemisphere direction around n (reference: Vector.h:617-630)."""
+    s = torch.sqrt(torch.clamp_min(1.0 - r2 * r2, 0.0))
+    lx = torch.cos(TWO_PI * r1) * s
+    ly = torch.sin(TWO_PI * r1) * s
+    t1, t2 = vec.onb(n)
+    return r2[..., None] * n + lx[..., None] * t1 + ly[..., None] * t2
+
+
+def box_muller(r1, r2):
+    """2D Gaussian with the radius in the third lane (reference:
+    Vector.h:646-655)."""
+    s1 = torch.sqrt(-2.0 * torch.log(torch.clamp_min(r1, 1e-38)))
+    s2 = TWO_PI * r2
+    return torch.stack([s1 * torch.cos(s2), s1 * torch.sin(s2), s1], dim=-1)

@@ -41,3 +41,15 @@ def phong_sample(kd, ks, ne, wo, n, u_choice, r1, r2):
         torch.clamp_min(vec.dot(r_mirror, d), 0.0), avg_ne))
     pdf = p * vec.dot(n, d) / M_PI + (1.0 - p) * proba_phong
     return d, pdf, sampled_diffuse
+
+
+def lambert_eval(kd):
+    """Lambert BRDF value kd/pi (reference: BRDF.h:109-111)."""
+    return kd / M_PI
+
+
+def lambert_sample(n, r1, r2):
+    """Cosine sampling with pdf = cos/pi (reference: BRDF.h:103-108):
+    (direction, pdf)."""
+    d = sampling.random_cos(n, r1, r2)
+    return d, vec.dot(n, d) / M_PI

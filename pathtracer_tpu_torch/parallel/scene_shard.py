@@ -343,6 +343,11 @@ def shard_clustered_mesh(mesh_arrays, n_shards: int, group=None):
     m = mesh_arrays
     assert m.use_cluster and m.clustered is not None, \
         'scene axis needs the cluster tier'
+    if m.use_routed:
+        raise NotImplementedError(
+            'a scene-axis partition of a routed mesh (use_routed=True) is '
+            'not ported (ROADMAP Queue 1 item 13): upload the mesh without '
+            'use_routed to partition it')
     assert m.shade_pack is not None and m.col('bary') is not None, \
         'scene axis needs the packed bary columns'
     cm = m.clustered

@@ -63,3 +63,8 @@ def atrous_denoise(color, albedo, normal, iterations: int = 4,
                 wacc = wacc + w
         out = acc / torch.clamp_min(wacc, 1e-12)
     return out
+
+
+# the entry point under the JAX package's name (its renderer calls
+# denoise.denoise; the jit there has no counterpart here)
+denoise = atrous_denoise

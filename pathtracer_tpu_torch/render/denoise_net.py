@@ -82,6 +82,37 @@ def denoise_apply(model: KPCNLite, color, albedo, normal):
                                                             normal)))
 
 
+def init_params(seed: int = 0) -> dict:
+    """A fresh KPCNLite's state dict on the CPU, initialised from `seed`
+    without touching the global generator (pallas init_params)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return KPCNLite().state_dict()
+
+
+def flax_weights(params) -> dict:
+    """A KPCNLite's weights (the module or its state dict) in the JAX
+    package's flattened flax layout, the inverse of
+    convert.kpcn_state_dict: `Conv_<i>/kernel` HWIO, `Conv_<i>/bias`,
+    float32 numpy."""
+    state = params.state_dict() if isinstance(params, nn.Module) else params
+    out = {}
+    i = 0
+    while f'convs.{i}.weight' in state:
+        k = state[f'convs.{i}.weight'].detach().cpu().numpy()
+        out[f'Conv_{i}/kernel'] = np.ascontiguousarray(
+            k.astype(np.float32).transpose(2, 3, 1, 0))
+        out[f'Conv_{i}/bias'] = state[f'convs.{i}.bias'].detach().cpu() \
+            .numpy().astype(np.float32)
+        i += 1
+    return out
+
+
+def save_weights(params, path: str = WEIGHTS_PATH):
+    """Write flax_weights(params) as the JAX save_weights does."""
+    np.savez_compressed(path, **flax_weights(params))
+
+
 def load_weights(path: Optional[str] = None) -> Optional[dict]:
     """The shipped weights (WEIGHTS_PATH unless `path`) as the port's
     state dict on the CPU; None when the file is absent."""

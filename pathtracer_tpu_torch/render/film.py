@@ -47,6 +47,13 @@ def make_film(width: int, height: int, sigma: float = 0.5,
                     ratio=torch.as_tensor(ratio, device=device))
 
 
+def make_film_spec_static(width: int, height: int, sigma: float,
+                          device=None) -> FilmSpec:
+    """make_film under the JAX package's name for a film built once
+    outside the traced code (pallas make_film_spec_static)."""
+    return make_film(width, height, sigma, device=device)
+
+
 def alloc(film: FilmSpec):
     """Fresh padded accumulators: (H+2F, W+2F, 3) image + (H+2F, W+2F)
     weight; the F-pixel halo absorbs splats that fall outside the image."""

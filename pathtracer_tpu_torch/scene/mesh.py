@@ -15,14 +15,15 @@ into one atlas (`atlases`, models.texture.CHANNELS order).
 
 Its closest-hit tier is one of (scene._mesh_closest_hit):
   * the cluster tier (`use_cluster`, the default, the card's counterpart
-    of JAX's TPU default): ops/cluster.py;
+    of JAX's TPU default): ops/cluster.py, or with `use_routed` its
+    routed per-lane variant, ops/routed_cluster.py;
   * the packet tier (`use_packet`: not use_cluster, <= PACKET_MAX_TRIS
     triangles, a CUDA device, as JAX gates it on the TPU backend):
     ops/packet_bvh.py;
   * brute force (`use_brute`, <= BRUTE_FORCE_MAX_TRIS triangles), else the
     lockstep BVH (ops/traverse.py).
-A LEAN mesh (cluster tier, > PACKET_MAX_TRIS triangles, dense culls) keeps
-no soup and no BVH on the device; every other mesh keeps both.
+A LEAN mesh (cluster tier, not routed, > PACKET_MAX_TRIS triangles, dense
+culls) keeps no soup and no BVH on the device; every other mesh keeps both.
 
 A MERGED mesh (`merge_mesh_entries`, world_space) bakes several mesh
 objects into one world-space BVH; `group_rows` maps each of its material
@@ -84,6 +85,9 @@ class MeshArrays:
     use_brute: bool = False
     use_packet: bool = False
     use_cluster: bool = True
+    # the cluster tier's routed per-lane variant (ops/routed_cluster.py):
+    # keeps its soup and BVH for the residual lanes' fallback
+    use_routed: bool = False
     # per-group texture images (GroupTextures, one per group) and, for
     # many textured groups, one ChannelAtlas or None per CHANNELS entry
     textures: tuple = ()
@@ -187,6 +191,7 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
                 default_refr: float = 1.3,
                 allow_backface: bool = True,
                 use_cluster: Optional[bool] = None,
+                use_routed: bool = False,
                 use_brute: Optional[bool] = None,
                 lean: Optional[bool] = None,
                 load_textures: bool = True,
@@ -208,9 +213,10 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
     pack from host MeshData (pallas upload_mesh), on `dev` (None: the
     card).
 
-    use_cluster None: the cluster tier.  use_brute None: brute force up to
-    BRUTE_FORCE_MAX_TRIS triangles.  lean None: lean on the cluster tier
-    above PACKET_MAX_TRIS triangles when the culls are dense.  use_atlas
+    use_cluster None: the cluster tier; use_routed: its routed variant.
+    use_brute None: brute force up to BRUTE_FORCE_MAX_TRIS triangles.  lean
+    None: lean on the cluster tier, not routed, above PACKET_MAX_TRIS
+    triangles when the culls are dense.  use_atlas
     None: an atlas from ATLAS_MIN_GROUPS textured groups.  facecolors:
     (T, 3) per original triangle (.seg / .lab); edge_colors: the
     (colours (T, 3, 3), mask (T, 3)) pair of io.obj.load_edge_csv, used
@@ -268,7 +274,8 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
             tri_verts, fb=fb, nrm_sign=float(bf_sign if bf_sign else 1),
             dev=dev)
     if lean is None:
-        lean = (cm is not None and n_tris > PACKET_MAX_TRIS
+        lean = (cm is not None and not use_routed
+                and n_tris > PACKET_MAX_TRIS
                 and cm.n_clusters <= cluster.DENSE_CULL_MAX)
 
     # packed per-triangle shading fetch: one (T, C) row gather per hit,
@@ -359,6 +366,7 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
         packed=packet_bvh.pack_bvh(fb, device=dev) if use_packet else None,
         max_leaf=int(fb.max_leaf), use_brute=bool(use_brute),
         use_packet=bool(use_packet), use_cluster=bool(use_cluster),
+        use_routed=bool(use_routed),
         textures=tuple(textures), atlases=atlases, bilinear=bool(bilinear),
         cutout_rounds=int(cutout_rounds),
         display_edges=bool(display_edges),

@@ -46,6 +46,7 @@ from ..io import obj as obj_io
 from ..models import texture as tex_mod
 from ..ops import cluster
 from ..ops import packet_bvh
+from ..ops import routed_cluster
 from ..ops import traverse
 from ..parallel import distributed as pd
 from . import mesh as mesh_mod
@@ -569,6 +570,16 @@ def _one_hit(mesh, org_l, dir_l, t_max, t_min=None, backface=None):
     (None: the mesh's own flag)."""
     if mesh.use_cluster:
         cm = mesh.clustered
+        if mesh.use_routed:
+            # routed per-lane sweeps, no backface cull (as in JAX); the
+            # residual lanes re-traverse the lockstep BVH on either tier
+            t, tri, res = routed_cluster.routed_hit(
+                cm, org_l, dir_l, t_max, tmin=t_min, return_residual=True,
+                with_bary=False)
+            t, tri, _, _ = traverse.bvh_hit_sparse(
+                mesh.bvh, mesh.soup, org_l, dir_l, res, mesh.max_leaf, t,
+                tri, torch.ones_like(t), torch.zeros_like(t), t_min=t_min)
+            return t, tri, None
         bf = mesh.backface_cull if backface is None else bool(backface)
         if cm.n_clusters <= cluster.DENSE_CULL_MAX:
             # the windowed rounds leave no residual lane
@@ -925,6 +936,14 @@ class ProbeHit(NamedTuple):
 
 MESH_RESERVOIR_MAX_TRIS = 65536   # dense count-then-pick cost cap
 RESERVOIR_MAX_CROSSINGS = 16      # crossing-march slot budget (big meshes)
+
+
+def _mesh_reservoir_supported(mesh) -> bool:
+    """Every mesh tier has a reservoir path (pallas
+    _mesh_reservoir_supported): the dense count-then-pick up to
+    MESH_RESERVOIR_MAX_TRIS triangles with a soup, the crossing march
+    otherwise (reference: TriangleMesh.cpp:1321-1428)."""
+    return True
 
 # March instrumentation: a list here receives, per march, {'lanes': lanes
 # still active entering each round, 'overflow_round': lanes re-queried

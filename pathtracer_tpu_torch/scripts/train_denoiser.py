@@ -31,6 +31,7 @@ import torch
 from ..core.camera import make_camera
 from ..render import denoise as dn
 from ..render import denoise_net as dnn
+from ..render.denoise_net import save_weights
 from ..render import renderer as rnd
 from ..scene import scene as scn
 
@@ -182,24 +183,6 @@ def held_out_mse(model, held):
 
     return dict(noisy=mse(cin), atrous=mse(dn.atrous_denoise(cin, alb, nrm)),
                 learned=mse(dnn.denoise_apply(model, cin, alb, nrm)))
-
-
-def flax_weights(model) -> dict:
-    """The model's weights in the JAX package's flattened flax layout
-    (the inverse of convert.kpcn_state_dict): `Conv_<i>/kernel` HWIO,
-    `Conv_<i>/bias`, float32 numpy."""
-    out = {}
-    for i, conv in enumerate(model.convs):
-        k = conv.weight.detach().cpu().numpy().astype(np.float32)
-        out[f'Conv_{i}/kernel'] = np.ascontiguousarray(k.transpose(2, 3, 1, 0))
-        out[f'Conv_{i}/bias'] = conv.bias.detach().cpu().numpy().astype(
-            np.float32)
-    return out
-
-
-def save_weights(model, path):
-    """Write flax_weights(model) as the JAX save_weights does."""
-    np.savez_compressed(path, **flax_weights(model))
 
 
 def main(argv=None):

@@ -46,6 +46,13 @@ within chip_smoke.KPCN_TOL of its CPU run.
 Training: the sharded train step's loss and gradients on the card equal
 the CPU's; a scene-axis render by two processes sharing the card over
 gloo (tests/torch_dist_worker.py) equals the unsharded render.
+Routed tier (upload_mesh(use_routed=True)): routed_hit through the
+kernels equals the same call with the sweeps' plain versions on the card
+bit for bit (t, tri, residual lanes), and after the bvh_hit_sparse net it
+agrees with two_level_hit (chip_smoke.agree: tri on >= 99.9% of lanes, at
+most 0.05% hit in one only, t within 1e-5 relative); its tree tier
+launches the tree cull; a routed scene renders on the card like the CPU
+plain path, per sample.
 """
 
 import numpy as np
@@ -1204,3 +1211,61 @@ def test_scene_axis_render_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(r['count'], cnt.cpu().numpy())
         np.testing.assert_allclose(r['image'], img.cpu().numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+def _routed_mesh(dev, lat=200):
+    from pathtracer_tpu_torch.scene import mesh as mesh_mod
+    md = procgen.sphere_mesh(lat, lat, radius=14.0, displace_amp=0.25)
+    return mesh_mod.upload_mesh(md, obj_row=3, use_routed=True, dev=dev)
+
+
+@pytest.mark.gpu
+def test_routed_hits_match_plain_and_two_level(cuda):
+    """The 1080p primaries of a 79,600-tri sphere and one bounce of them:
+    chip_smoke.routed_hits holds the kernels to the plain sweeps and the
+    result to two_level_hit; the card's hits agree with the CPU's."""
+    from pathtracer_tpu_torch.ops import routed_cluster as rc
+    mesh = _routed_mesh(cuda)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(cuda)
+    org, dirn = chip_smoke.primary_rays(cam, cuda)
+    org = org - torch.tensor([0.0, -15.0, 0.0], device=cuda)
+    rep, (t, tri) = chip_smoke.routed_hits(mesh, org, dirn, 'primaries')
+    assert rep['sweep_launches'] >= 2 and rep['hit_share'] > 0.1
+    b_org, b_dir = chip_smoke.bounce_rays(org, dirn, t, tri, mesh.soup, 5)
+    chip_smoke.routed_hits(mesh, b_org, b_dir, 'bounce')
+    sub = slice(0, 16 * tc.BLOCK)
+    cpu = mesh.to('cpu')
+    out = {}
+    for m, d in ((mesh, cuda), (cpu, torch.device('cpu'))):
+        o, di = org[sub].to(d), dirn[sub].to(d)
+        out[d.type] = rc.routed_hit(m.clustered, o, di,
+                                    torch.full((o.shape[0],), BIG_T,
+                                               device=d))
+    chip_smoke.check_hits(out['cpu'][0], out['cpu'][1],
+                          out['cuda'][0].cpu(), out['cuda'][1].cpu())
+
+
+@pytest.mark.gpu
+def test_routed_tree_tier_launches_cull(cuda, monkeypatch):
+    """chip_smoke.routed_tree on a 179,400-tri sphere with DENSE_CULL_MAX
+    lowered below its 256-triangle clusters: the tree cull launches and
+    the routed hits agree with the tree tier's two_level_hit."""
+    monkeypatch.setattr(tc, 'DENSE_CULL_MAX', 256)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(cuda)
+    rep = chip_smoke.routed_tree(cuda, cam, lat=300)
+    assert rep['launches']['cull_tree'] > 0 and rep['clusters'] > 256
+
+
+@pytest.mark.gpu
+def test_routed_scene_matches_cpu_plain_path(cuda):
+    """A routed 79,600-tri sphere on the default slate at 64x48: through the
+    kernels on the card against the plain versions on the CPU, per sample
+    (chip_smoke.card_vs_cpu)."""
+    objs = scn.default_objects()
+    objs.append(scn.mesh_object(procgen.sphere_mesh(
+        200, 200, radius=14.0, displace_amp=0.25),
+        translation=(0.0, -15.0, 0.0)))
+    sc = scn.build_scene(objs, scn.default_light_intensity(), device=cuda)
+    rsc = chip_smoke.routed_scene(sc, cuda, lat=200)
+    assert rsc.meshes[0].use_routed and rsc.meshes[0].soup is not None
+    assert chip_smoke.card_vs_cpu(rsc, 'routed') < 0.05
