@@ -27,6 +27,12 @@ run stays well inside its time limit.
    max; the heaviest 1% of groups' share; slots and subtiles per group).
    The kernel records are at cluster.SWEEP_GROUP, their bound from the
    lane x subtile rows that G tests (and, beside it, from G = 512's).
+   Then the hierarchical cull kernel (`hier_phase`, `hier_set`) on the
+   primaries' first round and on one bounce of their hits, each with the
+   backface bound off and on: one launch over every packet, equal to
+   _hier_cull on the card bit for bit (ids, counts, keys, swept ids),
+   timed with CUDA events beside _hier_cull's time and its operations
+   bound (from its per-packet counters), with its cycles per packet.
 4. Reference phase: a 64x48 render of the 2k-triangle mesh scene through
    the kernels on the card against the plain versions on the CPU, per
    sample with the boundary-flip allowance of the CPU tests.
@@ -323,6 +329,17 @@ TF32_MACS_PER_SM = 1024   # dense TF32 multiply-adds per SM and cycle
 # work, counted in the kernel sources
 SWEEP_PAIR_OPS = 41     # one ray x triangle plane test (cluster_sweep.cu)
 SLAB_OPS = 23           # one ray x box slab test
+HIER_A_OPS = 84         # hierarchical cull stage A, one cluster x octant
+                        # group: three interval axes of 4 subtractions, 8
+                        # products, 14 min / max, and 4 merges and 2 more
+                        # (cluster_hier_cull.cu)
+HIER_A_NRM_OPS = 24     # ... with normal bounds: 12 products, 9 min, 2
+                        # sums, a compare
+HIER_KEY_OPS = 6        # ... per cluster: its key, liveness and packing
+HIER_B_OPS = 29         # stage B, one ray x live candidate: the slab's 22,
+                        # the entry, liveness, the masked minimum
+HIER_B_NRM_OPS = 13     # ... with normal bounds: 6 products, 3 min, 2
+                        # sums, a compare, an and
 TRI_TEST_OPS = 43       # one edge-matrix ray x triangle test (packet_bvh.cu)
 EPI_PAIR_OPS = 20       # one lane x triangle of the probe epilogue
 DOT_OUT_OPS = 9         # one output of the fp32 probe product a rep: an
@@ -669,7 +686,8 @@ def kernel_phase(sc, cam, dev):
         args, 'pathtracer_tpu/ops/pallas_cluster.py:885', 1)
     log(f'shadow sweep: occluded share of hit lanes '
         f'{float(occ_k[:n0][hit].float().mean()):.3f}')
-    return [rec_c, rec_a]
+    rec_h = hier_phase(sc, org_l, dir_l, tmax0, t_k, tri_k, dev)
+    return [rec_c, rec_a, rec_h]
 
 
 def reference_phase():
@@ -718,6 +736,7 @@ def main_path(sc, cam, card, profile=False):
     r = pt.Renderer(sc, cam, cfg)
     cl.cluster_sweep.launches = 0
     cl.cluster_sweep_any.launches = 0
+    cl.hier_cull.launches = 0
     r.step()                                    # warm-up wave
     torch.cuda.synchronize()
     rays0 = r.rays_traced
@@ -729,7 +748,8 @@ def main_path(sc, cam, card, profile=False):
     stop.record()
     torch.cuda.synchronize()
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
-                'cluster_sweep_any': cl.cluster_sweep_any.launches}
+                'cluster_sweep_any': cl.cluster_sweep_any.launches,
+                'hier_cull': cl.hier_cull.launches}
     ms_wave = [start.elapsed_time(stop) / 2]
     live = r.rays_traced - rays0
     for _ in range(2):                          # two more calls, one wave each
@@ -908,7 +928,8 @@ def mesh_grad(sc, cam, card):
     fwd(base)                                   # warm-up
     leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
     sweeps = {'cluster_sweep_closest': cl.cluster_sweep,
-              'cluster_sweep_any': cl.cluster_sweep_any}
+              'cluster_sweep_any': cl.cluster_sweep_any,
+              'hier_cull': cl.hier_cull}
     for f in sweeps.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1134,6 +1155,129 @@ def cull_set(cm, org, dirn, tmax, name):
         f'{rep["chunks"]:.1f} 32-ray chunks tested (against '
         f'{16 * rep["inner"]["mean"]:.1f} for all 512 lanes at every node)')
     return rep
+
+
+def hier_set(cm, org, dirn, tmax, nrm, name):
+    """The hierarchical cull on one ray set's first round (every packet of
+    the 2.4M-triangle mesh): kernel against _hier_cull on the card bit for
+    bit in ids, counts, keys and swept ids (the plain version in
+    CHUNK_PACKETS chunks, as the rounds ran it before the kernel), the
+    kernel's counters, its time by CUDA events and the plain version's, and
+    its operations bound (stage A's cluster x group intervals, stage B's ray
+    x live candidate slabs, from the counters).  Returns a dict of the
+    numbers."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    dev = org.device
+    o, d, tm, _ = cl._prepare(cm, org, dirn, tmax, None)
+    tx = cl.root_exit_clamp(cm.bounds, o, d, tm)
+    nb = o.shape[0] // cl.BLOCK
+    c = cm.n_clusters
+    work = torch.zeros((nb, cl.HIER_WORK), dtype=torch.int64, device=dev)
+    before = cl.hier_cull.launches
+    out_k = cl.hier_cull(cm.bounds, o, d, tx, nrm=nrm, work=work)
+    if cl.hier_cull.launches != before + 1:
+        raise AssertionError('hier_cull did not launch its kernel once')
+
+    def plain():
+        outs = [cl._hier_cull(cm.bounds, o[sl], d[sl], tx[sl], nrm=nrm)
+                for sl in cl._chunks(o.shape[0])]
+        return tuple(torch.cat(x) for x in zip(*outs))
+
+    out_p = plain()
+    torch.cuda.synchronize()
+    for a, b, what in zip(out_k, out_p, ('ids', 'counts', 'keys', 'swept')):
+        if not same_bits(a, b):
+            bad = int((a.view(torch.int32) != b.view(torch.int32))
+                      .view(nb, -1).any(dim=1).sum())
+            raise AssertionError(f'hier_cull {what} differ from _hier_cull '
+                                 f'on {bad} packets ({name})')
+    ms_k = cuda_ms(lambda: cl.hier_cull(cm.bounds, o, d, tx, nrm=nrm),
+                   reps=5)
+    ms_p = cuda_ms(plain, reps=1, warm=False)
+    w = work.double()
+    a_ops = HIER_A_OPS + (HIER_A_NRM_OPS if nrm is not None else 0)
+    b_ops = HIER_B_OPS + (HIER_B_NRM_OPS if nrm is not None else 0)
+    ops = int(w[:, 0].sum() * c * a_ops + (w[:, 0] > 0).sum() * c
+              * HIER_KEY_OPS + w[:, 2].sum() * cl.BLOCK * b_ops)
+    kk = min(c, cl.CAND_FACTOR * cl.MAXC)
+    nbytes = (nb * cl.BLOCK * 28 + c * (24 if nrm is None else 48)
+              + nb * (8 * cl.MAXC + 4 + 4 * (kk + cl.MAXC)))
+    b_ms, b_by = bound(ops, nbytes)
+    counts = out_k[1][:, 0]
+    cyc = w[:, 3].sum()
+    rep = dict(packets=nb, clusters=c, nrm=nrm is not None, ms=ms_k,
+               plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, ops=ops,
+               bytes=nbytes, overflowed=int((counts > cl.MAXC).sum()),
+               groups_mean=float(w[:, 0].mean()),
+               live_clusters_mean=float(w[:, 1].mean()),
+               live_candidates_mean=float(w[:, 2].mean()),
+               cycles=share_report(w[:, 3]),
+               stage_a_share=float(w[:, 4].sum() / cyc),
+               stage_b_share=float(w[:, 5].sum() / cyc),
+               count=share_report(counts))
+    log(f'hier cull, {name}: {nb} packets x {c} clusters, backface bound '
+        f'{"on" if nrm is not None else "off"}, {rep["overflowed"]} '
+        f'overflowed; equal to _hier_cull on the card (ids, counts, keys, '
+        f'swept ids); kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms, bound '
+        f'{b_ms:.4f} ms ({b_by}, {ops:.4g} operations)')
+    log(f'  per packet: octant groups {rep["groups_mean"]:.2f}, stage-A-live '
+        f'clusters {rep["live_clusters_mean"]:.1f}, live candidates '
+        f'{rep["live_candidates_mean"]:.1f}; cycles mean '
+        f'{rep["cycles"]["mean"]:.0f} p99 {rep["cycles"]["p99"]:.0f} max '
+        f'{rep["cycles"]["max"]:.0f}, heaviest 1% '
+        f'{rep["cycles"]["top1_share"]:.3f}; cycles to stage A\'s sort end '
+        f'{rep["stage_a_share"]:.3f}, stage B {rep["stage_b_share"]:.3f}, '
+        f'the emission the rest')
+    return rep
+
+
+def face_normals(cm):
+    """The BVH-ordered triangles' cross(u, v) as a (nx, ny, nz) namespace
+    on the card, which bounce_rays reads as a soup's."""
+    import types
+    import torch
+    tri = cm.host_tris.astype(np.float64)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    dev = cm.ctab.device
+    return types.SimpleNamespace(**{
+        k: torch.as_tensor(n[:, i].astype(np.float32), device=dev)
+        for i, k in enumerate(('nx', 'ny', 'nz'))})
+
+
+def hier_phase(sc, org_l, dir_l, tmax0, t, tri, dev):
+    """hier_set on the main path's 1080p primaries and on one bounce of
+    their hits (mesh space), each with the backface bound off (the
+    benchmark's cell) and on.  Returns the kernel record."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster as cl
+    cm = sc.meshes[0].clustered
+    info = {k: cl.hier_cull_kernel_info(cm.n_clusters, nrm=k)
+            for k in (False, True)}
+    log(f'hier cull kernel on {cm.n_clusters} clusters (registers, resident '
+        f'blocks per SM, shared bytes, threads): without normal bounds '
+        f'{info[False]}, with {info[True]}')
+    n0 = org_l.shape[0]
+    prim = {k: hier_set(cm, org_l, dir_l, tmax0, cm.nrm if k else None,
+                        f'1080p primaries{" (backface)" if k else ""}')
+            for k in (False, True)}
+    b_org, b_dir = bounce_rays(org_l, dir_l, t[:n0], tri[:n0],
+                               face_normals(cm), seed=5)
+    b_max = torch.full((b_org.shape[0],), BIG_T, device=dev)
+    bnc = {k: hier_set(cm, b_org, b_dir, b_max, cm.nrm if k else None,
+                       f'one bounce ({b_org.shape[0]} rays)'
+                       f'{" (backface)" if k else ""}')
+           for k in (False, True)}
+    p, b = prim[False], bnc[False]
+    return entry(
+        'hier_cull', 'pathtracer_tpu_torch/csrc/cluster_hier_cull.cu',
+        'pathtracer_tpu/ops/pallas_cluster.py:1258 (XLA code; no '
+        'pallas_call)', 0.0, 1.0, p['ms'], p['plain_ms'], p['ops'],
+        p['bytes'], primaries=p, bounce=b, primaries_backface=prim[True],
+        bounce_backface=bnc[True], ms_bounce=b['ms'],
+        plain_ms_bounce=b['plain_ms'], bound_ms_bounce=b['bound_ms'],
+        registers=info[False][0], blocks_per_sm=info[False][1],
+        threads=info[False][3])
 
 
 def heavy_cycles(key, cyc):
@@ -2426,6 +2570,7 @@ def material_main(sc, cam, card, profile):
     torch.cuda.synchronize()
     cl.cluster_sweep.launches = 0
     cl.cluster_sweep_any.launches = 0
+    cl.hier_cull.launches = 0
     scn.CUTOUT_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -2434,7 +2579,8 @@ def material_main(sc, cam, card, profile):
     finally:
         log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
-                'cluster_sweep_any': cl.cluster_sweep_any.launches}
+                'cluster_sweep_any': cl.cluster_sweep_any.launches,
+                'hier_cull': cl.hier_cull.launches}
     live = r.rays_traced - rays0
     split = busy = n_kern = profile_s = None
     if profile:
@@ -2448,8 +2594,8 @@ def material_main(sc, cam, card, profile):
     if not region.std() > 0.05 or not region.mean() > 0.02:
         raise AssertionError(f'scene M mesh region not lit: mean '
                              f'{region.mean():.4f} std {region.std():.4f}')
-    for name, k in launches.items():
-        if k <= 0:
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+        if launches[name] <= 0:
             raise AssertionError(f'{name} never launched on scene M')
     queries = len(log_rounds) / MAT_WAVES
     per_round = collections.defaultdict(list)
@@ -2862,7 +3008,8 @@ def wrappers():
     from pathtracer_tpu_torch.ops import sweep_micro as sm
     return {'cluster_sweep_closest': (cl, 'cluster_sweep'),
             'cluster_sweep_any': (cl, 'cluster_sweep_any'),
-            'cull_tree': (cl, 'cull_tree'), 'packet_hit': (pb, 'packet_hit'),
+            'cull_tree': (cl, 'cull_tree'), 'hier_cull': (cl, 'hier_cull'),
+            'packet_hit': (pb, 'packet_hit'),
             **{a: (sm, a) for a in ('dot_fp32', 'dot_tf32', 'epilogue',
                                     'edgemat')},
             'sweep_ablate': (sa, 'sweep_ablate')}
@@ -4258,7 +4405,7 @@ def train_step_phase(sc, cam, card):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     fwd, rec = split[0]
-    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any', 'hier_cull'):
         if fwd[name] <= 0 or rec[name] <= 0:
             raise AssertionError(f'train step: {name} launched {fwd[name]} '
                                  f'times in forward, {rec[name]} in the '
@@ -4644,6 +4791,7 @@ def build_kernels():
     logs = {}
     loaders = {'cluster_sweep': cl.load_kernels,
                'cluster_cull': cl.load_cull_kernel,
+               'cluster_hier_cull': cl.load_hier_cull_kernel,
                'packet_bvh': pb.load_kernels,
                'sweep_micro': sm.load_kernels,
                'sweep_ablate': sa.load_kernels}

@@ -110,13 +110,13 @@ def nvcc_path() -> str:
     return shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
 
 
-def build_cuda(name: str, log=None) -> str:
+def build_cuda(name: str, log=None, extra=()) -> str:
     """Compile ``csrc/<name>.cu`` with nvcc for sm_90a into
     ``_build/lib<name>.so`` (once; kept while newer than the source and
-    every ``csrc/*.cuh`` header).  `log` receives the compiler's output
-    (the ptxas register and shared-memory report).  Returns the library
-    path."""
+    every ``csrc/*.cuh`` header), with NVCC_FLAGS and then `extra`.  `log`
+    receives the compiler's output (the ptxas register and shared-memory
+    report).  Returns the library path."""
     csrc = os.path.join(PKG_DIR, 'csrc')
     return build_shared(os.path.join(csrc, name + '.cu'), f'lib{name}.so',
-                        [nvcc_path()] + NVCC_FLAGS, log=log,
+                        [nvcc_path()] + NVCC_FLAGS + list(extra), log=log,
                         deps=sorted(glob.glob(os.path.join(csrc, '*.cuh'))))

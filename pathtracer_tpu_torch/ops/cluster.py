@@ -20,14 +20,19 @@ the same; the layouts are the port's own.
   Phase 1 (`cluster_cull`): per BLOCK-ray packet, the clusters some lane
   enters, sorted near-first by packet-min slab entry, at most MAXC of
   them, with `count > MAXC` flagging an incomplete emission whose keys
-  stay lower bounds.  Up to DENSE_CULL_MAX clusters it is torch code
-  (`_dense_cull` below HIER_MIN_CLUSTERS clusters, `_hier_cull` above),
-  optionally with per-cluster unit-normal bounds that cull clusters
-  entirely back-facing (exact on closed opaque meshes, rays from
-  outside).  Above DENSE_CULL_MAX a hand-written CUDA kernel walks the top
-  BVH over the cluster AABBs (`cull_tree`; csrc/cluster_cull.cu, which
-  replaces pallas_cluster._cull_kernel), with `cull_tree_plain` the same
-  function as an exact rectangle for CPU tensors.
+  stay lower bounds.  Up to DENSE_CULL_MAX clusters: below
+  HIER_MIN_CLUSTERS the exact dense rectangle in torch (`_dense_cull`),
+  above it the two-stage hierarchical cull, a hand-written CUDA kernel
+  launched once per round over every packet (`hier_cull`;
+  csrc/cluster_hier_cull.cu, in place of the XLA code of
+  pallas_cluster._hier_cull), with `_hier_cull` the same function in torch
+  for CPU tensors; both optionally with per-cluster unit-normal bounds
+  that cull clusters entirely back-facing (exact on closed opaque meshes,
+  rays from outside).  Above DENSE_CULL_MAX a hand-written CUDA kernel
+  walks the top BVH over the cluster AABBs (`cull_tree`;
+  csrc/cluster_cull.cu, which replaces pallas_cluster._cull_kernel), with
+  `cull_tree_plain` the same function as an exact rectangle for CPU
+  tensors.
 
   Phase 2, a hand-written CUDA kernel per query (`cluster_sweep`,
   `cluster_sweep_any`; csrc/cluster_sweep.cu): one launch per round over
@@ -44,8 +49,9 @@ the same; the layouts are the port's own.
   DENSE_CULL_MAX clusters): a packet that overflowed re-culls with its
   merged per-lane best t and an exclusion mask of the clusters already
   swept, MAXC at a time, until no lane is residual — at most
-  ceil(C / MAXC) rounds, and no hit is dropped.  Each round culls in
-  CHUNK_PACKETS chunks and sweeps all its packets in one launch.
+  ceil(C / MAXC) rounds, and no hit is dropped.  Each round culls all its
+  packets (torch code in CHUNK_PACKETS chunks) and sweeps them in one
+  launch.
 
   Tree tier (`two_level_hit` above DENSE_CULL_MAX, or exhaustive=False):
   one cull + sweep round, then `refine_rounds` re-culls of the packets
@@ -61,10 +67,10 @@ Gradients: none through a hit query.  The Pallas kernels carry no VJP, so
 in JAX hit ids and distances are constants of the estimator; the CUDA
 kernels return tensors without a gradient, and their plain versions are
 torch code that autograd would differentiate.  So `cull_tree`,
-`cluster_sweep` and `cluster_sweep_any` (and packet_bvh.packet_hit) raise
-on either device when a ray input requires grad (device.refuse_grad).
-With material and light leaves no ray does: the integrator detaches its
-sampled direction.
+`hier_cull`, `cluster_sweep` and `cluster_sweep_any` (and
+packet_bvh.packet_hit) raise on either device when a ray input requires
+grad (device.refuse_grad).  With material and light leaves no ray does:
+the integrator detaches its sampled direction.
 """
 
 from __future__ import annotations
@@ -108,6 +114,11 @@ CULL_WORK = 7           # tree cull counters per packet: inner nodes
                         # count); kernel only: clock64 cycles in all, to
                         # stage the rays, and of the walk; 32-ray chunks
                         # tested (32 rays x 2 slab tests each)
+HIER_WORK = 6           # hierarchical cull kernel counters per packet:
+                        # octant groups holding a live lane, stage-A-live
+                        # clusters, live candidates (stage B's exact
+                        # tests: these x 512 rays); clock64 cycles in all,
+                        # to the end of stage A's sort, and of stage B
 
 # the JAX package's packed layout (pallas_cluster.py:141-156), read by
 # `from_tpu_arrays`
@@ -663,12 +674,13 @@ def _hier_cull(bounds, org, dirn, tmax, maxc: int = MAXC, exclude=None,
 
 
 def _cull(cm: ClusteredMesh, org, dirn, tmax, nrm=None, exclude=None):
-    """Dense-tier cull: hierarchical above HIER_MIN_CLUSTERS, the exact
-    rectangle below.  4th output: the ids a windowed round marks swept."""
+    """Dense-tier cull: hierarchical above HIER_MIN_CLUSTERS (`hier_cull`:
+    the kernel on the card, _hier_cull on the CPU), the exact rectangle
+    below.  4th output: the ids a windowed round marks swept."""
     with profiling.span('pt.cull', packets=org.shape[0] // BLOCK):
         if cm.n_clusters > HIER_MIN_CLUSTERS:
-            return _hier_cull(cm.bounds, org, dirn, tmax, exclude=exclude,
-                              nrm=nrm)
+            return hier_cull(cm.bounds, org, dirn, tmax, exclude=exclude,
+                             nrm=nrm)
         ids, counts, keys = _dense_cull(cm.bounds, org, dirn, tmax,
                                         exclude=exclude, nrm=nrm)
         return ids, counts, keys, ids
@@ -725,9 +737,8 @@ def cull_tree_plain(cm: ClusteredMesh, org, dirn, tmax, work=None):
 def cluster_cull(cm: ClusteredMesh, org, dirn, tmax):
     """Phase 1 without the backface cull (pallas_cluster.cluster_cull):
     (ids (nb, MAXC) int32 near-first, -1 padded; count (nb, 1) int32;
-    keys (nb, MAXC) f32).  Up to DENSE_CULL_MAX clusters the torch culls
-    (hierarchical above HIER_MIN_CLUSTERS, exact dense below), in
-    CHUNK_PACKETS chunks; above it the tree cull."""
+    keys (nb, MAXC) f32).  Up to DENSE_CULL_MAX clusters the dense-tier
+    culls (_cull_all); above it the tree cull."""
     if cm.n_clusters > DENSE_CULL_MAX:
         return cull_tree(cm, org, dirn, tmax)
     return _cull_all(cm, org, dirn, tmax, None)[:3]
@@ -957,8 +968,9 @@ def _group(group):
 
 
 # ---------------------------------------------------------------------------
-# Hand-written CUDA kernels: the sweeps (csrc/cluster_sweep.cu) and the
-# tree cull (csrc/cluster_cull.cu)
+# Hand-written CUDA kernels: the sweeps (csrc/cluster_sweep.cu), the
+# tree cull (csrc/cluster_cull.cu) and the hierarchical cull
+# (csrc/cluster_hier_cull.cu)
 # ---------------------------------------------------------------------------
 
 _libs = {}
@@ -1084,6 +1096,145 @@ def _cull_tree(cm, org, dirn, tmax, work):
 
 
 cull_tree.launches = 0
+
+
+def load_hier_cull_kernel(log=None) -> ctypes.CDLL:
+    """Build csrc/cluster_hier_cull.cu for sm_90a (once) and load it.  It
+    links the shared CUDA runtime, the one torch loads, so that the
+    profiler records its launch as a runtime call (_hier_cull_launch); the
+    generated code is that of the static runtime the other libraries
+    link."""
+    if 'hier' not in _libs:
+        lib = ctypes.CDLL(device.build_cuda('cluster_hier_cull', log=log,
+                                            extra=('-cudart', 'shared')))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.cluster_hier_cull.argtypes = [ptr, i32, ptr, i32, ptr,
+                                          ctypes.c_longlong] + [ptr] * 3 \
+            + [i32, i32] + [ptr] * 6
+        lib.cluster_hier_cull.restype = i32
+        lib.cluster_hier_cull_info.argtypes = [i32, i32, i32, ptr]
+        lib.cluster_hier_cull_info.restype = i32
+        _libs['hier'] = lib
+    return _libs['hier']
+
+
+def hier_cull_kernel_info(n_clusters: int, nrm: bool = False) -> tuple:
+    """(registers per thread, resident blocks per SM, shared bytes per
+    block, threads per block) of the hierarchical cull kernel for this
+    many clusters, with or without normal bounds, from the CUDA
+    runtime."""
+    buf = (ctypes.c_int * 4)()
+    rc = load_hier_cull_kernel().cluster_hier_cull_info(n_clusters,
+                                                        int(nrm), 0, buf)
+    if rc != 0:
+        raise RuntimeError(f'cluster_hier_cull_info failed: CUDA error {rc}')
+    return tuple(buf)
+
+
+def _rows_arg(x, name, dev, dtype, shape):
+    """Raise unless `x` is a `dtype` tensor of `shape` on `dev` whose rows
+    are contiguous (a view of wider rows, as ClusteredMesh.bounds, is
+    taken with its row stride)."""
+    if (not isinstance(x, torch.Tensor) or x.device != dev or x.dtype != dtype
+            or tuple(x.shape) != shape or (x.numel() and x.stride(1) != 1)):
+        raise ValueError(f'hier_cull {name} must be a {dtype} tensor of '
+                         f'shape {shape} with contiguous rows on {dev}')
+
+
+def hier_cull(bounds, org, dirn, tmax, exclude=None, nrm=None, work=None):
+    """Hierarchical cull of nb = N / BLOCK packets, _hier_cull's function
+    at MAXC: (ids (nb, MAXC) int32, count (nb, 1) int32, keys (nb, MAXC)
+    f32, the ids a windowed round marks swept (nb, min(C, CAND_FACTOR *
+    MAXC) + MAXC) int32).  `bounds` (C, 6) and `nrm` (C, 6) f32, `exclude`
+    (nb, C) bool, each with contiguous rows; 1 <= C <= DENSE_CULL_MAX.
+    The arguments are checked on every device; then CPU tensors take
+    _hier_cull and CUDA tensors launch the hand-written kernel
+    (csrc/cluster_hier_cull.cu; the JAX package leaves this cull to XLA,
+    pallas_cluster._hier_cull) once over every packet, or raise.  `work`
+    ((nb, HIER_WORK) int64, CUDA only), optional: the kernel writes each
+    packet's counters there (see HIER_WORK)."""
+    device.refuse_grad('hier_cull', org, dirn, tmax)
+    dev = org.device
+    n = org.shape[0]
+    nb = n // BLOCK
+    f32 = torch.float32
+    for x, name in ((org, 'org'), (dirn, 'dirn'), (tmax, 'tmax')):
+        if x.device != dev or x.dtype != f32 or not x.is_contiguous():
+            raise ValueError(f'hier_cull {name} must be a contiguous float32 '
+                             f'tensor on {dev}')
+    if n % BLOCK or org.shape != (n, 3) or dirn.shape != (n, 3) \
+            or tmax.shape != (n,):
+        raise ValueError('hier_cull takes whole packets of rays')
+    c = bounds.shape[0] if isinstance(bounds, torch.Tensor) else 0
+    if not 1 <= c <= DENSE_CULL_MAX:
+        raise ValueError(f'hier_cull takes 1 to {DENSE_CULL_MAX} clusters, '
+                         f'got {c}')
+    _rows_arg(bounds, 'bounds', dev, f32, (c, 6))
+    if nrm is not None:
+        _rows_arg(nrm, 'nrm', dev, f32, (c, 6))
+    if exclude is not None:
+        _rows_arg(exclude, 'exclude', dev, torch.bool, (nb, c))
+    if work is not None and (
+            dev.type != 'cuda' or work.device != dev
+            or work.dtype != torch.int64 or not work.is_contiguous()
+            or tuple(work.shape) != (nb, HIER_WORK)):
+        raise ValueError(f'hier_cull work must be a contiguous (nb, '
+                         f'{HIER_WORK}) int64 tensor beside CUDA rays: the '
+                         f'counters are the kernel\'s')
+    if dev.type == 'cpu':
+        return _hier_cull(bounds, org, dirn, tmax, exclude=exclude, nrm=nrm)
+    if dev.type != 'cuda':
+        raise ValueError(f'hier_cull takes CUDA or CPU tensors, got {dev}')
+    i32 = torch.int32
+    ids = torch.empty((nb, MAXC), dtype=i32, device=dev)
+    count = torch.empty((nb, 1), dtype=i32, device=dev)
+    keys = torch.empty((nb, MAXC), dtype=f32, device=dev)
+    swept = torch.empty((nb, min(c, CAND_FACTOR * MAXC) + MAXC), dtype=i32,
+                        device=dev)
+    if nb == 0:
+        return ids, count, keys, swept
+    torch.ops.pathtracer_tpu_torch.hier_cull_launch(
+        bounds, nrm, exclude, org, dirn, tmax, ids, count, keys, swept, work)
+    hier_cull.launches += 1
+    return ids, count, keys, swept
+
+
+hier_cull.launches = 0
+
+
+def _hier_cull_launch(bounds, nrm, exclude, org, dirn, tmax, ids, count,
+                      keys, swept, work):
+    """hier_cull's launch on checked arguments, the CUDA kernel of the
+    torch operator `pathtracer_tpu_torch::hier_cull_launch`: the profiler
+    links a kernel to the operator that launched it, and through it to
+    the host ranges around it (the benchmark's 'cull' label), as it links
+    torch's own kernels; a bare ctypes call belongs to no operator.  The
+    library links the shared CUDA runtime, so the launch is a runtime
+    call the profiler records."""
+    rc = load_hier_cull_kernel().cluster_hier_cull(
+        bounds.data_ptr(), bounds.stride(0),
+        0 if nrm is None else nrm.data_ptr(),
+        0 if nrm is None else nrm.stride(0),
+        0 if exclude is None else exclude.data_ptr(),
+        0 if exclude is None else exclude.stride(0),
+        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), ids.shape[0],
+        bounds.shape[0], ids.data_ptr(), count.data_ptr(), keys.data_ptr(),
+        swept.data_ptr(), 0 if work is None else work.data_ptr(),
+        torch.cuda.current_stream(org.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'cluster_hier_cull launch failed: CUDA error '
+                           f'{rc}')
+
+
+# the operator, defined once per process (torch.library.custom_op would do
+# the same but imports the compiler stack at its first call, seconds of
+# set-up)
+_OPS = torch.library.Library('pathtracer_tpu_torch', 'DEF')
+_OPS.define('hier_cull_launch(Tensor bounds, Tensor? nrm, Tensor? exclude, '
+            'Tensor org, Tensor dirn, Tensor tmax, Tensor(a!) ids, '
+            'Tensor(b!) count, Tensor(c!) keys, Tensor(d!) swept, '
+            'Tensor(e!)? work) -> ()')
+_OPS.impl('hier_cull_launch', _hier_cull_launch, 'CUDA')
 
 
 def heaviest_first(counts, group):
@@ -1246,9 +1397,13 @@ def _packet_rows(x, p):
 
 
 def _cull_all(cm, o, d, tm, nrm, exclude=None):
-    """_cull over CHUNK_PACKETS chunks (each chunk bounds the cull's
-    rectangles), concatenated into one table over every packet, so that
-    a round sweeps all its packets in one launch."""
+    """_cull over every packet of a round, so that the round sweeps all
+    its packets in one launch.  On the card above HIER_MIN_CLUSTERS that
+    is one hier_cull launch; torch code (the CPU, the exact dense
+    rectangle) runs over CHUNK_PACKETS chunks, each bounding the cull's
+    rectangles, and concatenates them."""
+    if o.device.type == 'cuda' and cm.n_clusters > HIER_MIN_CLUSTERS:
+        return _cull(cm, o, d, tm, nrm, exclude=exclude)
     outs = []
     for sl in _chunks(o.shape[0]):
         ex = None if exclude is None else \

@@ -535,6 +535,163 @@ def test_tree_tier_matches_cpu_plain_path(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
+# ---- the hierarchical cull kernel (csrc/cluster_hier_cull.cu) ----
+
+def _hier_boxes(c, seed):
+    """c random cluster boxes in [-10, 10]^3 (every 7th a copy of the one
+    before it: equal keys) and their normal bounds, as (C, 12) rows whose
+    first six columns are the boxes (the layout of ClusteredMesh.ctab)."""
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform(-10.0, 10.0, (c, 3))
+    half = rng.uniform(0.2, 1.5, (c, 3))
+    box = np.concatenate([ctr - half, ctr + half], 1)
+    box[7::7] = box[6:-1:7][:box[7::7].shape[0]]
+    n = rng.normal(size=(c, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    w = rng.uniform(0.0, 1.2, (c, 1))
+    nrm = np.concatenate([np.clip(n - w, -1, 1), np.clip(n + w, -1, 1)], 1)
+    rows = np.concatenate([box, np.zeros((c, 6))], 1)
+    return rows.astype(np.float32), nrm.astype(np.float32)
+
+
+def _hier_rays(box, seed):
+    """Packets of every kind the cull meets: camera-like (coherent, one
+    octant), incoherent from outside (overflowing), one shared origin
+    inside the boxes (entry-0 ties), origins on boxes' upper x faces
+    heading into them (-0 slab entries), directions with zero components,
+    every 37th lane dead; then a half packet, padded by _pad_rays to a
+    whole one with a dead packet after it."""
+    rng = np.random.default_rng(seed)
+    o, d = [], []
+    for s in (0.02, 0.3):
+        o.append(np.tile([0.0, 0.0, 40.0], (tc.BLOCK, 1)))
+        d.append(np.stack([rng.uniform(-s, s, tc.BLOCK),
+                           rng.uniform(-s, s, tc.BLOCK),
+                           -np.ones(tc.BLOCK)], 1))
+    for _ in range(2):
+        p = rng.normal(size=(tc.BLOCK, 3))
+        o.append(14.0 * p / np.linalg.norm(p, axis=1, keepdims=True))
+        d.append(rng.normal(size=(tc.BLOCK, 3)))
+    o.append(np.tile(rng.uniform(-2.0, 2.0, 3), (tc.BLOCK, 1)))
+    d.append(rng.normal(size=(tc.BLOCK, 3)))
+    j = rng.integers(0, box.shape[0], tc.BLOCK)
+    lo, hi = box[j, 0:3], box[j, 3:6]
+    o.append(np.stack([hi[:, 0], rng.uniform(lo[:, 1], hi[:, 1]),
+                       rng.uniform(lo[:, 2], hi[:, 2])], 1))
+    d.append(np.stack([-np.ones(tc.BLOCK), rng.uniform(-0.2, 0.2, tc.BLOCK),
+                       rng.uniform(-0.2, 0.2, tc.BLOCK)], 1))
+    z = np.zeros((tc.BLOCK, 3))
+    z[:, 2] = -1.0
+    z[1::3, 0] = rng.uniform(-0.3, 0.3, z[1::3].shape[0])
+    z[2::3, 1] = rng.uniform(-0.3, 0.3, z[2::3].shape[0])
+    o.append(np.stack([rng.uniform(-9, 9, tc.BLOCK),
+                       rng.uniform(-9, 9, tc.BLOCK),
+                       np.full(tc.BLOCK, 30.0)], 1))
+    d.append(z)
+    p = rng.normal(size=(tc.BLOCK // 2, 3))
+    o.append(12.0 * p / np.linalg.norm(p, axis=1, keepdims=True))
+    d.append(rng.normal(size=(tc.BLOCK // 2, 3)))
+    o = np.concatenate(o).astype(np.float32)
+    d = np.concatenate(d)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.full(o.shape[0], BIG_T, np.float32)
+    tmax[::37] = -1.0
+    org, dirn, tmax, _ = tc._pad_rays(
+        *(torch.as_tensor(x) for x in (o, d, tmax, np.zeros_like(tmax))),
+        -(-o.shape[0] // tc.BLOCK) * tc.BLOCK + tc.BLOCK)
+    return org, dirn, tmax
+
+
+def _assert_same_bits(out_k, out_p):
+    """Kernel and plain outputs equal bit for bit (-0.0 is not +0.0)."""
+    for a, b, what in zip(out_k, out_p, ('ids', 'count', 'keys', 'swept')):
+        assert a.shape == b.shape and a.dtype == b.dtype, what
+        bad = a.view(torch.int32) != b.view(torch.int32)
+        assert not bool(bad.any()), (
+            f'{what} differ on packets '
+            f'{bad.view(a.shape[0], -1).any(dim=1).nonzero()[:, 0].tolist()}')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('scene', ['boxes257', 'mesh', 'boxes1729',
+                                   'boxes8192', 'boxes8193', 'boxes16384'])
+@pytest.mark.parametrize('with_nrm', [False, True])
+@pytest.mark.parametrize('with_exclude', [False, True])
+def test_hier_cull_matches_plain(cuda, scene, with_nrm, with_exclude):
+    """The kernel against _hier_cull on the same CUDA tensors, bit for
+    bit in ids, count, keys and the swept ids, on both sides of the 8,192
+    index-bit boundary up to DENSE_CULL_MAX, with and without normal
+    bounds and an exclusion mask (a view of a windowed round's C + 1
+    columns), on every packet kind of _hier_rays."""
+    if scene == 'mesh':
+        cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=cuda)
+        bounds, nrm = cm.bounds, cm.nrm
+        host = cm.ctab.cpu().numpy()
+    else:
+        host, nrm = _hier_boxes(int(scene[5:]), seed=len(scene))
+        rows = torch.as_tensor(host, device=cuda)
+        bounds, nrm = rows[:, 0:6], torch.as_tensor(nrm, device=cuda)
+    c = bounds.shape[0]
+    assert tc.HIER_MIN_CLUSTERS < c <= tc.DENSE_CULL_MAX
+    o, d, tm = (x.to(cuda) for x in _hier_rays(host, seed=c))
+    nb = o.shape[0] // tc.BLOCK
+    ex = None
+    if with_exclude:
+        mask = torch.as_tensor(np.random.default_rng(c).uniform(
+            size=(nb, c + 1)) < 0.2, device=cuda)
+        ex = mask[:, :-1]
+    kw = dict(exclude=ex, nrm=nrm if with_nrm else None)
+    before = tc.hier_cull.launches
+    out_k = tc.hier_cull(bounds, o, d, tm, **kw)
+    assert tc.hier_cull.launches == before + 1
+    out_p = tc._hier_cull(bounds, o, d, tm, **kw)
+    torch.cuda.synchronize()
+    _assert_same_bits(out_k, out_p)
+    ids, count, keys, _ = out_p
+    assert bool((count[-1] == 0).all())               # the dead packet
+    assert bool((count[:-2] > 0).any())
+    if not with_exclude and not with_nrm:
+        assert bool((count > tc.MAXC).any())          # the count clamp
+    live = keys[:, 1:] < BIG_T
+    assert bool(((keys[:, 1:] == keys[:, :-1]) & live).any())   # ties
+
+
+@pytest.mark.gpu
+def test_hier_cull_rounds_match_plain(cuda, monkeypatch):
+    """Through two_level_hit / two_level_any, every cull of the windowed
+    rounds (exclusion masks of the swept clusters) equals _hier_cull on
+    its inputs, and the queries' results equal the CPU plain path's."""
+    tri = _sphere(200)
+    o, d = _rays(6 * tc.BLOCK, seed=21)
+    n = o.shape[0]
+    tmax = torch.full((n,), BIG_T)
+    lim = torch.as_tensor(np.random.default_rng(22).uniform(2.0, 40.0, n)
+                          .astype(np.float32))
+    calls = []
+    orig = tc.hier_cull
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        if a[1].is_cuda:
+            calls.append((out, tc._hier_cull(*a, **k)))
+        return out
+
+    rec.launches = 0             # the wrapper counts on the module's name
+    monkeypatch.setattr(tc, 'hier_cull', rec)
+    res = {}
+    for dev in (cuda, torch.device('cpu')):
+        cm = tc.build_clustered(tri, tris_c=tc.SUBT, dev=dev)
+        res[dev.type] = [x.cpu() for x in (
+            *tc.two_level_hit(cm, o.to(dev), d.to(dev), tmax.to(dev),
+                              backface_cull=True),
+            tc.two_level_any(cm, o.to(dev), d.to(dev), lim.to(dev)))]
+    assert len(calls) >= 4                            # windowed rounds
+    for out_k, out_p in calls:
+        _assert_same_bits(out_k, out_p)
+    for a, b in zip(res['cuda'], res['cpu']):
+        assert torch.equal(a, b)
+
+
 # ---- the sweep's cost probes (ops/sweep_micro.py, ops/sweep_ablate.py) ----
 
 def _probe_inputs(cuda, m, n, seed):

@@ -326,7 +326,7 @@ def test_no_gradient_reaches_a_hit_query(mesh, monkeypatch, tier):
 
 
 @pytest.mark.parametrize('query', ['cluster_sweep', 'cluster_sweep_any',
-                                   'cull_tree', 'packet_hit'])
+                                   'cull_tree', 'hier_cull', 'packet_hit'])
 def test_hit_query_refuses_a_ray_that_requires_grad(query):
     """A ray that carries a gradient into a hit query raises on the CPU
     route as on the card, naming the missing detach."""
@@ -346,6 +346,8 @@ def test_hit_query_refuses_a_ray_that_requires_grad(query):
             cm = tc.build_clustered(tri, dev='cpu')
             if query == 'cull_tree':
                 tc.cull_tree(cm, org, dirn, tmax)
+            elif query == 'hier_cull':
+                tc.hier_cull(cm.bounds, org, dirn, tmax, nrm=cm.nrm)
             else:
                 ids = torch.zeros((1, tc.MAXC), dtype=torch.int32)
                 counts = torch.ones((1, 1), dtype=torch.int32)
