@@ -979,9 +979,12 @@ _libs = {}
 def load_kernels(log=None) -> ctypes.CDLL:
     """Build csrc/cluster_sweep.cu with nvcc for sm_90a (once, into the
     build directory) and load it.  `log` receives the compiler's output
-    (ptxas register and shared-memory report)."""
+    (ptxas register and shared-memory report).  It links the shared CUDA
+    runtime, as load_hier_cull_kernel does, so that the profiler records
+    each sweep's launch inside its operator (_sweep_launch)."""
     if 'sweep' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('cluster_sweep', log=log))
+        lib = ctypes.CDLL(device.build_cuda('cluster_sweep', log=log,
+                                            extra=('-cudart', 'shared')))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         common = [ptr] * 7 + [i32] + [ptr] * 5
         lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, ptr, i32,
@@ -1311,14 +1314,8 @@ def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
                         order, stats)
     t = torch.empty_like(tmax)
     tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
-    rc = load_kernels().cluster_sweep_closest(
-        *_ptrs(args[:7]), cm.n_sub, *_ptrs(args[7:]), t.data_ptr(),
-        tri.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        args[-1].shape[0], group,
-        torch.cuda.current_stream(org.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_sweep_closest launch failed: CUDA '
-                           f'error {rc}')
+    torch.ops.pathtracer_tpu_torch.cluster_sweep_launch(
+        *args, cm.n_sub, group, t, tri, stats)
     cluster_sweep.launches += 1
     return t, tri
 
@@ -1341,17 +1338,54 @@ def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin,
     args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
                         order, stats)
     occ = torch.empty(tmax.shape, dtype=torch.bool, device=org.device)
-    rc = load_kernels().cluster_sweep_any(
-        *_ptrs(args[:7]), cm.n_sub, *_ptrs(args[7:]), occ.data_ptr(),
-        0 if stats is None else stats.data_ptr(), args[-1].shape[0], group,
-        torch.cuda.current_stream(org.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_sweep_any launch failed: CUDA error {rc}')
+    torch.ops.pathtracer_tpu_torch.cluster_sweep_any_launch(
+        *args, cm.n_sub, group, occ, stats)
     cluster_sweep_any.launches += 1
     return occ
 
 
 cluster_sweep_any.launches = 0
+
+
+def _sweep_launch(ids, counts, keys, planes, ctab, starts, sub_bounds, org,
+                  dirn, tmax, tmin, order, n_sub, group, t, tri, stats):
+    """cluster_sweep's launch on checked arguments, the CUDA kernel of the
+    operator `pathtracer_tpu_torch::cluster_sweep_launch`: as
+    _hier_cull_launch, so that the profiler links the kernel to the
+    operator and through it to the spans around it."""
+    rc = load_kernels().cluster_sweep_closest(
+        *_ptrs((ids, counts, keys, planes, ctab, starts, sub_bounds)), n_sub,
+        *_ptrs((org, dirn, tmax, tmin, order, t, tri)),
+        0 if stats is None else stats.data_ptr(), order.shape[0], group,
+        torch.cuda.current_stream(org.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'cluster_sweep_closest launch failed: CUDA '
+                           f'error {rc}')
+
+
+def _sweep_any_launch(ids, counts, keys, planes, ctab, starts, sub_bounds,
+                      org, dirn, tmax, tmin, order, n_sub, group, occ, stats):
+    """cluster_sweep_any's launch on checked arguments, the CUDA kernel of
+    the operator `pathtracer_tpu_torch::cluster_sweep_any_launch`."""
+    rc = load_kernels().cluster_sweep_any(
+        *_ptrs((ids, counts, keys, planes, ctab, starts, sub_bounds)), n_sub,
+        *_ptrs((org, dirn, tmax, tmin, order, occ)),
+        0 if stats is None else stats.data_ptr(), order.shape[0], group,
+        torch.cuda.current_stream(org.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'cluster_sweep_any launch failed: CUDA error {rc}')
+
+
+_SWEEP_INPUTS = ('Tensor ids, Tensor counts, Tensor keys, Tensor planes, '
+                 'Tensor ctab, Tensor starts, Tensor sub_bounds, Tensor org, '
+                 'Tensor dirn, Tensor tmax, Tensor tmin, Tensor order, '
+                 'int n_sub, int group')
+_OPS.define(f'cluster_sweep_launch({_SWEEP_INPUTS}, Tensor(a!) t, '
+            f'Tensor(b!) tri, Tensor(c!)? stats) -> ()')
+_OPS.impl('cluster_sweep_launch', _sweep_launch, 'CUDA')
+_OPS.define(f'cluster_sweep_any_launch({_SWEEP_INPUTS}, Tensor(a!) occ, '
+            f'Tensor(b!)? stats) -> ()')
+_OPS.impl('cluster_sweep_any_launch', _sweep_any_launch, 'CUDA')
 
 
 # ---------------------------------------------------------------------------
@@ -1416,9 +1450,10 @@ def _closest_rounds(cm, o, d, tx, tn, nrm):
     """Cull + sweep, then exhaustive windowed rounds over the packets that
     still hold residual lanes (pallas_cluster._two_level_exec dense_chunk;
     rounds on packets without residual lanes cannot change any lane).
-    Each round culls in CHUNK_PACKETS chunks and sweeps all its packets in
-    one launch; packets are independent, so results equal chunk-by-chunk
-    sweeping."""
+    Each round culls all its packets as _cull_all does (on the card above
+    HIER_MIN_CLUSTERS one hier_cull launch, else CHUNK_PACKETS chunks) and
+    sweeps them in one launch; packets are independent, so results equal
+    chunk-by-chunk culling and sweeping."""
     nb = o.shape[0] // BLOCK
     with profiling.span('pt.round', packets=nb):
         ids, counts, keys, cand = _cull_all(cm, o, d, tx, nrm)

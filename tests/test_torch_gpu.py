@@ -13,7 +13,9 @@ product's FMAs each once, as sweep_micro.fma_rn states them, the same
 bits on the card as on the CPU), so the sweeps and the
 tree cull must agree with their plain versions exactly: same t, same tri,
 same occlusion, the same per-unit sweep counters at each lane group
-size, the same tree cull ids, counts, keys and per-packet counters.  The
+size, the same tree cull ids, counts, keys and per-packet counters; the
+sweeps launch through torch operators, so the profiler links each of
+their kernels to the range around its launch.  The
 packet kernel equals its own walk stated in torch (packet_walk_plain) bit
 for bit, per-ray counters included; against the brute-force plain
 version a ray grazing a leaf box may differ: tri equal on >= 99.9% of
@@ -158,9 +160,10 @@ def _group_workload(dev):
 @pytest.mark.gpu
 @pytest.mark.parametrize('group', sorted({tc.SWEEP_GROUP, tc.BLOCK}))
 def test_grouped_sweeps_match_plain(cuda, group):
-    """Both sweeps at the chosen lane group and at 512: outputs equal to
-    the plain version's, and every unit's counters (slots visited,
-    clusters entered, subtile slab tests, subtiles swept) too."""
+    """Both sweeps, through their operators, at the chosen lane group and
+    at 512: outputs equal to the plain version's, and every unit's
+    counters (slots visited, clusters entered, subtile slab tests,
+    subtiles swept) too."""
     cm, args = _group_workload(cuda)
     ids, counts, keys, o, d, tx, tmin = args
     nu = ids.shape[0] * (tc.BLOCK // group)
@@ -200,6 +203,55 @@ def test_sweep_order_does_not_change_results(cuda):
     a = tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin)
     b = tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, order=ident)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _sweep_ns(prof, label):
+    """(device ns of the `sweep_kernel` launches by name, of those the
+    profiler links to an operator that started inside `label`'s range,
+    their count), read from the raw events as the benchmark reads them."""
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges, launch, kern = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cpu and e.linked_correlation_id() == 0:
+            if e.name() == label:
+                ranges.append((e.start_ns(), e.end_ns()))
+            else:
+                launch[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == dev and 'sweep_kernel' in e.name():
+            kern.append((e.end_ns() - e.start_ns(),
+                         launch.get(e.linked_correlation_id())))
+    linked = sum(ns for ns, t in kern
+                 if t is not None and any(a <= t <= b for a, b in ranges))
+    return sum(ns for ns, _ in kern), linked, len(kern)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('group', sorted({tc.SWEEP_GROUP, tc.BLOCK}))
+def test_sweep_operators_own_their_device_time(cuda, group):
+    """Both sweeps launch through their torch operators (whose outputs
+    test_grouped_sweeps_match_plain holds to the plain versions): one
+    launch each, as `.launches` counts, and under torch.profiler each
+    kernel linked to its operator inside a record_function range, so
+    that the range's linked time equals the kernels' time by name."""
+    from torch.profiler import ProfilerActivity, profile
+    cm, (ids, counts, keys, o, d, tx, tmin) = _group_workload(cuda)
+    nu = ids.shape[0] * (tc.BLOCK // group)
+    st = torch.zeros((nu, tc.STATS), dtype=torch.int64, device=cuda)
+    tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, group=group)
+    before = (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function('sweeps'):
+            tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin,
+                             group=group, stats=st)
+            tc.cluster_sweep_any(cm, ids, counts, keys, o, d, tx, tmin,
+                                 group=group)
+        torch.cuda.synchronize()
+    assert (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches) == (
+        before[0] + 1, before[1] + 1)
+    named, linked, n = _sweep_ns(prof, 'sweeps')
+    assert n == 2 and named > 0 and linked == named
 
 
 @pytest.mark.gpu
