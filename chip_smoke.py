@@ -14,6 +14,18 @@ run stays well inside its time limit.
 2. Builds the hand-written CUDA kernels (csrc/*.cu, one nvcc process per
    source, all started together) and prints the build time and the ptxas
    reports.
+   Then the PCG phase (pcg_phase): the PCG32 kernel (csrc/pcg_draw.cu)
+   on one 1080p sample pass of lanes, seed, gated draw and gated pair
+   bit-equal to core/rng.py's plain versions (also at an odd count),
+   each timed over PCG_REPS bare launches beside its bytes bound
+   (PCG_DRAW_BYTES, PCG_PAIR_BYTES, PCG_SEED_BYTES a lane), the
+   wrapper's time a call and the plain chain's; then one 1080p flagship
+   sample pass with the draw calls and launches counted (counted_draws:
+   one launch a call, no plain call) and its film bit-equal to the plain
+   draws' (plain_draws).  The kernel's one counter
+   (ops/pcg_draw.pcg_draw.launches, seed and draws) is read with the
+   other kernels' on the main path and on every later phase, and each
+   phase that renders asserts that it launched.
 3. Kernel phase: the bench's 2.4M-triangle displaced sphere, 1080p primary
    rays and one batch of shadow rays from their hits to the light, culled
    as the first round of the main path (4,050 packets).  Prints each sweep
@@ -346,6 +358,11 @@ DOT_OUT_OPS = 9         # one output of the fp32 probe product a rep: an
                         # FMUL, seven FFMAs (one instruction each) and an FADD
 DOT_ROW_OPS = 8         # one row's shifts x + i*eps a rep (sweep_micro.cu)
 EDGE_PAIR_OPS = 41      # one probe edge-matrix test (sweep_micro.cu)
+PCG_DRAW_BYTES = 53     # a gated draw a lane: four int64 halves and the
+                        # gate read, two halves and a float32 written
+PCG_PAIR_BYTES = 57     # a gated pair: one float32 more (csrc/pcg_draw.cu)
+PCG_SEED_BYTES = 48     # make_stream: two key halves read, four written
+PCG_REPS = 200          # timed back-to-back launches of the PCG kernel
 RADIANCE = 196964.7     # the gradient loss's scale (tests/test_gradients.py)
 DESCENT_TARGET = [0.8, 0.3, 0.2]   # g_kd of the descent's target image
 DESCENT_LR = 1.0
@@ -731,12 +748,14 @@ def main_path(sc, cam, card, profile=False):
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     cfg = pt.RenderConfig(width=W, height=H, nrays=8, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
     cl.cluster_sweep.launches = 0
     cl.cluster_sweep_any.launches = 0
     cl.hier_cull.launches = 0
+    pcg.pcg_draw.launches = 0
     r.step()                                    # warm-up wave
     torch.cuda.synchronize()
     rays0 = r.rays_traced
@@ -749,7 +768,8 @@ def main_path(sc, cam, card, profile=False):
     torch.cuda.synchronize()
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
                 'cluster_sweep_any': cl.cluster_sweep_any.launches,
-                'hier_cull': cl.hier_cull.launches}
+                'hier_cull': cl.hier_cull.launches,
+                'pcg_draw': pcg.pcg_draw.launches}
     ms_wave = [start.elapsed_time(stop) / 2]
     live = r.rays_traced - rays0
     for _ in range(2):                          # two more calls, one wave each
@@ -908,6 +928,7 @@ def mesh_grad(sc, cam, card):
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
     from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     dev = sc.device
     cfg = pt.RenderConfig(width=W, height=H, nrays=2, nb_bounces=BOUNCES,
                           compact_rays=True, remat_samples=True)
@@ -929,7 +950,7 @@ def mesh_grad(sc, cam, card):
     leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
     sweeps = {'cluster_sweep_closest': cl.cluster_sweep,
               'cluster_sweep_any': cl.cluster_sweep_any,
-              'hier_cull': cl.hier_cull}
+              'hier_cull': cl.hier_cull, 'pcg_draw': pcg.pcg_draw}
     for f in sweeps.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2562,6 +2583,7 @@ def material_main(sc, cam, card, profile):
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.ops import cluster as cl
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     from pathtracer_tpu_torch.scene import scene as scn
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
@@ -2571,6 +2593,7 @@ def material_main(sc, cam, card, profile):
     cl.cluster_sweep.launches = 0
     cl.cluster_sweep_any.launches = 0
     cl.hier_cull.launches = 0
+    pcg.pcg_draw.launches = 0
     scn.CUTOUT_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -2580,7 +2603,8 @@ def material_main(sc, cam, card, profile):
         log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
     launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
                 'cluster_sweep_any': cl.cluster_sweep_any.launches,
-                'hier_cull': cl.hier_cull.launches}
+                'hier_cull': cl.hier_cull.launches,
+                'pcg_draw': pcg.pcg_draw.launches}
     live = r.rays_traced - rays0
     split = busy = n_kern = profile_s = None
     if profile:
@@ -2594,7 +2618,8 @@ def material_main(sc, cam, card, profile):
     if not region.std() > 0.05 or not region.mean() > 0.02:
         raise AssertionError(f'scene M mesh region not lit: mean '
                              f'{region.mean():.4f} std {region.std():.4f}')
-    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any',
+                 'pcg_draw'):
         if launches[name] <= 0:
             raise AssertionError(f'{name} never launched on scene M')
     queries = len(log_rounds) / MAT_WAVES
@@ -3004,6 +3029,7 @@ def wrappers():
     recorder may stand in for the wrapper."""
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     from pathtracer_tpu_torch.ops import sweep_ablate as sa
     from pathtracer_tpu_torch.ops import sweep_micro as sm
     return {'cluster_sweep_closest': (cl, 'cluster_sweep'),
@@ -3012,7 +3038,8 @@ def wrappers():
             'packet_hit': (pb, 'packet_hit'),
             **{a: (sm, a) for a in ('dot_fp32', 'dot_tf32', 'epilogue',
                                     'edgemat')},
-            'sweep_ablate': (sa, 'sweep_ablate')}
+            'sweep_ablate': (sa, 'sweep_ablate'),
+            'pcg_draw': (pcg, 'pcg_draw')}
 
 
 def reset_counts():
@@ -3062,7 +3089,8 @@ def media_main(sc, cam, card, profile):
     if not region.std() > 0.01 or not region.mean() > 0.02:
         raise AssertionError(f'scene O mesh region not lit: mean '
                              f'{region.mean():.4f} std {region.std():.4f}')
-    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any',
+                 'pcg_draw'):
         if launches[name] <= 0:
             raise AssertionError(f'{name} never launched on scene O')
     if not log_m or not fog_c:
@@ -3545,7 +3573,8 @@ def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
                 or not region.mean() > 0.0:
             raise AssertionError(f'the CLI render failed: rc {rc}, image '
                                  f'{img.shape}')
-        for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+        for name in ('cluster_sweep_closest', 'cluster_sweep_any',
+                     'pcg_draw'):
             if launches[name] <= 0:
                 raise AssertionError(f'{name} never launched by the CLI')
         r = rec['renderers'][0]
@@ -3987,7 +4016,8 @@ def fluid_waves(sc, cam, card, waves, what, profile=False):
     region = img[int(H * 0.2):int(H * 0.6), int(W * 0.35):int(W * 0.65)]
     if not region.mean() > 0.02 or not region.std() > 0.01:
         raise AssertionError(f'{what}: the fluid region is not lit')
-    for name in ('cluster_sweep_closest', 'cluster_sweep_any'):
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any',
+                 'pcg_draw'):
         if launches[name] <= 0:
             raise AssertionError(f'{name} never launched on {what}')
     if not sweeps:
@@ -4405,7 +4435,8 @@ def train_step_phase(sc, cam, card):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     fwd, rec = split[0]
-    for name in ('cluster_sweep_closest', 'cluster_sweep_any', 'hier_cull'):
+    for name in ('cluster_sweep_closest', 'cluster_sweep_any', 'hier_cull',
+                 'pcg_draw'):
         if fwd[name] <= 0 or rec[name] <= 0:
             raise AssertionError(f'train step: {name} launched {fwd[name]} '
                                  f'times in forward, {rec[name]} in the '
@@ -4534,7 +4565,8 @@ def scene_rank(inputs, mesh, what):
     coll_ms = 1e3 * sum(sec for _, sec, _ in coll)
     out = dict(image=img.cpu().numpy(), count=cnt.cpu().numpy(), ms=ms,
                closest=n['cluster_sweep_closest'],
-               any=n['cluster_sweep_any'], held=held['held'],
+               any=n['cluster_sweep_any'], pcg_draw=n['pcg_draw'],
+               held=held['held'],
                collective_ms=coll_ms, collectives=len(coll),
                collective_bytes=sum(b for _, _, b in coll),
                run_packets=route['run_packets'],
@@ -4564,7 +4596,8 @@ def rank_numbers(outs, kind):
             raise AssertionError(f'{kind} rank {r}: sweeps {o["closest"]} + '
                                  f'{o["any"]}, {o["held"]} held')
         rec = dict(ms=float(o['ms']), closest=int(o['closest']),
-                   any=int(o['any']), collective_ms=float(o['collective_ms']),
+                   any=int(o['any']), pcg_draw=int(o['pcg_draw']),
+                   collective_ms=float(o['collective_ms']),
                    collectives=int(o['collectives']),
                    collective_bytes=int(o['collective_bytes']))
         if kind == 'routed':
@@ -4782,10 +4815,188 @@ def train_phase(sc, cam, card):
                  routed_scene_axis=rep_c2, kpcn=rep_d, seconds=steps))
 
 
+DRAWS = ('make_stream', 'next_uniform', 'next_uniform2')
+
+
+@contextlib.contextmanager
+def counted_draws():
+    """Count the calls of core/rng.py's three draw wrappers and of their
+    plain versions while it stands: yields a Counter by name."""
+    from pathtracer_tpu_torch.core import rng as prng
+    calls = collections.Counter()
+    origs = {n: getattr(prng, n) for n in DRAWS + tuple(
+        f'{d}_plain' for d in DRAWS)}
+
+    def stand_in(name, fn):
+        def f(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return f
+
+    for n, fn in origs.items():
+        setattr(prng, n, stand_in(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in origs.items():
+            setattr(prng, n, fn)
+
+
+@contextlib.contextmanager
+def plain_draws():
+    """core/rng.py's three draw wrappers replaced by their plain versions
+    while it stands (the torch chain on any device)."""
+    from pathtracer_tpu_torch.core import rng as prng
+    origs = {n: getattr(prng, n) for n in DRAWS}
+    for n in DRAWS:
+        setattr(prng, n, getattr(prng, f'{n}_plain'))
+    try:
+        yield
+    finally:
+        for n, fn in origs.items():
+            setattr(prng, n, fn)
+
+
+def pcg_inputs(n, dev, seed=0):
+    """Keys of n lanes as the camera makes them for one sample ((seed,
+    lane * 64 + 3), 64 spp, sample 3) and a gate with about half its
+    lanes True, from a seeded generator on `dev`."""
+    import torch
+    key_lo = torch.arange(n, dtype=torch.int64, device=dev) * 64 + 3
+    key_hi = torch.full_like(key_lo, seed & 0xFFFFFFFF)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gate = torch.rand(n, generator=gen, device=dev) < 0.5
+    return key_hi, key_lo, gate
+
+
+def pcg_check(key_hi, key_lo, gate):
+    """The kernel's seed, gated draw and gated pair against the plain
+    versions on the same inputs: True when every half and uniform has the
+    same bits."""
+    import torch
+    from pathtracer_tpu_torch.core import rng as prng
+    st = prng.make_stream(key_hi, key_lo)
+    ok = all(torch.equal(a, b) for a, b in
+             zip(st, prng.make_stream_plain(key_hi, key_lo)))
+    for fn, plain in ((prng.next_uniform, prng.next_uniform_plain),
+                      (prng.next_uniform2, prng.next_uniform2_plain)):
+        k, p = fn(st, gate), plain(st, gate)
+        ok = ok and same_bits(k[:-1], p[:-1]) and all(
+            torch.equal(a, b) for a, b in zip(k[-1], p[-1]))
+    return ok
+
+
+def pcg_kernel_ms(lib, fn, args, n, dev):
+    """Milliseconds a launch of the PCG kernel's C entry `fn` on `args`
+    (tensors or None) and n lanes, over PCG_REPS launches straight
+    through ctypes (no wrapper, so the host enqueues faster than the card
+    runs them)."""
+    import torch
+    ptrs = [0 if a is None else a.data_ptr() for a in args]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    call = getattr(lib, fn)
+
+    def run():
+        for _ in range(PCG_REPS):
+            if call(*ptrs, n, stream) != 0:
+                raise RuntimeError(f'{fn} launch failed')
+
+    return cuda_ms(run) / PCG_REPS
+
+
+def pcg_phase(dev, cam, card):
+    """The PCG32 kernel (csrc/pcg_draw.cu, core/rng.py) on one 1080p
+    sample pass of lanes: bit-equal to the plain versions, timed per
+    launch beside its bytes bound and the plain chain, the wrappers' own
+    time per call; then one sample pass of the flagship at 1080p with the
+    draw calls and launches counted (engagement) and its film bit-equal
+    to the plain draws'.  Returns the kernel record."""
+    import torch
+    from pathtracer_tpu_torch.core import rng as prng
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
+    from pathtracer_tpu_torch.render import renderer as rnd
+    n = W * H
+    key_hi, key_lo, gate = pcg_inputs(n, dev, seed=7)
+    agree = pcg_check(key_hi, key_lo, gate)
+    odd = pcg_check(*pcg_inputs(n - 1, dev, seed=8))
+    if not (agree and odd):
+        raise AssertionError('the PCG kernel differs from its plain version')
+    st = prng.make_stream(key_hi, key_lo)
+    out = [torch.empty_like(key_hi) for _ in range(4)]
+    u = [torch.empty(n, device=dev) for _ in range(2)]
+    lib = pcg.load_kernel()
+    ms = {'draw': pcg_kernel_ms(lib, 'pcg_draw', list(st) + [gate] + out[:2]
+                                + [u[0], None], n, dev),
+          'pair': pcg_kernel_ms(lib, 'pcg_draw', list(st) + [gate] + out[:2]
+                                + u, n, dev),
+          'seed': pcg_kernel_ms(lib, 'pcg_seed', [key_hi, key_lo] + out, n,
+                                dev)}
+    call_ms = {'draw': cuda_ms(lambda: prng.next_uniform(st, gate),
+                               reps=PCG_REPS),
+               'pair': cuda_ms(lambda: prng.next_uniform2(st, gate),
+                               reps=PCG_REPS),
+               'seed': cuda_ms(lambda: prng.make_stream(key_hi, key_lo),
+                               reps=PCG_REPS)}
+    plain_ms = {'draw': cuda_ms(lambda: prng.next_uniform_plain(st, gate),
+                                reps=5),
+                'pair': cuda_ms(lambda: prng.next_uniform2_plain(st, gate),
+                                reps=5),
+                'seed': cuda_ms(lambda: prng.make_stream_plain(key_hi,
+                                                               key_lo),
+                                reps=5)}
+    nbytes = {'draw': PCG_DRAW_BYTES * n, 'pair': PCG_PAIR_BYTES * n,
+              'seed': PCG_SEED_BYTES * n}
+    bound_ms = {k: bound(0, b)[0] for k, b in nbytes.items()}
+    sc = flagship_scene(dev)
+    cfg = rnd.RenderConfig(width=W, height=H, nrays=64, nb_bounces=BOUNCES,
+                           samples_per_wave=1, tile_size=0)
+    r = rnd.Renderer(sc, cam, cfg)
+    r.step()                                    # warm-up
+    torch.cuda.synchronize()
+    with counted_draws() as calls:
+        before = pcg.pcg_draw.launches
+        r.step()
+        torch.cuda.synchronize()
+        launched = pcg.pcg_draw.launches - before
+    wrapper_calls = sum(calls[d] for d in DRAWS)
+    plain_calls = sum(calls[f'{d}_plain'] for d in DRAWS)
+    r_p = rnd.Renderer(sc, cam, cfg)
+    with plain_draws():
+        r_p.step(2)
+    film_equal = same_bits((r.image, r.sample_count),
+                           (r_p.image, r_p.sample_count))
+    if launched != wrapper_calls or plain_calls or not film_equal:
+        raise AssertionError(f'PCG engagement: {launched} launches for '
+                             f'{wrapper_calls} draw calls, {plain_calls} '
+                             f'plain calls, film equal {film_equal}')
+    for k in ms:
+        log(f'PCG {k} at {n} lanes: kernel {ms[k] * 1e3:.2f} us a launch '
+            f'(bound {bound_ms[k] * 1e3:.2f} us, {nbytes[k] / n:.0f} B a '
+            f'lane at {PEAK_BYTES:.3g} B/s: {bound_ms[k] / ms[k]:.1%}), '
+            f'{call_ms[k] * 1e3:.2f} us a wrapper call, plain chain '
+            f'{plain_ms[k] * 1e3:.1f} us ({card})')
+    log(f'PCG engagement, one 1080p flagship sample pass: {launched} '
+        f'launches for {wrapper_calls} draw calls ({dict(calls)}), '
+        f'{plain_calls} plain calls; film bit-equal to the plain draws\' '
+        f'{film_equal}; bit-equal at {n} and {n - 1} lanes')
+    rec = entry(
+        'pcg_draw', 'pathtracer_tpu_torch/csrc/pcg_draw.cu',
+        'none: XLA code, pathtracer_tpu/core/rng.py (no pallas_call)', 0.0,
+        1.0, ms['draw'], plain_ms['draw'], 0, nbytes['draw'],
+        lanes=n, ms_pair=ms['pair'], ms_seed=ms['seed'],
+        plain_ms_pair=plain_ms['pair'], plain_ms_seed=plain_ms['seed'],
+        bound_ms_pair=bound_ms['pair'], bound_ms_seed=bound_ms['seed'],
+        call_ms=call_ms, launches_per_sample_pass=launched,
+        draw_calls_per_sample_pass=wrapper_calls, plain_calls=plain_calls,
+        engagement=launched / wrapper_calls, film_equal=film_equal)
+    return rec
+
+
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import packet_bvh as pb
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     from pathtracer_tpu_torch.ops import sweep_ablate as sa
     from pathtracer_tpu_torch.ops import sweep_micro as sm
     logs = {}
@@ -4794,7 +5005,8 @@ def build_kernels():
                'cluster_hier_cull': cl.load_hier_cull_kernel,
                'packet_bvh': pb.load_kernels,
                'sweep_micro': sm.load_kernels,
-               'sweep_ablate': sa.load_kernels}
+               'sweep_ablate': sa.load_kernels,
+               'pcg_draw': pcg.load_kernel}
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         futs = [ex.submit(fn, log=lambda m, k=k: logs.setdefault(k, m))
                 for k, fn in loaders.items()]
@@ -4837,12 +5049,15 @@ def main():
 
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(dev)
     t0 = time.perf_counter()
+    pcg = pcg_phase(dev, cam, card)
+    log(f'PCG phase {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
     sc, n_tris = big_scene(dev)
     log(f'scene build {time.perf_counter() - t0:.1f} s: {n_tris} tris, '
         f'{sc.meshes[0].n_clusters} clusters, backface cull '
         f'{sc.meshes[0].backface_cull}')
     t0 = time.perf_counter()
-    kernels = kernel_phase(sc, cam, dev)
+    kernels = kernel_phase(sc, cam, dev) + [pcg]
     log(f'kernel phase {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
     reference_phase()

@@ -10,12 +10,23 @@ back to 32 bits.
 
 State is the tuple ``(s_hi, s_lo, inc_hi, inc_lo)``.  Uniforms follow the
 reference convention ``u = out * (1/(2^32-1))`` in float32.
+
+Routes: ``make_stream``, ``next_uniform`` and ``next_uniform2`` check their
+arguments (int64 halves and a bool gate, contiguous, of one shape, on one
+device) on every device.  CPU tensors then take the plain versions
+(``make_stream_plain``, ``next_uniform_plain``, ``next_uniform2_plain``:
+the limb code below, about 75 int64 torch ops a draw); CUDA tensors launch
+the hand-written kernel csrc/pcg_draw.cu once a call, through
+ops/pcg_draw.py, or raise.  The kernel equals the plain versions bit for
+bit in state and uniforms.  ops/pcg_draw.py counts its launches.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import pcg_draw as pcg
 
 M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -76,7 +87,7 @@ def _xsh_rr(s_hi, s_lo):
     return (xs >> rot) | ((xs << ((32 - rot) & 31)) & M32)
 
 
-def make_stream(key_hi, key_lo):
+def make_stream_plain(key_hi, key_lo):
     """Seed per-lane streams pcg32(initstate=key, initseq=key):
     inc = (key << 1) | 1;  state = bump(key + inc).
 
@@ -98,7 +109,7 @@ def next_uint32(state):
     return out, (n_hi, n_lo, inc_hi, inc_lo)
 
 
-def next_uniform(state, gate=None):
+def next_uniform_plain(state, gate=None):
     """One float32 uniform in [0,1] per lane.  Lanes where `gate` is False
     do not consume the draw: their state is left untouched (data-dependent
     draw counts, as in the JAX package)."""
@@ -110,8 +121,73 @@ def next_uniform(state, gate=None):
     return out.to(torch.float32) * INV_UINT32_MAX, new_state
 
 
-def next_uniform2(state, gate=None):
-    """Two sequential uniforms per lane."""
-    u1, state = next_uniform(state, gate)
-    u2, state = next_uniform(state, gate)
+def next_uniform2_plain(state, gate=None):
+    """Two sequential uniforms per lane; a lane whose gate is False keeps
+    its state, so its u2 equals its u1."""
+    u1, state = next_uniform_plain(state, gate)
+    u2, state = next_uniform_plain(state, gate)
     return u1, u2, state
+
+
+# ---------------------------------------------------------------------------
+# The routes: CPU tensors take the plain versions above, CUDA tensors the
+# hand-written kernel (csrc/pcg_draw.cu, bound in ops/pcg_draw.py)
+# ---------------------------------------------------------------------------
+
+
+def _route(what, halves, gate=None) -> str:
+    """'cpu' or 'cuda', after checking a call's arguments: `halves` int64
+    tensors of one shape, contiguous, on one device; `gate` None or a bool
+    tensor of their shape, contiguous, on their device.  Raises on anything
+    else."""
+    x0 = halves[0]
+    for x in halves:
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int64
+                or x.device != x0.device or x.shape != x0.shape
+                or not x.is_contiguous()):
+            raise ValueError(f'{what}: the stream halves must be contiguous '
+                             f'int64 tensors of one shape on one device')
+    if gate is not None and (
+            not isinstance(gate, torch.Tensor) or gate.dtype != torch.bool
+            or gate.device != x0.device or gate.shape != x0.shape
+            or not gate.is_contiguous()):
+        raise ValueError(f'{what}: the gate must be a contiguous bool tensor '
+                         f'of the lanes\' shape on their device')
+    if x0.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{what} takes CUDA or CPU tensors, got '
+                         f'{x0.device}')
+    return x0.device.type
+
+
+def make_stream(key_hi, key_lo):
+    """Seed per-lane streams pcg32(initstate=key, initseq=key):
+    inc = (key << 1) | 1;  state = bump(key + inc).
+
+    key_hi, key_lo: int64 tensors holding uint32 values (broadcastable).
+    CPU tensors take make_stream_plain; CUDA tensors launch the kernel."""
+    key_hi, key_lo = (k.contiguous()
+                      for k in torch.broadcast_tensors(key_hi, key_lo))
+    if _route('make_stream', (key_hi, key_lo)) == 'cpu':
+        return make_stream_plain(key_hi, key_lo)
+    return pcg.pcg_seed(key_hi, key_lo)
+
+
+def next_uniform(state, gate=None):
+    """One float32 uniform in [0,1] per lane.  Lanes where `gate` is False
+    do not consume the draw: their state is left untouched (data-dependent
+    draw counts, as in the JAX package).  CPU tensors take
+    next_uniform_plain; CUDA tensors launch the kernel."""
+    if _route('next_uniform', state, gate) == 'cpu':
+        return next_uniform_plain(state, gate)
+    u, _, state = pcg.pcg_draw(state, gate, 1)
+    return u, state
+
+
+def next_uniform2(state, gate=None):
+    """Two sequential uniforms per lane, as two next_uniform calls: a lane
+    whose gate is False keeps its state, so its u2 equals its u1.  CPU
+    tensors take next_uniform2_plain; CUDA tensors launch the kernel
+    once."""
+    if _route('next_uniform2', state, gate) == 'cpu':
+        return next_uniform2_plain(state, gate)
+    return pcg.pcg_draw(state, gate, 2)

@@ -111,10 +111,8 @@ def _camera_paths(cam, cfg: RenderConfig, pix_i, pix_j, k: int, cp_table):
     key_lo = (pix_flat * cfg.nrays + k) & prng.M32
     key_hi = torch.full_like(key_lo, cfg.seed & prng.M32)
     st = prng.make_stream(key_hi, key_lo)
-    u_dx, st = prng.next_uniform(st)
-    u_dy, st = prng.next_uniform(st)
-    u_ax, st = prng.next_uniform(st)
-    u_ay, st = prng.next_uniform(st)
+    u_dx, u_dy, st = prng.next_uniform2(st)
+    u_ax, u_ay, st = prng.next_uniform2(st)
     dx, dy = u_dx - 0.5, u_dy - 0.5
     org, dirn = cam_mod.generate_rays(
         cam, pix_i, pix_j, dx, dy, (u_ax - 0.5) * cam.aperture,

@@ -21,6 +21,7 @@ from pathtracer_tpu_torch.core import camera as tcam
 from pathtracer_tpu_torch.core import qmc as tqmc
 from pathtracer_tpu_torch.core import rng as trng
 from pathtracer_tpu_torch.core import sampling as tsampling
+from pathtracer_tpu_torch.ops import pcg_draw as tpcg
 
 RTOL = 1e-6
 
@@ -90,6 +91,86 @@ def test_gated_uniforms_bit_equal():
     for a, b in zip(js, ts):
         np.testing.assert_array_equal(np.asarray(a).astype(np.int64),
                                       b.numpy())
+
+
+@pytest.mark.parametrize('gate', ['all_false', 'mixed'])
+def test_false_gate_pair_repeats_the_draw(gate):
+    """next_uniform2 with a False gate: the lane keeps its state, so u2
+    equals u1 (the card's kernel states the same rule), as in JAX."""
+    hi, lo = _keys(seed=7)
+    g = (np.zeros(hi.size, bool) if gate == 'all_false'
+         else np.random.default_rng(8).random(hi.size) < 0.5)
+    js = jrng.make_stream(jnp.asarray(hi), jnp.asarray(lo))
+    ts = trng.make_stream(_t(hi), _t(lo))
+    ju1, ju2, js2 = jrng.next_uniform2(js, gate=jnp.asarray(g))
+    tu1, tu2, ts2 = trng.next_uniform2(ts, gate=torch.as_tensor(g))
+    np.testing.assert_array_equal(np.asarray(ju1), tu1.numpy())
+    np.testing.assert_array_equal(np.asarray(ju2), tu2.numpy())
+    off = ~g
+    np.testing.assert_array_equal(tu2.numpy()[off], tu1.numpy()[off])
+    for a, b, before in zip(js2, ts2, ts):
+        np.testing.assert_array_equal(np.asarray(a).astype(np.int64),
+                                      b.numpy())
+        np.testing.assert_array_equal(b.numpy()[off], before.numpy()[off])
+
+
+def test_cpu_tensors_take_the_plain_route():
+    """CPU tensors take the plain versions: the same bits, no launch
+    counted, no kernel built.  The kernel's float constant is 2^-32, the
+    float32 of 1 / (2^32 - 1)."""
+    assert trng.INV_UINT32_MAX == 2.0 ** -32
+    hi, lo = _keys(seed=9)
+    g = torch.as_tensor(np.random.default_rng(10).random(hi.size) < 0.5)
+    before = tpcg.pcg_draw.launches
+    ts = trng.make_stream(_t(hi), _t(lo))
+    ps = trng.make_stream_plain(_t(hi), _t(lo))
+    u, ts = trng.next_uniform(ts, gate=g)
+    pu, ps = trng.next_uniform_plain(ps, gate=g)
+    u1, u2, ts = trng.next_uniform2(ts)
+    pu1, pu2, ps = trng.next_uniform2_plain(ps)
+    for a, b in zip((u, u1, u2) + ts, (pu, pu1, pu2) + ps):
+        assert torch.equal(a, b)
+    assert tpcg.pcg_draw.launches == before == 0
+    assert 'pcg' not in tpcg._libs
+
+
+def _bad_call(case):
+    hi, lo = _keys(n=8)
+    st = trng.make_stream(_t(hi), _t(lo))
+    gate = torch.ones(8, dtype=torch.bool)
+    if case == 'int32':
+        st = (st[0].to(torch.int32),) + st[1:]
+    elif case == 'shape':
+        st = (st[0][:4],) + st[1:]
+    elif case == 'strided':
+        st = (torch.stack([st[0], st[0]], 1)[:, 0],) + st[1:]
+    elif case == 'gate_dtype':
+        gate = gate.to(torch.int64)
+    elif case == 'gate_shape':
+        gate = gate[:4]
+    return st, gate
+
+
+@pytest.mark.parametrize('case,match', [
+    ('int32', 'halves'), ('shape', 'halves'), ('strided', 'halves'),
+    ('gate_dtype', 'gate'), ('gate_shape', 'gate')])
+@pytest.mark.parametrize('fn', ['next_uniform', 'next_uniform2'])
+def test_draws_refuse_what_the_kernel_does_not_take(case, match, fn):
+    """The arguments are checked on every device, so a call the card's
+    kernel would refuse fails on the CPU too."""
+    st, gate = _bad_call(case)
+    with pytest.raises(ValueError, match=match):
+        getattr(trng, fn)(st, gate=gate)
+
+
+def test_make_stream_broadcasts_its_keys():
+    """make_stream broadcasts its keys (then materialises them, as the
+    kernel takes contiguous lanes): a scalar seed beside lane keys."""
+    hi, lo = _keys(n=16)
+    got = trng.make_stream(_t(hi[:1])[0], _t(lo))
+    want = trng.make_stream_plain(_t(np.repeat(hi[:1], 16)), _t(lo))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('ids', [np.arange(64), np.array([0, 1, 2 ** 31,

@@ -56,7 +56,15 @@ agrees with two_level_hit (chip_smoke.agree: tri on >= 99.9% of lanes, at
 most 0.05% hit in one only, t within 1e-5 relative); its tree tier
 launches the tree cull; a routed scene renders on the card like the CPU
 plain path, per sample.
+PCG32 draws (core/rng.py, csrc/pcg_draw.cu): the seed, one draw and a
+pair through the kernel equal the plain chain bit for bit, state and
+uniforms, gated or not, chained, at 2,073,600 and at an odd count of
+lanes; a flagship render and render_unsplatted's samples
+and gradients are the plain draws' bit for bit, with one launch a draw
+call and no plain call.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1522,3 +1530,167 @@ def test_routed_scene_matches_cpu_plain_path(cuda):
     rsc = chip_smoke.routed_scene(sc, cuda, lat=200)
     assert rsc.meshes[0].use_routed and rsc.meshes[0].soup is not None
     assert chip_smoke.card_vs_cpu(rsc, 'routed') < 0.05
+
+
+def _pcg_states(kind, n, dev):
+    """Stream states of n lanes: random 64-bit states and increments
+    ('random'), or seeded by make_stream from camera keys ('keys')."""
+    from pathtracer_tpu_torch.core import rng as prng
+    if kind == 'keys':
+        key_hi, key_lo, _ = chip_smoke.pcg_inputs(n, dev, seed=3)
+        return prng.make_stream_plain(key_hi, key_lo)
+    rng = np.random.default_rng(n)
+    return tuple(torch.as_tensor(rng.integers(0, 2 ** 32, n, dtype=np.int64),
+                                 device=dev) for _ in range(4))
+
+
+def _pcg_gate(kind, n, dev):
+    if kind == 'none':
+        return None
+    if kind == 'random':
+        return chip_smoke.pcg_inputs(n, dev, seed=4)[2]
+    return torch.full((n,), kind == 'true', dtype=torch.bool, device=dev)
+
+
+def _same_draws(k, p):
+    """Uniforms (float32, or None) and state halves of the kernel (k) and
+    the plain version (p) equal bit for bit."""
+    *uk, sk = k
+    *up, sp = p
+    assert len(uk) == len(up)
+    for a, b in zip(uk, up):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(sk, sp):
+        assert a.dtype == b.dtype == torch.int64 and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n', [2_073_600, 1_001])
+@pytest.mark.parametrize('states', ['random', 'keys'])
+@pytest.mark.parametrize('gate', ['none', 'true', 'false', 'random'])
+@pytest.mark.parametrize('pair', [False, True])
+def test_pcg_draws_match_plain(cuda, n, states, gate, pair):
+    """next_uniform / next_uniform2 through the kernel equal the plain
+    chain bit for bit, state and uniforms, over three chained draws, at
+    one 1080p sample pass of lanes and at an odd count."""
+    from pathtracer_tpu_torch.core import rng as prng
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
+    fn, plain = ((prng.next_uniform2, prng.next_uniform2_plain) if pair else
+                 (prng.next_uniform, prng.next_uniform_plain))
+    st = st_p = _pcg_states(states, n, cuda)
+    g = _pcg_gate(gate, n, cuda)
+    before = pcg.pcg_draw.launches
+    for _ in range(3):
+        k, p = fn(st, gate=g), plain(st_p, gate=g)
+        _same_draws(k, p)
+        st, st_p = k[-1], p[-1]
+    assert pcg.pcg_draw.launches - before == 3
+    if pair and gate == 'false':
+        assert torch.equal(k[0], k[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n', [2_073_600, 1_001])
+def test_pcg_seed_matches_plain(cuda, n):
+    """make_stream through the kernel equals the plain chain on camera
+    keys and on keys with every extreme bit pattern; its first draws
+    too."""
+    from pathtracer_tpu_torch.core import rng as prng
+    key_hi, key_lo, _ = chip_smoke.pcg_inputs(n, cuda, seed=5)
+    rng = np.random.default_rng(6)
+    hi = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    lo = rng.integers(0, 2 ** 32, n, dtype=np.int64)
+    hi[:4], lo[:4] = [0, 0, 2 ** 32 - 1, 2 ** 32 - 1], [0, 1, 0, 2 ** 32 - 1]
+    for kh, kl in ((key_hi, key_lo), (torch.as_tensor(hi, device=cuda),
+                                      torch.as_tensor(lo, device=cuda))):
+        st, st_p = prng.make_stream(kh, kl), prng.make_stream_plain(kh, kl)
+        for a, b in zip(st, st_p):
+            assert torch.equal(a, b)
+        _same_draws(prng.next_uniform2(st), prng.next_uniform2_plain(st_p))
+
+
+@pytest.mark.gpu
+def test_pcg_wrappers_refuse_bad_arguments(cuda):
+    """A gate or half off the lanes' device raises before any launch."""
+    from pathtracer_tpu_torch.core import rng as prng
+    st = _pcg_states('random', 64, cuda)
+    with pytest.raises(ValueError, match='gate'):
+        prng.next_uniform(st, gate=torch.ones(64, dtype=torch.bool))
+    with pytest.raises(ValueError, match='halves'):
+        prng.next_uniform2((st[0].cpu(),) + st[1:])
+
+
+def _flagship_step(cuda, plain):
+    """One 64x48 flagship sample pass (3 bounces, no mesh) through the
+    kernel or, with `plain`, the plain draws: (film accumulators, draw
+    calls, kernel launches, plain calls)."""
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
+    sc = chip_smoke.flagship_scene(cuda)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(cuda)
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=4, nb_bounces=3,
+                           samples_per_wave=1)
+    r = rnd.Renderer(sc, cam, cfg)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(chip_smoke.plain_draws())
+        calls = stack.enter_context(chip_smoke.counted_draws())
+        before = pcg.pcg_draw.launches
+        r.step()
+        launched = pcg.pcg_draw.launches - before
+    return ((r.image, r.sample_count), sum(calls[d] for d in
+                                           chip_smoke.DRAWS),
+            launched, sum(calls[f'{d}_plain'] for d in chip_smoke.DRAWS))
+
+
+@pytest.mark.gpu
+def test_pcg_render_is_the_plain_draws_render(cuda):
+    """A flagship sample pass through the kernel gives the plain draws'
+    film bit for bit; it makes 15 draw calls (the seed, two camera pairs,
+    four a bounce), each one launch, and calls no plain version."""
+    film_k, calls, launched, plain_calls = _flagship_step(cuda, False)
+    film_p, calls_p, launched_p, plain_p = _flagship_step(cuda, True)
+    assert chip_smoke.same_bits(film_k, film_p)
+    assert calls == launched == 15 and plain_calls == 0
+    assert launched_p == 0 and plain_p > 0
+
+
+def _flagship_grads(cuda):
+    """render_unsplatted of the 64x48 flagship (2 spp, remat) and its
+    gradient wrt the object table's kd and the light, deterministic
+    algorithms on (the backward's index adds then sum in a fixed
+    order)."""
+    sc = chip_smoke.flagship_scene(cuda)
+    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(cuda)
+    cp = torch.as_tensor(rng_host.random_per_pixel_fast(64, 48), device=cuda)
+    kd = sc.kd.clone().requires_grad_()
+    li = sc.light_intensity.clone().requires_grad_()
+    cfg = rnd.RenderConfig(width=64, height=48, nrays=2, nb_bounces=3,
+                           remat_samples=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mean, samples = rnd.render_unsplatted(
+            sc.replace(kd=kd, light_intensity=li), cam, cp, cfg)
+        grads = torch.autograd.grad(mean.mean(), [kd, li])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return samples.detach(), grads
+
+
+@pytest.mark.gpu
+def test_pcg_gradients_are_the_plain_draws_gradients(cuda):
+    """render_unsplatted's samples and gradients through the kernel equal
+    the plain draws' bit for bit; the forward and the remat recompute
+    launch the kernel once a draw call."""
+    from pathtracer_tpu_torch.ops import pcg_draw as pcg
+    with chip_smoke.counted_draws() as calls:
+        before = pcg.pcg_draw.launches
+        s_k, g_k = _flagship_grads(cuda)
+        launched = pcg.pcg_draw.launches - before
+    with chip_smoke.plain_draws():
+        s_p, g_p = _flagship_grads(cuda)
+    assert chip_smoke.same_bits(s_k, s_p)
+    assert chip_smoke.same_bits(tuple(g_k), tuple(g_p))
+    # the recompute may stop once it has what the backward needs
+    assert launched == sum(calls[d] for d in chip_smoke.DRAWS) > 2 * 15
+    assert not any(calls[f'{d}_plain'] for d in chip_smoke.DRAWS)
