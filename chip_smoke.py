@@ -23,7 +23,7 @@ run stays well inside its time limit.
    sample pass with the draw calls and launches counted (counted_draws:
    one launch a call, no plain call) and its film bit-equal to the plain
    draws' (plain_draws).  The kernel's one counter
-   (ops/pcg_draw.pcg_draw.launches, seed and draws) is read with the
+   (the recorder's pcg_draw.launches, seed and draws) is read with the
    other kernels' on the main path and on every later phase, and each
    phase that renders asserts that it launched.
 3. Kernel phase: the bench's 2.4M-triangle displaced sphere, 1080p primary
@@ -83,8 +83,8 @@ run stays well inside its time limit.
 8. Probe phase: the sweep's cost probes at their full shapes.  The three
    entry points (pathtracer_tpu_torch.scripts.prof_sweep, proto_mxu,
    ablate_sweep; the last on its 1,002,528-triangle terrain, built once)
-   are each driven with the launch counts set to 0 just before and read
-   just after, and each must launch its kernels.  Then every probe kernel
+   are each driven with their launches counted from just before to just
+   after, and each must launch its kernels.  Then every probe kernel
    against its plain version: the fp32 product, the epilogue, the
    edge-matrix test and every ablation variant bit-equal (bits of t,
    tri, beta, gamma), the TF32 product within sweep_micro.TF32_TOL of the
@@ -133,7 +133,7 @@ run stays well inside its time limit.
    reference's allowance); then Renderer at 1920x1080, 3 bounces, 1
    sample per wave, compaction: one warm-up and MAT_WAVES (1) waves timed
    one by one (median, min, max; live rays/s; sweep launches per wave,
-   counts set to 0 before them; the cut-out queries and the lanes entering
+   counted over them; the cut-out queries and the lanes entering
    each round), and, with --profile-all, one wave under torch.profiler
    split into the sweeps, the culls and the texture and env-map lookups
    (record_function ranges put around them by `annotated`) and the rest;
@@ -166,7 +166,7 @@ run stays well inside its time limit.
    --profile-all under torch.profiler, split into the sweeps, the culls,
    the march, the fog and the rest, with the device-busy share);
    MEDIA_WAVES waves timed one by one (median, min, max; live rays/s;
-   every launch count set to 0 before them; closest-hit launches inside
+   every kernel's launches counted over them; closest-hit launches inside
    the march and inside the fog probe; fog probe queries and lanes;
    marches, rounds and the lanes entering each round), the overflow stat
    (must be 0); then autograd of a 320x180x2 spp float64 mean image with
@@ -183,8 +183,8 @@ run stays well inside its time limit.
    back (triangles, keyframes, size) and save_scn of that parses the same.
    Then the headless entry point in process, `cli.main([scene.scn,
    out.hdr, --spp CLI_SPP, --size 1920x1080, --frame 1, --denoise])` (the .scn
-   carries no compaction flag, so it renders without), with every launch
-   count set to 0 just before and read just after (`launches_cli`), each
+   carries no compaction flag, so it renders without), with every
+   kernel's launches counted over it (`launches_cli`), each
    sample timed by CUDA events (sample_timer) with its sweep launches, and
    both sweeps recorded: their first and last launches held against the
    plain versions bit for bit.  On its result: the a-trous denoised
@@ -213,8 +213,8 @@ run stays well inside its time limit.
    named if it bit); the particles kept, inside the extent, the mean
    height falling.  Then the last frame as fluid_pointset(radius=0.2) on
    the clustered tier beside the sphere at 1920x1080, 3 bounces,
-   compaction: one warm-up and FLUID_WAVES timed waves (every launch count
-   set to 0 before and read after, `launches_fluid`; the particle sweeps'
+   compaction: one warm-up and FLUID_WAVES timed waves (every kernel's
+   launches counted over them, `launches_fluid`; the particle sweeps'
    packets, overflows, rerouted lanes and slot steps), the warm-up's
    sweeps recorded and held, one wave under torch.profiler split into the
    particle cull, slot sweeps, reroute, brute sweeps and mesh culls; the
@@ -285,8 +285,8 @@ run stays well inside its time limit.
    1 sample a wave, compaction: a warm-up (its routed queries' run
    packets, padding share and residual lanes from
    routed_cluster.ROUTE_LOG, the net's host-clock time), ROUTED_WAVES
-   timed waves (median; live rays/s; every launch count set to 0 before
-   and read after, `launches_routed`) beside the main path's two-level
+   timed waves (median; live rays/s; every kernel's launches counted over
+   them, `launches_routed`) beside the main path's two-level
    waves, and one 1 spp render_unsplatted of each scene, per sample
    within PERF.md §2's rule.  R3: the tree phase's 3.4M-triangle sphere
    (its host builds from utils/hostcache) through routed_hit and the net
@@ -459,8 +459,8 @@ def sass_loop(lib, key, marker='MUFU.RCP'):
     (`divides` and `per_pair` for MUFU.RCP, `markers` and `per_marker`
     otherwise), the fp32-pipe share and the opcodes, and the body's
     text."""
-    from pathtracer_tpu_torch import device
-    tool = os.path.join(os.path.dirname(device.nvcc_path()), 'cuobjdump')
+    from pathtracer_tpu_torch.ops import binding
+    tool = os.path.join(os.path.dirname(binding.nvcc_path()), 'cuobjdump')
     out = subprocess.run([tool, '-sass', lib], check=True,
                          capture_output=True, text=True, timeout=300).stdout
     funcs = re.split(r'\n\s*Function : ', out)
@@ -747,15 +747,10 @@ def reference_phase():
 def main_path(sc, cam, card, profile=False):
     import torch
     import pathtracer_tpu_torch as pt
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     cfg = pt.RenderConfig(width=W, height=H, nrays=8, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
-    cl.cluster_sweep.launches = 0
-    cl.cluster_sweep_any.launches = 0
-    cl.hier_cull.launches = 0
-    pcg.pcg_draw.launches = 0
+    counted = launch_counts()
     r.step()                                    # warm-up wave
     torch.cuda.synchronize()
     rays0 = r.rays_traced
@@ -766,10 +761,7 @@ def main_path(sc, cam, card, profile=False):
     r.step()
     stop.record()
     torch.cuda.synchronize()
-    launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
-                'cluster_sweep_any': cl.cluster_sweep_any.launches,
-                'hier_cull': cl.hier_cull.launches,
-                'pcg_draw': pcg.pcg_draw.launches}
+    launches = launches_since(counted, RENDER_KERNELS)
     ms_wave = [start.elapsed_time(stop) / 2]
     live = r.rays_traced - rays0
     for _ in range(2):                          # two more calls, one wave each
@@ -927,8 +919,6 @@ def mesh_grad(sc, cam, card):
     import torch
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.core import rng_host
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     dev = sc.device
     cfg = pt.RenderConfig(width=W, height=H, nrays=2, nb_bounces=BOUNCES,
                           compact_rays=True, remat_samples=True)
@@ -948,11 +938,7 @@ def mesh_grad(sc, cam, card):
 
     fwd(base)                                   # warm-up
     leaves = {k: v.clone().requires_grad_() for k, v in base.items()}
-    sweeps = {'cluster_sweep_closest': cl.cluster_sweep,
-              'cluster_sweep_any': cl.cluster_sweep_any,
-              'hier_cull': cl.hier_cull, 'pcg_draw': pcg.pcg_draw}
-    for f in sweeps.values():
-        f.launches = 0
+    counted = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -960,12 +946,13 @@ def mesh_grad(sc, cam, card):
     start.record()
     loss = loss_of(leaves)
     torch.cuda.synchronize()
-    n_fwd = {k: f.launches for k, f in sweeps.items()}
+    n_fwd = launches_since(counted, RENDER_KERNELS)
     grads = dict(zip(leaves, torch.autograd.grad(loss,
                                                  list(leaves.values()))))
     stop.record()
     torch.cuda.synchronize()
-    n_bwd = {k: f.launches - n_fwd[k] for k, f in sweeps.items()}
+    n_bwd = {k: v - n_fwd[k] for k, v in
+             launches_since(counted, RENDER_KERNELS).items()}
     fwd_bwd_ms.append(start.elapsed_time(stop))
     peak = torch.cuda.max_memory_allocated()
     check_grads(grads, 'mesh')
@@ -1195,9 +1182,9 @@ def hier_set(cm, org, dirn, tmax, nrm, name):
     nb = o.shape[0] // cl.BLOCK
     c = cm.n_clusters
     work = torch.zeros((nb, cl.HIER_WORK), dtype=torch.int64, device=dev)
-    before = cl.hier_cull.launches
+    before = launch_counts()
     out_k = cl.hier_cull(cm.bounds, o, d, tx, nrm=nrm, work=work)
-    if cl.hier_cull.launches != before + 1:
+    if launches_since(before)['hier_cull'] != 1:
         raise AssertionError('hier_cull did not launch its kernel once')
 
     def plain():
@@ -1348,14 +1335,14 @@ def tree_phase(dev, cam):
     prim = cull_set(cm, org, dirn, tmax, '1080p primaries')
 
     # ---- the tier end to end, against the dense tier ----
-    cl.cull_tree.launches = 0
+    counted = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     t, tri_id, res = cl.two_level_hit(cm, org, dirn, tmax,
                                       return_residual=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = cl.cull_tree.launches
+    launches = launches_since(counted)['cull_tree']
     n_res = int(res.sum())
     t, tri_id, _, _ = tt.bvh_hit_sparse(bvh, soup, org, dirn, res,
                                         fb.max_leaf, t, tri_id,
@@ -1526,14 +1513,14 @@ def routed_hits(mesh, org, dirn, name):
     from pathtracer_tpu_torch.ops import routed_cluster as rc
     cm = mesh.clustered
     tmax = torch.full((org.shape[0],), BIG_T, device=org.device)
-    reset_counts()
+    counted = launch_counts()
     (hits, res, route), ms = timed(lambda: routed_net(
         cm, mesh.soup, mesh.bvh, mesh.max_leaf, org, dirn, tmax))
-    launches = cl.cluster_sweep.launches
+    launches = launches_since(counted)['cluster_sweep_closest']
     with plain_sweeps():
         (t_p, tri_p, res_p), plain_ms = timed(lambda: rc.routed_hit(
             cm, org, dirn, tmax, return_residual=True, with_bary=False))
-    if cl.cluster_sweep.launches != launches:
+    if launches_since(counted)['cluster_sweep_closest'] != launches:
         raise AssertionError('the plain sweeps launched a kernel')
     (t_k, tri_k, res_k), ms_k = timed(lambda: rc.routed_hit(
         cm, org, dirn, tmax, return_residual=True, with_bary=False))
@@ -1627,21 +1614,21 @@ def routed_phase(sc, cam, card, main_rep, lat=1100):
     rc.ROUTE_LOG = []
     try:
         with net_timer() as net:
-            reset_counts()
+            counted = launch_counts()
             r.step()                            # warm-up, instrumented
             torch.cuda.synchronize()
-            warm = read_counts()
+            warm = launches_since(counted)
         logs = rc.ROUTE_LOG
     finally:
         rc.ROUTE_LOG = None
     ms, live = [], []
-    reset_counts()
+    counted = launch_counts()
     for _ in range(ROUTED_WAVES):
         rays0 = r.rays_traced
         _, t_ms = timed(r.step)
         ms.append(t_ms)
         live.append(r.rays_traced - rays0)
-    launches = read_counts()
+    launches = launches_since(counted)
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError('routed image not finite / wrong shape')
@@ -1704,10 +1691,10 @@ def routed_tree(dev, cam, lat=1300):
     org, dirn = primary_rays(cam, dev)
     org = org - torch.tensor([0.0, -15.0, 0.0], device=dev)
     tmax = torch.full((org.shape[0],), BIG_T, device=dev)
-    reset_counts()
+    counted = launch_counts()
     ((t, tri_id), res, route), ms = timed(lambda: routed_net(
         cm, soup, bvh, fb.max_leaf, org, dirn, tmax))
-    counts = read_counts()
+    counts = launches_since(counted)
 
     def two_level():
         t_, tri_, res_ = cl.two_level_hit(cm, org, dirn, tmax,
@@ -1888,7 +1875,7 @@ def packet_phase(dev, cam, card):
     imgs = {}
     for name, sc in (('packet', sc_p), ('cluster', sc_c)):
         r = pt.Renderer(sc, cam, cfg)
-        pb.packet_hit.launches = 0
+        counted = launch_counts()
         r.step()                                   # warm-up wave
         torch.cuda.synchronize()
         rays0 = r.rays_traced
@@ -1900,7 +1887,7 @@ def packet_phase(dev, cam, card):
         stop.record()
         torch.cuda.synchronize()
         if name == 'packet':
-            rec['launches'] = pb.packet_hit.launches
+            rec['launches'] = launches_since(counted)['packet_hit']
         ms_wave = start.elapsed_time(stop) / waves
         live = r.rays_traced - rays0
         imgs[name] = r.display().cpu().numpy()
@@ -1926,18 +1913,11 @@ def packet_phase(dev, cam, card):
 
 
 def drive(fn, needs):
-    """Run one probe entry point with every probe count set to 0 just
-    before; returns (its result, the counts read just after) and raises
-    if a kernel in `needs` never launched."""
-    from pathtracer_tpu_torch.ops import sweep_ablate as sa
-    from pathtracer_tpu_torch.ops import sweep_micro as sm
-    wrappers = {f.__name__: f for f in (sm.dot_fp32, sm.dot_tf32,
-                                        sm.epilogue, sm.edgemat,
-                                        sa.sweep_ablate)}
-    for f in wrappers.values():
-        f.launches = 0
+    """Run one probe entry point; returns (its result, each probe kernel's
+    launches in it) and raises if a kernel in `needs` never launched."""
+    counted = launch_counts()
     out = fn()
-    counts = {k: f.launches for k, f in wrappers.items()}
+    counts = launches_since(counted, PROBE_KERNELS)
     for k in needs:
         if counts[k] <= 0:
             raise AssertionError(f'{k} never launched on its probe path')
@@ -2027,8 +2007,8 @@ def probe_phase(dev):
     import torch
     from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.ops import sweep_ablate as sa
+    from pathtracer_tpu_torch.ops import binding
     from pathtracer_tpu_torch.ops import sweep_micro as sm
-    from pathtracer_tpu_torch import device
     from pathtracer_tpu_torch.scripts import ablate_sweep, prof_sweep, \
         proto_mxu, time_us
     prof, n_prof = drive(lambda: prof_sweep.run(dev, log=log),
@@ -2055,7 +2035,7 @@ def probe_phase(dev):
          proto_mxu.EPS, proto_mxu.NS,
          {'tf32': 'scripts/tpu_proto_mxu.py:24',
           'fp32': 'scripts/tpu_proto_mxu.py:34'}))
-    lib = device.build_cuda('sweep_micro')
+    lib = binding.build('sweep_micro')
     one = torch.zeros(1, device=dev)
     floor_us = time_us(lambda: one.add_(1.0), 200, dev)
     log(f'launch floor (one-element add, launches queued): {floor_us:.4f} us')
@@ -2201,7 +2181,7 @@ def probe_phase(dev):
                      device=dev)
     full = sa.sweep_ablate(*args, 'full', stats=st)
     counters = dict(occupancy(sa.kernel_info()['full']), sass=sass(
-        device.build_cuda('sweep_ablate'), f'ablate_kernelILi0ELi{g}E'),
+        binding.build('sweep_ablate'), f'ablate_kernelILi0ELi{g}E'),
         **cycle_summary(st[:, 1], st[:, 0]))
     log(f'ablation full counters (per G={g} group; work = subtiles swept): '
         f'{counters}')
@@ -2460,8 +2440,7 @@ def record_sweeps(name='cluster_sweep'):
     recorder: each call's positional inputs and its outputs, cloned (the
     windowed rounds update a round's t and tri in place), land in the
     returned list as (inputs, outputs) with outputs a tuple; `restore`
-    undoes it.  The wrapper counts its launches on the module's name, so
-    the recorder carries the count while it stands there."""
+    undoes it."""
     from pathtracer_tpu_torch.ops import cluster as cl
     orig = getattr(cl, name)
     calls = []
@@ -2473,11 +2452,9 @@ def record_sweeps(name='cluster_sweep'):
                       tuple(x.clone() for x in outs)))
         return out
 
-    rec.launches = orig.launches
     setattr(cl, name, rec)
 
     def restore():
-        orig.launches = rec.launches
         setattr(cl, name, orig)
 
     return calls, restore
@@ -2577,23 +2554,18 @@ def card_vs_cpu(sc, name):
 def material_main(sc, cam, card, profile):
     """Scene M's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
     compaction: one warm-up wave, then MAT_WAVES waves timed one by one (the
-    sweep launch counts set to 0 just before them and read just after),
+    sweep launches counted over them),
     the cut-out rounds logged, then, if `profile`, one wave under
     torch.profiler."""
     import torch
     import pathtracer_tpu_torch as pt
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     from pathtracer_tpu_torch.scene import scene as scn
     cfg = pt.RenderConfig(width=W, height=H, nrays=16, nb_bounces=BOUNCES,
                           samples_per_wave=1, compact_rays=True)
     r = pt.Renderer(sc, cam, cfg)
     r.step()                                    # warm-up
     torch.cuda.synchronize()
-    cl.cluster_sweep.launches = 0
-    cl.cluster_sweep_any.launches = 0
-    cl.hier_cull.launches = 0
-    pcg.pcg_draw.launches = 0
+    counted = launch_counts()
     scn.CUTOUT_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -2601,10 +2573,7 @@ def material_main(sc, cam, card, profile):
             ms.append(timed(r.step)[1])
     finally:
         log_rounds, scn.CUTOUT_LOG = scn.CUTOUT_LOG, None
-    launches = {'cluster_sweep_closest': cl.cluster_sweep.launches,
-                'cluster_sweep_any': cl.cluster_sweep_any.launches,
-                'hier_cull': cl.hier_cull.launches,
-                'pcg_draw': pcg.pcg_draw.launches}
+    launches = launches_since(counted, RENDER_KERNELS)
     live = r.rays_traced - rays0
     split = busy = n_kern = profile_s = None
     if profile:
@@ -2998,7 +2967,6 @@ def media_counters():
     """Count, per call of the reservoir march and of the fog event, the
     closest-hit sweep launches made inside it (and the lanes each fog
     event probed); restored on exit.  Yields the two lists."""
-    from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.render import integrator as integ
     from pathtracer_tpu_torch.scene import scene as scn
     march, fog = [], []
@@ -3007,9 +2975,10 @@ def media_counters():
     def counted(f, out, lanes):
         @functools.wraps(f)
         def g(*a, **k):
-            n0 = cl.cluster_sweep.launches
+            n0 = launch_counts()
             res = f(*a, **k)
-            out.append(dict(launches=cl.cluster_sweep.launches - n0,
+            n = launches_since(n0, ('cluster_sweep_closest',))
+            out.append(dict(launches=n['cluster_sweep_closest'],
                             lanes=int(lanes(a))))
             return res
         return g
@@ -3023,40 +2992,37 @@ def media_counters():
         scn._mesh_reservoir_march, integ._fog_event = orig_m, orig_f
 
 
-def wrappers():
-    """Every kernel wrapper of the port by its kernel record's name, as
-    (module, attribute): the count is read through the module, where a
-    recorder may stand in for the wrapper."""
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import packet_bvh as pb
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
-    from pathtracer_tpu_torch.ops import sweep_ablate as sa
-    from pathtracer_tpu_torch.ops import sweep_micro as sm
-    return {'cluster_sweep_closest': (cl, 'cluster_sweep'),
-            'cluster_sweep_any': (cl, 'cluster_sweep_any'),
-            'cull_tree': (cl, 'cull_tree'), 'hier_cull': (cl, 'hier_cull'),
-            'packet_hit': (pb, 'packet_hit'),
-            **{a: (sm, a) for a in ('dot_fp32', 'dot_tf32', 'epilogue',
-                                    'edgemat')},
-            'sweep_ablate': (sa, 'sweep_ablate'),
-            'pcg_draw': (pcg, 'pcg_draw')}
+RENDER_KERNELS = ('cluster_sweep_closest', 'cluster_sweep_any', 'hier_cull',
+                  'pcg_draw')
+PROBE_KERNELS = ('dot_fp32', 'dot_tf32', 'epilogue', 'edgemat',
+                 'sweep_ablate')
 
 
-def reset_counts():
-    for mod, attr in wrappers().values():
-        getattr(mod, attr).launches = 0
+def launch_counts():
+    """Every hand-written kernel's launches so far by its kernel record's
+    name: the recorder's counters `<counter>.launches` of the operators of
+    ops/binding.py, which count each launch (the closest-hit sweep's
+    record is cluster_sweep_closest, its counter cluster_sweep)."""
+    from pathtracer_tpu_torch.ops import binding
+    from pathtracer_tpu_torch.utils import profiling
+    counters = profiling.counters()
+    return {'cluster_sweep_closest' if c == 'cluster_sweep' else c:
+            counters.get(f'{c}.launches', 0)
+            for _, c, _ in binding.OPS.values()}
 
 
-def read_counts():
-    return {k: getattr(mod, attr).launches
-            for k, (mod, attr) in wrappers().items()}
+def launches_since(before, names=None):
+    """The launches of the kernels `names` (None: every one) since `before`
+    (launch_counts taken then)."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in (names or now)}
 
 
 def media_main(sc, cam, card, profile):
     """Scene O's Renderer at 1920x1080, 1 sample per wave, 3 bounces,
     compaction: one warm-up wave (under torch.profiler if `profile`),
-    then MEDIA_WAVES waves timed one by one (every launch count set to 0
-    just before them and read just after, the marches' rounds and lanes
+    then MEDIA_WAVES waves timed one by one (every kernel's launches
+    counted over them, the marches' rounds and lanes
     logged).  The overflow stat must stay 0."""
     import pathtracer_tpu_torch as pt
     from pathtracer_tpu_torch.scene import scene as scn
@@ -3070,7 +3036,7 @@ def media_main(sc, cam, card, profile):
         profile_s = time.perf_counter() - t0
     else:
         timed(r.step)
-    reset_counts()
+    counted = launch_counts()
     scn.MARCH_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -3079,7 +3045,7 @@ def media_main(sc, cam, card, profile):
                 ms.append(timed(r.step)[1])
     finally:
         log_m, scn.MARCH_LOG = scn.MARCH_LOG, None
-    launches = read_counts()
+    launches = launches_since(counted)
     live = r.rays_traced - rays0
     overflow = r.stats(1.0)['ss_reservoir_overflow']
     img = r.display().cpu().numpy()
@@ -3328,7 +3294,6 @@ def sample_timer():
     events with the two sweeps' launches counted (samples are keyed by
     absolute index, so the split changes no bit); restored on exit.
     Yields a dict of the per-sample lists and the renderers seen."""
-    from pathtracer_tpu_torch.ops import cluster as cl
     from pathtracer_tpu_torch.render import renderer as rnd
     orig = rnd.Renderer.step
     rec = dict(ms=[], closest=[], any=[], renderers=[])
@@ -3337,11 +3302,11 @@ def sample_timer():
         if not any(r is self for r in rec['renderers']):
             rec['renderers'].append(self)
         for _ in range(nsamples or self.cfg.samples_per_wave):
-            c0 = cl.cluster_sweep.launches
-            a0 = cl.cluster_sweep_any.launches
+            n0 = launch_counts()
             rec['ms'].append(timed(lambda: orig(self, 1))[1])
-            rec['closest'].append(cl.cluster_sweep.launches - c0)
-            rec['any'].append(cl.cluster_sweep_any.launches - a0)
+            n = launches_since(n0)
+            rec['closest'].append(n['cluster_sweep_closest'])
+            rec['any'].append(n['cluster_sweep_any'])
         return self
 
     rnd.Renderer.step = step
@@ -3562,10 +3527,10 @@ def cli_phase(dev, card, size=(W, H), lat=1100, spp=CLI_SPP):
         out = os.path.join(d, 'out.hdr')
         argv = [path, out, '--spp', str(spp), '--size', f'{w}x{h}',
                 '--frame', '1', '--denoise']
-        reset_counts()
+        counted = launch_counts()
         with recorded_sweeps() as (closest, anyhit), sample_timer() as rec:
             rc = cli.main(argv)
-        launches = read_counts()
+        launches = launches_since(counted)
         step('cli')
         img = image_io.load_hdr(out)
         region = img[int(h * 0.55):int(h * 0.9), int(w * 0.4):int(w * 0.6)]
@@ -3978,8 +3943,8 @@ def host_timers():
 
 def fluid_waves(sc, cam, card, waves, what, profile=False):
     """`sc` at 1920x1080, 1 sample per wave, 3 bounces, compaction: one
-    warm-up, `waves` waves timed one by one (every launch count set to 0
-    just before them and read just after; the particle sweeps' packets,
+    warm-up, `waves` waves timed one by one (every kernel's launches
+    counted over them; the particle sweeps' packets,
     overflows and rerouted lanes from pointset.SWEEP_LOG), the warm-up
     split on the host clock by host_timers; with `profile` the warm-up's
     sweeps recorded and held bit for bit, and one more wave under
@@ -4001,7 +3966,7 @@ def fluid_waves(sc, cam, card, waves, what, profile=False):
         del closest, anyhit
     rep['warmup_host_split'] = {k: dict(seconds=v[0], calls=v[1])
                                 for k, v in split_s.items()}
-    reset_counts()
+    counted = launch_counts()
     tps.SWEEP_LOG = []
     rays0, ms = r.rays_traced, []
     try:
@@ -4009,7 +3974,7 @@ def fluid_waves(sc, cam, card, waves, what, profile=False):
             ms.append(timed(r.step)[1])
     finally:
         sweeps, tps.SWEEP_LOG = tps.SWEEP_LOG, None
-    launches = read_counts()
+    launches = launches_since(counted)
     img = r.display().cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError(f'{what} image not finite / wrong shape')
@@ -4415,24 +4380,23 @@ def train_step_phase(sc, cam, card):
     split = []
 
     def counted_grad(*a, **kw):
-        before = read_counts()
+        before = launch_counts()
         out = orig_grad(*a, **kw)
-        after = read_counts()
         split.append(({k: before[k] - base[k] for k in before},
-                      {k: after[k] - before[k] for k in after}))
+                      launches_since(before)))
         return out
 
     losses, ms = [], []
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    counted = launch_counts()
     for _ in range(3):
-        base = read_counts()
+        base = launch_counts()
         with mock.patch.object(torch.autograd, 'grad', counted_grad):
             (loss, params), t = timed(lambda: step(params, sc, cam, cp,
                                                    target))
         losses.append(float(loss))
         ms.append(t)
-    launches = read_counts()
+    launches = launches_since(counted)
     peak = torch.cuda.max_memory_allocated()
     fwd, rec = split[0]
     for name in ('cluster_sweep_closest', 'cluster_sweep_any', 'hier_cull',
@@ -4553,14 +4517,14 @@ def scene_rank(inputs, mesh, what):
     from pathtracer_tpu_torch.parallel import sharding
     sc, cam, cp, cfg = inputs
     render = sharding.make_sharded_render(mesh, cfg)
-    reset_counts()
+    counted = launch_counts()
     pd.COLLECTIVE_LOG, rc.ROUTE_LOG = [], []
     with recorded_sweeps() as (closest, anyhit), net_timer() as net, \
             torch.no_grad():
         (img, cnt), ms = timed(lambda: render(sc, cam, cp))
     coll, pd.COLLECTIVE_LOG = pd.COLLECTIVE_LOG, None
     route, rc.ROUTE_LOG = route_numbers(rc.ROUTE_LOG), None
-    n = read_counts()
+    n = launches_since(counted)
     held = hold_sweeps(closest, anyhit, what, picks=(0,))
     coll_ms = 1e3 * sum(sec for _, sec, _ in coll)
     out = dict(image=img.cpu().numpy(), count=cnt.cpu().numpy(), ms=ms,
@@ -4913,7 +4877,7 @@ def pcg_phase(dev, cam, card):
     to the plain draws'.  Returns the kernel record."""
     import torch
     from pathtracer_tpu_torch.core import rng as prng
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
+    from pathtracer_tpu_torch.ops import binding
     from pathtracer_tpu_torch.render import renderer as rnd
     n = W * H
     key_hi, key_lo, gate = pcg_inputs(n, dev, seed=7)
@@ -4924,7 +4888,7 @@ def pcg_phase(dev, cam, card):
     st = prng.make_stream(key_hi, key_lo)
     out = [torch.empty_like(key_hi) for _ in range(4)]
     u = [torch.empty(n, device=dev) for _ in range(2)]
-    lib = pcg.load_kernel()
+    lib = binding.lib('pcg_draw')
     ms = {'draw': pcg_kernel_ms(lib, 'pcg_draw', list(st) + [gate] + out[:2]
                                 + [u[0], None], n, dev),
           'pair': pcg_kernel_ms(lib, 'pcg_draw', list(st) + [gate] + out[:2]
@@ -4954,10 +4918,10 @@ def pcg_phase(dev, cam, card):
     r.step()                                    # warm-up
     torch.cuda.synchronize()
     with counted_draws() as calls:
-        before = pcg.pcg_draw.launches
+        before = launch_counts()
         r.step()
         torch.cuda.synchronize()
-        launched = pcg.pcg_draw.launches - before
+        launched = launches_since(before)['pcg_draw']
     wrapper_calls = sum(calls[d] for d in DRAWS)
     plain_calls = sum(calls[f'{d}_plain'] for d in DRAWS)
     r_p = rnd.Renderer(sc, cam, cfg)
@@ -4994,22 +4958,12 @@ def pcg_phase(dev, cam, card):
 
 def build_kernels():
     """One nvcc process per csrc/*.cu source, all started together."""
-    from pathtracer_tpu_torch.ops import cluster as cl
-    from pathtracer_tpu_torch.ops import packet_bvh as pb
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
-    from pathtracer_tpu_torch.ops import sweep_ablate as sa
-    from pathtracer_tpu_torch.ops import sweep_micro as sm
+    from pathtracer_tpu_torch.ops import binding
     logs = {}
-    loaders = {'cluster_sweep': cl.load_kernels,
-               'cluster_cull': cl.load_cull_kernel,
-               'cluster_hier_cull': cl.load_hier_cull_kernel,
-               'packet_bvh': pb.load_kernels,
-               'sweep_micro': sm.load_kernels,
-               'sweep_ablate': sa.load_kernels,
-               'pcg_draw': pcg.load_kernel}
-    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
-        futs = [ex.submit(fn, log=lambda m, k=k: logs.setdefault(k, m))
-                for k, fn in loaders.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(binding.LIBS)) as ex:
+        futs = [ex.submit(binding.lib, k,
+                          log=lambda m, k=k: logs.setdefault(k, m))
+                for k in binding.LIBS]
         for f in futs:
             f.result()
     for k, m in logs.items():

@@ -18,7 +18,8 @@ device) on every device.  CPU tensors then take the plain versions
 the limb code below, about 75 int64 torch ops a draw); CUDA tensors launch
 the hand-written kernel csrc/pcg_draw.cu once a call, through
 ops/pcg_draw.py, or raise.  The kernel equals the plain versions bit for
-bit in state and uniforms.  ops/pcg_draw.py counts its launches.
+bit in state and uniforms.  Its launches are counted on the recorder's
+``pcg_draw.launches`` (utils/profiling.counters).
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ def next_uniform2_plain(state, gate=None):
 
 # ---------------------------------------------------------------------------
 # The routes: CPU tensors take the plain versions above, CUDA tensors the
-# hand-written kernel (csrc/pcg_draw.cu, bound in ops/pcg_draw.py)
+# hand-written kernel (csrc/pcg_draw.cu, wrapped in ops/pcg_draw.py)
 # ---------------------------------------------------------------------------
 
 

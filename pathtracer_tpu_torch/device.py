@@ -18,17 +18,15 @@ wrappers (ops/cluster.py, ops/packet_bvh.py) refuse a ray that requires
 grad on every device (`refuse_grad`), so the plain versions on the CPU
 cannot differentiate what the card does not.
 
-Build directory: native code (the g++ BVH builder, one nvcc library per
-``csrc/*.cu`` source) is compiled at first use into
-``pathtracer_tpu_torch/_build``, which git ignores.  Nothing is built when
-a module is imported.
+Build directory: native code (the g++ BVH builder and OBJ tokenizer, and
+one nvcc library per ``csrc/*.cu`` source, ops/binding.py) is compiled at
+first use into ``pathtracer_tpu_torch/_build``, which git ignores.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
-import glob
 import os
-import shutil
 import subprocess
 
 import torch
@@ -38,11 +36,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
-
-# sm_90a (Hopper); contraction into FMAs is off, so a kernel rounds every
-# product and sum on its own as the plain PyTorch versions do
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 
 def default_device() -> torch.device:
@@ -99,24 +92,3 @@ def build_shared(src: str, name: str, cmd_prefix: list, timeout: float = 600,
         log(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
-
-
-def nvcc_path() -> str:
-    """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else the
-    toolkit's default install location."""
-    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
-    if home and os.path.exists(os.path.join(home, 'bin', 'nvcc')):
-        return os.path.join(home, 'bin', 'nvcc')
-    return shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
-
-
-def build_cuda(name: str, log=None, extra=()) -> str:
-    """Compile ``csrc/<name>.cu`` with nvcc for sm_90a into
-    ``_build/lib<name>.so`` (once; kept while newer than the source and
-    every ``csrc/*.cuh`` header), with NVCC_FLAGS and then `extra`.  `log`
-    receives the compiler's output (the ptxas register and shared-memory
-    report).  Returns the library path."""
-    csrc = os.path.join(PKG_DIR, 'csrc')
-    return build_shared(os.path.join(csrc, name + '.cu'), f'lib{name}.so',
-                        [nvcc_path()] + NVCC_FLAGS + list(extra), log=log,
-                        deps=sorted(glob.glob(os.path.join(csrc, '*.cuh'))))

@@ -50,8 +50,8 @@ the same; the layouts are the port's own.
   merged per-lane best t and an exclusion mask of the clusters already
   swept, MAXC at a time, until no lane is residual — at most
   ceil(C / MAXC) rounds, and no hit is dropped.  Each round culls all its
-  packets (torch code in CHUNK_PACKETS chunks) and sweeps them in one
-  launch.
+  packets (on the card above HIER_MIN_CLUSTERS in one hier_cull launch,
+  torch code in CHUNK_PACKETS chunks) and sweeps them in one launch.
 
   Tree tier (`two_level_hit` above DENSE_CULL_MAX, or exhaustive=False):
   one cull + sweep round, then `refine_rounds` re-culls of the packets
@@ -75,7 +75,6 @@ the integrator detaches its sampled direction.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
@@ -84,6 +83,7 @@ import torch
 
 from .. import device
 from ..utils import hostcache, profiling
+from . import binding
 from . import bvh as bvh_mod
 from .packet_bvh import pair_records, tree_depth
 from .traverse import TriSoup, make_soup
@@ -970,75 +970,24 @@ def _group(group):
 # ---------------------------------------------------------------------------
 # Hand-written CUDA kernels: the sweeps (csrc/cluster_sweep.cu), the
 # tree cull (csrc/cluster_cull.cu) and the hierarchical cull
-# (csrc/cluster_hier_cull.cu)
+# (csrc/cluster_hier_cull.cu), launched through ops/binding.py
 # ---------------------------------------------------------------------------
-
-_libs = {}
-
-
-def load_kernels(log=None) -> ctypes.CDLL:
-    """Build csrc/cluster_sweep.cu with nvcc for sm_90a (once, into the
-    build directory) and load it.  `log` receives the compiler's output
-    (ptxas register and shared-memory report).  It links the shared CUDA
-    runtime, as load_hier_cull_kernel does, so that the profiler records
-    each sweep's launch inside its operator (_sweep_launch)."""
-    if 'sweep' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('cluster_sweep', log=log,
-                                            extra=('-cudart', 'shared')))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        common = [ptr] * 7 + [i32] + [ptr] * 5
-        lib.cluster_sweep_closest.argtypes = common + [ptr, ptr, ptr, i32,
-                                                       i32, ptr]
-        lib.cluster_sweep_any.argtypes = common + [ptr, ptr, i32, i32, ptr]
-        lib.cluster_sweep_info.argtypes = [i32, i32, ptr]
-        lib.cluster_sweep_closest.restype = i32
-        lib.cluster_sweep_any.restype = i32
-        lib.cluster_sweep_info.restype = i32
-        _libs['sweep'] = lib
-    return _libs['sweep']
-
 
 def kernel_info() -> dict:
     """{(wrapper name, group): (registers per thread, resident blocks per
     SM, static shared bytes)} of both sweep kernels, from the CUDA
     runtime."""
-    lib = load_kernels()
-    out = {}
-    for name, any_hit in (('cluster_sweep_closest', 0),
-                          ('cluster_sweep_any', 1)):
-        for g in GROUPS:
-            buf = (ctypes.c_int * 3)()
-            rc = lib.cluster_sweep_info(any_hit, g, buf)
-            if rc != 0:
-                raise RuntimeError(f'cluster_sweep_info failed: CUDA error '
-                                   f'{rc}')
-            out[(name, g)] = tuple(buf)
-    return out
-
-
-def load_cull_kernel(log=None) -> ctypes.CDLL:
-    """Build csrc/cluster_cull.cu for sm_90a (once) and load it."""
-    if 'cull' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('cluster_cull', log=log))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_cull_tree.argtypes = [ptr, i32, ptr, i32] + [ptr] * 4 \
-            + [i32] + [ptr] * 5
-        lib.cluster_cull_tree.restype = i32
-        lib.cluster_cull_info.argtypes = [i32, ptr]
-        lib.cluster_cull_info.restype = i32
-        _libs['cull'] = lib
-    return _libs['cull']
+    return {(name, g): binding.info('cluster_sweep_info', any_hit, g)
+            for name, any_hit in (('cluster_sweep_closest', 0),
+                                  ('cluster_sweep_any', 1))
+            for g in GROUPS}
 
 
 def cull_kernel_info(cm: ClusteredMesh) -> tuple:
     """(registers per thread, resident blocks per SM, shared bytes per
     block, threads per block) of the tree cull kernel on this mesh's top
     tree, from the CUDA runtime."""
-    buf = (ctypes.c_int * 4)()
-    rc = load_cull_kernel().cluster_cull_info(cm.top_depth, buf)
-    if rc != 0:
-        raise RuntimeError(f'cluster_cull_info failed: CUDA error {rc}')
-    return tuple(buf)
+    return binding.info('cluster_cull_info', cm.top_depth)
 
 
 def cull_tree(cm: ClusteredMesh, org, dirn, tmax, work=None):
@@ -1084,41 +1033,10 @@ def _cull_tree(cm, org, dirn, tmax, work):
         return ids, count, keys
     # a tree without inner nodes is one leaf holding every cluster
     root_cnt = cm.n_clusters if cm.top_pairs.shape[0] == 0 else 0
-    rc = load_cull_kernel().cluster_cull_tree(
-        cm.top_pairs.data_ptr(), cm.top_depth, cm.top_box.data_ptr(),
-        root_cnt,
-        cm.top_order.data_ptr(), org.data_ptr(), dirn.data_ptr(),
-        tmax.data_ptr(), nb, ids.data_ptr(),
-        count.data_ptr(), keys.data_ptr(),
-        0 if work is None else work.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_cull_tree launch failed: CUDA error {rc}')
-    cull_tree.launches += 1
+    torch.ops.pathtracer_tpu_torch.cull_tree_launch(
+        cm.top_pairs, cm.top_depth, cm.top_box, root_cnt, cm.top_order, org,
+        dirn, tmax, nb, ids, count, keys, work)
     return ids, count, keys
-
-
-cull_tree.launches = 0
-
-
-def load_hier_cull_kernel(log=None) -> ctypes.CDLL:
-    """Build csrc/cluster_hier_cull.cu for sm_90a (once) and load it.  It
-    links the shared CUDA runtime, the one torch loads, so that the
-    profiler records its launch as a runtime call (_hier_cull_launch); the
-    generated code is that of the static runtime the other libraries
-    link."""
-    if 'hier' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('cluster_hier_cull', log=log,
-                                            extra=('-cudart', 'shared')))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.cluster_hier_cull.argtypes = [ptr, i32, ptr, i32, ptr,
-                                          ctypes.c_longlong] + [ptr] * 3 \
-            + [i32, i32] + [ptr] * 6
-        lib.cluster_hier_cull.restype = i32
-        lib.cluster_hier_cull_info.argtypes = [i32, i32, i32, ptr]
-        lib.cluster_hier_cull_info.restype = i32
-        _libs['hier'] = lib
-    return _libs['hier']
 
 
 def hier_cull_kernel_info(n_clusters: int, nrm: bool = False) -> tuple:
@@ -1126,12 +1044,7 @@ def hier_cull_kernel_info(n_clusters: int, nrm: bool = False) -> tuple:
     block, threads per block) of the hierarchical cull kernel for this
     many clusters, with or without normal bounds, from the CUDA
     runtime."""
-    buf = (ctypes.c_int * 4)()
-    rc = load_hier_cull_kernel().cluster_hier_cull_info(n_clusters,
-                                                        int(nrm), 0, buf)
-    if rc != 0:
-        raise RuntimeError(f'cluster_hier_cull_info failed: CUDA error {rc}')
-    return tuple(buf)
+    return binding.info('cluster_hier_cull_info', n_clusters, int(nrm), 0)
 
 
 def _rows_arg(x, name, dev, dtype, shape):
@@ -1197,47 +1110,10 @@ def hier_cull(bounds, org, dirn, tmax, exclude=None, nrm=None, work=None):
     if nb == 0:
         return ids, count, keys, swept
     torch.ops.pathtracer_tpu_torch.hier_cull_launch(
-        bounds, nrm, exclude, org, dirn, tmax, ids, count, keys, swept, work)
-    hier_cull.launches += 1
+        bounds, bounds.stride(0), nrm, 0 if nrm is None else nrm.stride(0),
+        exclude, 0 if exclude is None else exclude.stride(0), org, dirn, tmax,
+        nb, c, ids, count, keys, swept, work)
     return ids, count, keys, swept
-
-
-hier_cull.launches = 0
-
-
-def _hier_cull_launch(bounds, nrm, exclude, org, dirn, tmax, ids, count,
-                      keys, swept, work):
-    """hier_cull's launch on checked arguments, the CUDA kernel of the
-    torch operator `pathtracer_tpu_torch::hier_cull_launch`: the profiler
-    links a kernel to the operator that launched it, and through it to
-    the host ranges around it (the benchmark's 'cull' label), as it links
-    torch's own kernels; a bare ctypes call belongs to no operator.  The
-    library links the shared CUDA runtime, so the launch is a runtime
-    call the profiler records."""
-    rc = load_hier_cull_kernel().cluster_hier_cull(
-        bounds.data_ptr(), bounds.stride(0),
-        0 if nrm is None else nrm.data_ptr(),
-        0 if nrm is None else nrm.stride(0),
-        0 if exclude is None else exclude.data_ptr(),
-        0 if exclude is None else exclude.stride(0),
-        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), ids.shape[0],
-        bounds.shape[0], ids.data_ptr(), count.data_ptr(), keys.data_ptr(),
-        swept.data_ptr(), 0 if work is None else work.data_ptr(),
-        torch.cuda.current_stream(org.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_hier_cull launch failed: CUDA error '
-                           f'{rc}')
-
-
-# the operator, defined once per process (torch.library.custom_op would do
-# the same but imports the compiler stack at its first call, seconds of
-# set-up)
-_OPS = torch.library.Library('pathtracer_tpu_torch', 'DEF')
-_OPS.define('hier_cull_launch(Tensor bounds, Tensor? nrm, Tensor? exclude, '
-            'Tensor org, Tensor dirn, Tensor tmax, Tensor(a!) ids, '
-            'Tensor(b!) count, Tensor(c!) keys, Tensor(d!) swept, '
-            'Tensor(e!)? work) -> ()')
-_OPS.impl('hier_cull_launch', _hier_cull_launch, 'CUDA')
 
 
 def heaviest_first(counts, group):
@@ -1250,10 +1126,10 @@ def heaviest_first(counts, group):
             ).reshape(-1).to(torch.int32)
 
 
-def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group, order,
+def _sweep_order(cm, ids, counts, keys, org, dirn, tmax, tmin, group, order,
                  stats):
-    """Validate the launch inputs; returns the tensors in argument order
-    (kept alive by the caller for the launch)."""
+    """Validate the launch inputs; returns the unit order (`order`, or
+    heaviest_first)."""
     nb = ids.shape[0]
     n = nb * BLOCK
     nu = nb * (BLOCK // group)
@@ -1289,11 +1165,7 @@ def _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group, order,
             or not stats.is_contiguous() or tuple(stats.shape) != (nu, STATS)):
         raise ValueError(f'cluster sweep stats must be a contiguous '
                          f'(units, {STATS}) int64 tensor on {dev}')
-    return tensors
-
-
-def _ptrs(tensors):
-    return [x.data_ptr() for x in tensors]
+    return order
 
 
 def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
@@ -1310,17 +1182,15 @@ def cluster_sweep(cm, ids, counts, keys, org, dirn, tmax, tmin, group=None,
     if org.device.type == 'cpu':
         return cluster_sweep_plain(cm, ids, counts, keys, org, dirn, tmax,
                                    tmin, group, stats)
-    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
-                        order, stats)
+    order = _sweep_order(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
+                         order, stats)
     t = torch.empty_like(tmax)
     tri = torch.empty(tmax.shape, dtype=torch.int32, device=org.device)
     torch.ops.pathtracer_tpu_torch.cluster_sweep_launch(
-        *args, cm.n_sub, group, t, tri, stats)
-    cluster_sweep.launches += 1
+        ids, counts, keys, cm.planes, cm.ctab, cm.starts, cm.sub_bounds,
+        cm.n_sub, org, dirn, tmax, tmin, order, t, tri, stats, order.shape[0],
+        group)
     return t, tri
-
-
-cluster_sweep.launches = 0
 
 
 def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin,
@@ -1335,57 +1205,14 @@ def cluster_sweep_any(cm, ids, counts, keys, org, dirn, tmax, tmin,
     if org.device.type == 'cpu':
         return cluster_sweep_any_plain(cm, ids, counts, keys, org, dirn,
                                        tmax, tmin, group, stats)
-    args = _launch_args(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
-                        order, stats)
+    order = _sweep_order(cm, ids, counts, keys, org, dirn, tmax, tmin, group,
+                         order, stats)
     occ = torch.empty(tmax.shape, dtype=torch.bool, device=org.device)
     torch.ops.pathtracer_tpu_torch.cluster_sweep_any_launch(
-        *args, cm.n_sub, group, occ, stats)
-    cluster_sweep_any.launches += 1
+        ids, counts, keys, cm.planes, cm.ctab, cm.starts, cm.sub_bounds,
+        cm.n_sub, org, dirn, tmax, tmin, order, occ, stats, order.shape[0],
+        group)
     return occ
-
-
-cluster_sweep_any.launches = 0
-
-
-def _sweep_launch(ids, counts, keys, planes, ctab, starts, sub_bounds, org,
-                  dirn, tmax, tmin, order, n_sub, group, t, tri, stats):
-    """cluster_sweep's launch on checked arguments, the CUDA kernel of the
-    operator `pathtracer_tpu_torch::cluster_sweep_launch`: as
-    _hier_cull_launch, so that the profiler links the kernel to the
-    operator and through it to the spans around it."""
-    rc = load_kernels().cluster_sweep_closest(
-        *_ptrs((ids, counts, keys, planes, ctab, starts, sub_bounds)), n_sub,
-        *_ptrs((org, dirn, tmax, tmin, order, t, tri)),
-        0 if stats is None else stats.data_ptr(), order.shape[0], group,
-        torch.cuda.current_stream(org.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_sweep_closest launch failed: CUDA '
-                           f'error {rc}')
-
-
-def _sweep_any_launch(ids, counts, keys, planes, ctab, starts, sub_bounds,
-                      org, dirn, tmax, tmin, order, n_sub, group, occ, stats):
-    """cluster_sweep_any's launch on checked arguments, the CUDA kernel of
-    the operator `pathtracer_tpu_torch::cluster_sweep_any_launch`."""
-    rc = load_kernels().cluster_sweep_any(
-        *_ptrs((ids, counts, keys, planes, ctab, starts, sub_bounds)), n_sub,
-        *_ptrs((org, dirn, tmax, tmin, order, occ)),
-        0 if stats is None else stats.data_ptr(), order.shape[0], group,
-        torch.cuda.current_stream(org.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'cluster_sweep_any launch failed: CUDA error {rc}')
-
-
-_SWEEP_INPUTS = ('Tensor ids, Tensor counts, Tensor keys, Tensor planes, '
-                 'Tensor ctab, Tensor starts, Tensor sub_bounds, Tensor org, '
-                 'Tensor dirn, Tensor tmax, Tensor tmin, Tensor order, '
-                 'int n_sub, int group')
-_OPS.define(f'cluster_sweep_launch({_SWEEP_INPUTS}, Tensor(a!) t, '
-            f'Tensor(b!) tri, Tensor(c!)? stats) -> ()')
-_OPS.impl('cluster_sweep_launch', _sweep_launch, 'CUDA')
-_OPS.define(f'cluster_sweep_any_launch({_SWEEP_INPUTS}, Tensor(a!) occ, '
-            f'Tensor(b!)? stats) -> ()')
-_OPS.impl('cluster_sweep_any_launch', _sweep_any_launch, 'CUDA')
 
 
 # ---------------------------------------------------------------------------

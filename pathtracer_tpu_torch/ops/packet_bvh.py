@@ -27,13 +27,13 @@ torch over rays: the exact reference the kernel is held to bit for bit
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
+from . import binding
 from .traverse import TriSoup, brute_force_hit
 
 BIG_T = float(np.float32(1e30))
@@ -257,33 +257,11 @@ def packet_walk_plain(packed: PackedBVH, soup: TriSoup, org, dirn, tmax,
     return best, btri, bal, bbe, work
 
 
-_lib_handle = None
-
-
-def load_kernels(log=None) -> ctypes.CDLL:
-    """Build csrc/packet_bvh.cu for sm_90a (once) and load it."""
-    global _lib_handle
-    if _lib_handle is None:
-        lib = ctypes.CDLL(device_mod.build_cuda('packet_bvh', log=log))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.packet_bvh_hit.argtypes = [ptr, i32, i32] + [ptr] * 5 \
-            + [i32] + [ptr] * 7
-        lib.packet_bvh_hit.restype = i32
-        lib.packet_bvh_info.argtypes = [i32, ptr]
-        lib.packet_bvh_info.restype = i32
-        _lib_handle = lib
-    return _lib_handle
-
-
 def kernel_info(packed: PackedBVH) -> tuple:
     """(registers per thread, resident blocks per SM, shared bytes per
     block, threads per block) of the packet kernel on this tree, from the
     CUDA runtime."""
-    buf = (ctypes.c_int * 4)()
-    rc = load_kernels().packet_bvh_info(packed.depth, buf)
-    if rc != 0:
-        raise RuntimeError(f'packet_bvh_info failed: CUDA error {rc}')
-    return tuple(buf)
+    return binding.info('packet_bvh_info', packed.depth)
 
 
 def _soup_table(soup: TriSoup) -> torch.Tensor:
@@ -333,20 +311,10 @@ def packet_hit(packed: PackedBVH, soup: TriSoup, org, dirn, tmax, tmin=None,
         return t, tri, al, be
     root_cnt = int(packed.nb[0]) if packed.pairs.shape[0] == 0 else 0
     next_ray = torch.zeros(1, dtype=i32, device=dev)
-    rc = load_kernels().packet_bvh_hit(
-        packed.pairs.data_ptr(), root_cnt, packed.depth, table.data_ptr(),
-        org.data_ptr(), dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), n,
-        next_ray.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), al.data_ptr(), be.data_ptr(),
-        0 if work is None else work.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'packet_bvh_hit launch failed: CUDA error {rc}')
-    packet_hit.launches += 1
+    torch.ops.pathtracer_tpu_torch.packet_hit_launch(
+        packed.pairs, root_cnt, packed.depth, table, org, dirn, tmax, tmin, n,
+        next_ray, t, tri, al, be, work)
     return t, tri, al, be
-
-
-packet_hit.launches = 0
 
 
 def packet_hit_packed(packed: PackedBVH, soup: TriSoup, org, dirn, tmax,

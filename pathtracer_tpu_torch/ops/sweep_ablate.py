@@ -32,12 +32,9 @@ swept and, from the kernel, its clock64 cycles.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .. import device
-from . import cluster
+from . import binding, cluster
 from .cluster import BIG_T, BLOCK, MAXC, SUBT, ClusteredMesh, heaviest_first
 
 SLOTS = 8           # slots swept per packet (the TPU script's clamp)
@@ -204,38 +201,13 @@ def sweep_ablate_plain(cm: ClusteredMesh, ids, counts, org, dirn, tmax,
     return tuple(outs)
 
 
-_libs = {}
-
-
-def load_kernels(log=None) -> ctypes.CDLL:
-    """Build csrc/sweep_ablate.cu with nvcc for sm_90a (once, into the
-    build directory) and load it.  `log` receives the compiler's output."""
-    if 'ablate' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('sweep_ablate', log=log))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sweep_ablate.argtypes = [ptr] * 5 + [i32] + [ptr] * 10 \
-            + [i32, i32, i32, ptr]
-        lib.sweep_ablate.restype = i32
-        lib.sweep_ablate_info.argtypes = [i32, i32, ptr]
-        lib.sweep_ablate_info.restype = i32
-        _libs['ablate'] = lib
-    return _libs['ablate']
-
-
 def kernel_info(group=None) -> dict:
     """{variant: (registers per thread, resident blocks per SM, threads
     per block)} of the ablation kernels at lane group `group` (None:
     SWEEP_GROUP), from the CUDA runtime."""
     g = cluster._group(group)
-    lib = load_kernels()
-    out = {}
-    for i, v in enumerate(VARIANTS):
-        buf = (ctypes.c_int * 3)()
-        rc = lib.sweep_ablate_info(i, g, buf)
-        if rc != 0:
-            raise RuntimeError(f'sweep_ablate_info failed: CUDA error {rc}')
-        out[v] = tuple(buf)
-    return out
+    return {v: binding.info('sweep_ablate_info', i, g)
+            for i, v in enumerate(VARIANTS)}
 
 
 def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
@@ -285,18 +257,8 @@ def sweep_ablate(cm: ClusteredMesh, ids, counts, org, dirn, tmax, tmin,
     tri = torch.empty((n,), dtype=i32, device=dev)
     be = torch.empty((n,), device=dev)
     ga = torch.empty((n,), device=dev)
-    rc = load_kernels().sweep_ablate(
-        ids.data_ptr(), counts.data_ptr(), cm.planes.data_ptr(),
-        cm.ctab.data_ptr(), cm.starts.data_ptr(), cm.n_sub, org.data_ptr(),
-        dirn.data_ptr(), tmax.data_ptr(), tmin.data_ptr(), order.data_ptr(),
-        t.data_ptr(), tri.data_ptr(), be.data_ptr(), ga.data_ptr(),
-        0 if stats is None else stats.data_ptr(), nu, g,
-        VARIANTS.index(variant),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f'sweep_ablate launch failed: CUDA error {rc}')
-    sweep_ablate.launches += 1
+    torch.ops.pathtracer_tpu_torch.sweep_ablate_launch(
+        ids, counts, cm.planes, cm.ctab, cm.starts, cm.n_sub, org, dirn, tmax,
+        tmin, order, t, tri, be, ga, stats, order.shape[0], g,
+        VARIANTS.index(variant))
     return t, tri, be, ga
-
-
-sweep_ablate.launches = 0

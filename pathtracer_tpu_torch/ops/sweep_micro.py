@@ -41,12 +41,10 @@ what a hand-written product costs.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from .. import device
+from . import binding
 
 BIG_T = float(np.float32(1e30))
 AR = 8            # depth of the ray matrix
@@ -188,43 +186,11 @@ def edgemat_plain(o, d, tr, reps: int, eps: float, rep0: int = 0):
 # Hand-written CUDA kernels (csrc/sweep_micro.cu)
 # ---------------------------------------------------------------------------
 
-_libs = {}
-_info = {}
-
-
-def load_kernels(log=None) -> ctypes.CDLL:
-    """Build csrc/sweep_micro.cu with nvcc for sm_90a (once, into the build
-    directory) and load it.  `log` receives the compiler's output."""
-    if 'micro' not in _libs:
-        lib = ctypes.CDLL(device.build_cuda('sweep_micro', log=log))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sweep_dot.argtypes = [ptr, ptr, i32, i32, i32, f32, i32, i32,
-                                  ptr, ptr, ptr]
-        lib.sweep_epilogue.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr]
-        lib.sweep_edgemat.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
-                                      ptr, ptr, ptr]
-        lib.sweep_micro_info.argtypes = [i32, ptr]
-        for fn in (lib.sweep_dot, lib.sweep_epilogue, lib.sweep_edgemat,
-                   lib.sweep_micro_info):
-            fn.restype = i32
-        _libs['micro'] = lib
-    return _libs['micro']
-
-
 def kernel_info() -> dict:
     """{kernel: (registers per thread, resident blocks per SM, threads per
-    block)} of the probe kernels, from the CUDA runtime (read once)."""
-    if _info:
-        return _info
-    lib = load_kernels()
-    out = _info
-    for i, name in enumerate(KERNELS):
-        buf = (ctypes.c_int * 3)()
-        rc = lib.sweep_micro_info(i, buf)
-        if rc != 0:
-            raise RuntimeError(f'sweep_micro_info failed: CUDA error {rc}')
-        out[name] = tuple(buf)
-    return out
+    block)} of the probe kernels, from the CUDA runtime."""
+    return {name: binding.info('sweep_micro_info', i)
+            for i, name in enumerate(KERNELS)}
 
 
 def _takes_plain(name, tensors, shapes):
@@ -243,11 +209,6 @@ def _takes_plain(name, tensors, shapes):
             raise ValueError(f'{name} takes contiguous float32 tensors of '
                              f'shapes {shapes}')
     return dev.type == 'cpu'
-
-
-def _check(name, rc):
-    if rc != 0:
-        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
 
 
 def dot_tile(n: int) -> int:
@@ -278,10 +239,8 @@ def _dot(x, w, reps, eps, out_cols, tf32, tile=None):
                          f'divides N')
     out = torch.empty((m, out_cols), device=x.device)
     pairs = torch.empty((m, n // 2), device=x.device)
-    _check(name, load_kernels().sweep_dot(
-        x.data_ptr(), w.data_ptr(), m, n, reps, eps, out_cols, tile,
-        out.data_ptr(), pairs.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream))
+    getattr(torch.ops.pathtracer_tpu_torch, f'{name}_launch')(
+        x, w, m, n, reps, eps, out_cols, tile, out, pairs)
     return out, pairs
 
 
@@ -291,13 +250,7 @@ def dot_fp32(x, w, reps: int, eps: float, out_cols: int):
     tensors launch the hand-written kernel (replaces the TPU kernels
     tpu_prof_sweep.matmul_kernel(HIGHEST) and tpu_proto_mxu.vpu_kernel) or
     raise."""
-    out = _dot(x, w, reps, eps, out_cols, False)
-    if x.device.type == 'cuda':
-        dot_fp32.launches += 1
-    return out
-
-
-dot_fp32.launches = 0
+    return _dot(x, w, reps, eps, out_cols, False)
 
 
 def dot_tf32(x, w, reps: int, eps: float, out_cols: int,
@@ -307,13 +260,7 @@ def dot_tf32(x, w, reps: int, eps: float, out_cols: int,
     dot_plain(tf32=True); CUDA tensors launch the hand-written kernel
     (replaces the TPU kernels tpu_prof_sweep.matmul_kernel(DEFAULT) and
     tpu_proto_mxu.mxu_kernel) or raise."""
-    out = _dot(x, w, reps, eps, out_cols, True, tile)
-    if x.device.type == 'cuda':
-        dot_tf32.launches += 1
-    return out
-
-
-dot_tf32.launches = 0
+    return _dot(x, w, reps, eps, out_cols, True, tile)
 
 
 def epilogue(p, tn, reps: int, eps: float):
@@ -328,14 +275,8 @@ def epilogue(p, tn, reps: int, eps: float):
     out = torch.empty((2, m), device=p.device)
     if m == 0:
         return out
-    _check('sweep_epilogue', load_kernels().sweep_epilogue(
-        p.data_ptr(), tn.data_ptr(), m, reps, eps, out.data_ptr(),
-        torch.cuda.current_stream(p.device).cuda_stream))
-    epilogue.launches += 1
+    torch.ops.pathtracer_tpu_torch.epilogue_launch(p, tn, m, reps, eps, out)
     return out
-
-
-epilogue.launches = 0
 
 
 def edgemat_ranges(m: int, reps: int, resident: int):
@@ -374,12 +315,6 @@ def edgemat(o, d, tr, reps: int, eps: float):
     sms = torch.cuda.get_device_properties(o.device).multi_processor_count
     splits = len(edgemat_ranges(m, reps, kernel_info()['edgemat'][1] * sms))
     partial = torch.empty((splits, m), dtype=torch.int64, device=o.device)
-    _check('sweep_edgemat', load_kernels().sweep_edgemat(
-        o.data_ptr(), d.data_ptr(), tr.data_ptr(), m, reps, splits, eps,
-        partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(o.device).cuda_stream))
-    edgemat.launches += 1
+    torch.ops.pathtracer_tpu_torch.edgemat_launch(o, d, tr, m, reps, splits,
+                                                  eps, partial, out)
     return out
-
-
-edgemat.launches = 0

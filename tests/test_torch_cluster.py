@@ -23,6 +23,7 @@ from pathtracer_tpu.utils import procgen as jprocgen
 from pathtracer_tpu_torch.ops import cluster as tc
 from pathtracer_tpu_torch.ops import traverse as tt
 from pathtracer_tpu_torch.scene import topology
+from pathtracer_tpu_torch.utils import profiling
 
 BIG_T = np.float32(1e30)
 TIE = 2.0 ** -16
@@ -291,9 +292,9 @@ def test_kernel_wrappers_refuse_non_cuda_tensors(small):
             torch.zeros((1, tc.MAXC), **meta), torch.zeros((n, 3), **meta),
             torch.zeros((n, 3), **meta), torch.zeros(n, **meta),
             torch.zeros(n, **meta))
-    before = (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches)
+    before = profiling.counters()
     with pytest.raises(ValueError):
         tc.cluster_sweep(ct, *args)
     with pytest.raises(ValueError):
         tc.cluster_sweep_any(ct, *args)
-    assert (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches) == before
+    assert profiling.counters() == before

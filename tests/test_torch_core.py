@@ -21,7 +21,9 @@ from pathtracer_tpu_torch.core import camera as tcam
 from pathtracer_tpu_torch.core import qmc as tqmc
 from pathtracer_tpu_torch.core import rng as trng
 from pathtracer_tpu_torch.core import sampling as tsampling
-from pathtracer_tpu_torch.ops import pcg_draw as tpcg
+from pathtracer_tpu_torch.ops import binding
+from pathtracer_tpu_torch.utils import profiling
+from test_torch_cluster import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-6
 
@@ -121,7 +123,7 @@ def test_cpu_tensors_take_the_plain_route():
     assert trng.INV_UINT32_MAX == 2.0 ** -32
     hi, lo = _keys(seed=9)
     g = torch.as_tensor(np.random.default_rng(10).random(hi.size) < 0.5)
-    before = tpcg.pcg_draw.launches
+    before = profiling.counters().get('pcg_draw.launches', 0)
     ts = trng.make_stream(_t(hi), _t(lo))
     ps = trng.make_stream_plain(_t(hi), _t(lo))
     u, ts = trng.next_uniform(ts, gate=g)
@@ -130,8 +132,8 @@ def test_cpu_tensors_take_the_plain_route():
     pu1, pu2, ps = trng.next_uniform2_plain(ps)
     for a, b in zip((u, u1, u2) + ts, (pu, pu1, pu2) + ps):
         assert torch.equal(a, b)
-    assert tpcg.pcg_draw.launches == before == 0
-    assert 'pcg' not in tpcg._libs
+    assert profiling.counters().get('pcg_draw.launches', 0) == before == 0
+    assert 'pcg_draw' not in binding._libs
 
 
 def _bad_call(case):

@@ -84,7 +84,7 @@ from pathtracer_tpu_torch.render import renderer as rnd
 from pathtracer_tpu_torch.scene import scene as scn
 from pathtracer_tpu_torch.scripts import ablate_sweep as ablate
 from pathtracer_tpu_torch.scripts import prof_sweep
-from pathtracer_tpu_torch.utils import procgen
+from pathtracer_tpu_torch.utils import procgen, profiling
 
 BIG_T = float(np.float32(1e30))
 
@@ -94,6 +94,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     return torch.device('cuda')
+
+
+def _launches(name):
+    """The launches of wrapper `name` so far, from the recorder's counter
+    (ops/binding.py counts each)."""
+    return profiling.counters().get(f'{name}.launches', 0)
 
 
 def _rays(n, seed):
@@ -123,9 +129,9 @@ def test_kernels_match_plain(cuda, lat, tris_c):
     tx = tc.root_exit_clamp(cm.bounds, o, d, torch.full((n,), BIG_T,
                                                         device=cuda))
     ids, counts, keys, _ = tc._cull(cm, o, d, tx)
-    before = tc.cluster_sweep.launches
+    before = _launches('cluster_sweep')
     t_k, tri_k = tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin)
-    assert tc.cluster_sweep.launches == before + 1
+    assert _launches('cluster_sweep') == before + 1
     t_p, tri_p = tc.cluster_sweep_plain(cm, ids, counts, keys, o, d, tx,
                                         tmin)
     assert (tri_k >= 0).float().mean().item() > 0.2
@@ -182,10 +188,10 @@ def test_grouped_sweeps_match_plain(cuda, group):
             (tc.cluster_sweep_any, tc.cluster_sweep_any_plain, lim)):
         st_k = torch.zeros((nu, tc.STATS), dtype=torch.int64, device=cuda)
         st_p = torch.zeros_like(st_k)
-        before = kern.launches
+        before = _launches(kern.__name__)
         out_k = kern(cm, ids, counts, keys, o, d, lanes, tmin, group=group,
                      stats=st_k)
-        assert kern.launches == before + 1
+        assert _launches(kern.__name__) == before + 1
         out_p = plain(cm, ids, counts, keys, o, d, lanes, tmin, group=group,
                       stats=st_p)
         for a, b in zip(out_k if isinstance(out_k, tuple) else (out_k,),
@@ -213,22 +219,26 @@ def test_sweep_order_does_not_change_results(cuda):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-def _sweep_ns(prof, label):
-    """(device ns of the `sweep_kernel` launches by name, of those the
-    profiler links to an operator that started inside `label`'s range,
-    their count), read from the raw events as the benchmark reads them."""
+def _sweep_ns(prof, label, kernel='sweep_kernel', ranges=()):
+    """(device ns of the `kernel` launches by name, of those the profiler
+    links to an operator that started inside `label`'s range or one of
+    `ranges` ((start_ns, end_ns) on the host clock), their count), read
+    from the raw events as the benchmark reads them."""
     cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges, launch, kern = [], {}, []
+    ranges, launch, kern = list(ranges), {}, []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == cpu and e.linked_correlation_id() == 0:
             if e.name() == label:
                 ranges.append((e.start_ns(), e.end_ns()))
             else:
                 launch[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == dev and 'sweep_kernel' in e.name():
+        elif e.device_type() == dev and kernel in e.name():
             kern.append((e.end_ns() - e.start_ns(),
-                         launch.get(e.linked_correlation_id())))
-    linked = sum(ns for ns, t in kern
+                         e.linked_correlation_id()))
+    # resolved after the loop: a kernel's event may come before its
+    # operator's in the list
+    starts = [launch.get(c) for _, c in kern]
+    linked = sum(ns for (ns, _), t in zip(kern, starts)
                  if t is not None and any(a <= t <= b for a, b in ranges))
     return sum(ns for ns, _ in kern), linked, len(kern)
 
@@ -238,7 +248,7 @@ def _sweep_ns(prof, label):
 def test_sweep_operators_own_their_device_time(cuda, group):
     """Both sweeps launch through their torch operators (whose outputs
     test_grouped_sweeps_match_plain holds to the plain versions): one
-    launch each, as `.launches` counts, and under torch.profiler each
+    launch each, as their counters count, and under torch.profiler each
     kernel linked to its operator inside a record_function range, so
     that the range's linked time equals the kernels' time by name."""
     from torch.profiler import ProfilerActivity, profile
@@ -246,7 +256,7 @@ def test_sweep_operators_own_their_device_time(cuda, group):
     nu = ids.shape[0] * (tc.BLOCK // group)
     st = torch.zeros((nu, tc.STATS), dtype=torch.int64, device=cuda)
     tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, group=group)
-    before = (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches)
+    before = (_launches('cluster_sweep'), _launches('cluster_sweep_any'))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -256,7 +266,7 @@ def test_sweep_operators_own_their_device_time(cuda, group):
             tc.cluster_sweep_any(cm, ids, counts, keys, o, d, tx, tmin,
                                  group=group)
         torch.cuda.synchronize()
-    assert (tc.cluster_sweep.launches, tc.cluster_sweep_any.launches) == (
+    assert (_launches('cluster_sweep'), _launches('cluster_sweep_any')) == (
         before[0] + 1, before[1] + 1)
     named, linked, n = _sweep_ns(prof, 'sweeps')
     assert n == 2 and named > 0 and linked == named
@@ -274,17 +284,17 @@ def test_one_launch_per_round_matches_chunked(cuda, monkeypatch):
     tmax = torch.full((n,), BIG_T, device=cuda)
     lim = torch.as_tensor(np.random.default_rng(34).uniform(2.0, 40.0, n)
                           .astype(np.float32), device=cuda)
-    before = tc.cluster_sweep.launches
+    before = _launches('cluster_sweep')
     t, tri = tc.two_level_hit(cm, o, d, tmax)
-    rounds = tc.cluster_sweep.launches - before
+    rounds = _launches('cluster_sweep') - before
     occ = tc.two_level_any(cm, o, d, lim)
     step = tc.CHUNK_PACKETS * tc.BLOCK
     parts, part_rounds = [], []
     for i in range(0, n, step):
-        before = tc.cluster_sweep.launches
+        before = _launches('cluster_sweep')
         parts.append(tc.two_level_hit(cm, o[i:i + step], d[i:i + step],
                                       tmax[i:i + step]))
-        part_rounds.append(tc.cluster_sweep.launches - before)
+        part_rounds.append(_launches('cluster_sweep') - before)
     # one launch per round: the query's rounds are its slowest chunk's
     assert len(parts) == 4 and rounds == max(part_rounds)
     assert torch.equal(t, torch.cat([p[0] for p in parts]))
@@ -298,7 +308,7 @@ def test_one_launch_per_round_matches_chunked(cuda, monkeypatch):
 def test_sweep_wrappers_refuse_bad_arguments(cuda):
     cm, (ids, counts, keys, o, d, tx, tmin) = _group_workload(cuda)
     bad = torch.zeros((3, tc.STATS), dtype=torch.int64, device=cuda)
-    before = tc.cluster_sweep.launches
+    before = _launches('cluster_sweep')
     with pytest.raises(ValueError):
         tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin, stats=bad)
     with pytest.raises(ValueError):
@@ -308,7 +318,7 @@ def test_sweep_wrappers_refuse_bad_arguments(cuda):
         tc.cluster_sweep(cm, ids, counts, keys, o, d, tx, tmin,
                          order=torch.full((nu,), nu, dtype=torch.int32,
                                           device=cuda))
-    assert tc.cluster_sweep.launches == before
+    assert _launches('cluster_sweep') == before
 
 
 @pytest.mark.gpu
@@ -427,9 +437,9 @@ def test_packet_hit_matches_plain(cuda, with_tmin):
         # exclude each lane's first hit, with a margin past it
         tmin = tp.packet_hit_plain(soup, o, d, tmax)[0]
         tmin = torch.where(tmin < BIG_T, tmin + 1e-3, torch.zeros_like(tmin))
-    before = tp.packet_hit.launches
+    before = _launches('packet_hit')
     t_k, tri_k, al_k, be_k = tp.packet_hit(packed, soup, o, d, tmax, tmin)
-    assert tp.packet_hit.launches == before + 1
+    assert _launches('packet_hit') == before + 1
     t_p, tri_p, al_p, be_p = tp.packet_hit_plain(soup, o, d, tmax, tmin)
     assert (tri_p >= 0).float().mean().item() > 0.1
     same = tri_k == tri_p
@@ -534,9 +544,9 @@ def test_packet_hit_equals_its_walk(cuda, rays):
     tmin = torch.as_tensor(rng.uniform(-1.0, 0.5, n).astype(np.float32),
                            device=cuda)
     work = torch.zeros((n, tp.WORK), dtype=torch.int32, device=cuda)
-    before = tp.packet_hit.launches
+    before = _launches('packet_hit')
     out_k = tp.packet_hit(packed, soup, o, d, tmax, tmin, work=work)
-    assert tp.packet_hit.launches == before + 1
+    assert _launches('packet_hit') == before + 1
     out_w = tp.packet_walk_plain(packed, soup, o, d, tmax, tmin)
     for a, b in zip(out_k + (work[:, :2],), out_w):
         assert torch.equal(a, b)
@@ -566,9 +576,9 @@ def test_cull_tree_matches_plain(cuda, lat, tris_c):
     nb = o.shape[0] // tc.BLOCK
     work_k = torch.zeros((nb, tc.CULL_WORK), dtype=torch.int64, device=cuda)
     work_p = torch.zeros_like(work_k)
-    before = tc.cull_tree.launches
+    before = _launches('cull_tree')
     out_k = tc.cull_tree(cm, o, d, tmax, work=work_k)
-    assert tc.cull_tree.launches == before + 1
+    assert _launches('cull_tree') == before + 1
     out_p = tc.cull_tree_plain(cm, o, d, tmax, work=work_p)
     if cm.n_clusters > tc.MAXC:
         assert (out_p[1] > tc.MAXC).any()              # overflow exercised
@@ -576,6 +586,50 @@ def test_cull_tree_matches_plain(cuda, lat, tris_c):
     _assert_cull_match(out_k, out_p)
     assert torch.equal(work_k[:, :3], work_p[:, :3])
     assert bool((work_k[:, 3] > 0).all())              # cycles
+
+
+@pytest.mark.gpu
+def test_tree_cull_and_packet_operators_own_their_device_time(cuda):
+    """cull_tree and packet_hit launch through their torch operators: one
+    launch a call, as their counters count, and under torch.profiler each
+    of their three kernels a trace linked to its operator inside a
+    record_function range, the tree cull's also inside its pt.cull span.
+    A torch kernel opens the trace, so that the queries' kernels are not
+    its first device record: once, in a run of the whole card suite, a
+    trace that opened with the tree cull's kernel lacked its record (not
+    seen again in 46 traces in fresh and long-lived processes)."""
+    from torch.profiler import ProfilerActivity, profile
+    cm = tc.build_clustered(_sphere(200), tris_c=tc.SUBT, dev=cuda)
+    tri = _sphere(32)
+    fb = tb.build_bvh(tri)
+    packed = tp.pack_bvh(fb, device=cuda)
+    soup = tt.make_soup(tri[fb.order], device=cuda)
+    o, d = (x.to(cuda) for x in _rays(4 * tc.BLOCK, seed=12))
+    tmax = torch.full((o.shape[0],), BIG_T, device=cuda)
+
+    def queries():
+        tc.cull_tree(cm, o, d, tmax)
+        tp.packet_hit(packed, soup, o, d, tmax)
+
+    queries()                                   # build and load
+    before = (_launches('cull_tree'), _launches('packet_hit'))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=cuda).add_(1)
+        with torch.profiler.record_function('queries'):
+            for _ in range(3):
+                queries()
+        torch.cuda.synchronize()
+    assert (_launches('cull_tree'), _launches('packet_hit')) == (
+        before[0] + 3, before[1] + 3)
+    for kernel in ('cull_kernel', 'packet_kernel'):
+        named, linked, n = _sweep_ns(prof, 'queries', kernel)
+        assert n == 3 and named > 0 and linked == named
+    cull = [(sp.start_ns, sp.end_ns) for sp in profiling.spans()
+            if sp.name == 'pt.cull' and sp.end_ns is not None]
+    named, linked, n = _sweep_ns(prof, None, 'cull_kernel', cull)
+    assert n == 3 and named > 0 and linked == named
 
 
 @pytest.mark.gpu
@@ -701,9 +755,9 @@ def test_hier_cull_matches_plain(cuda, scene, with_nrm, with_exclude):
             size=(nb, c + 1)) < 0.2, device=cuda)
         ex = mask[:, :-1]
     kw = dict(exclude=ex, nrm=nrm if with_nrm else None)
-    before = tc.hier_cull.launches
+    before = _launches('hier_cull')
     out_k = tc.hier_cull(bounds, o, d, tm, **kw)
-    assert tc.hier_cull.launches == before + 1
+    assert _launches('hier_cull') == before + 1
     out_p = tc._hier_cull(bounds, o, d, tm, **kw)
     torch.cuda.synchronize()
     _assert_same_bits(out_k, out_p)
@@ -736,7 +790,6 @@ def test_hier_cull_rounds_match_plain(cuda, monkeypatch):
             calls.append((out, tc._hier_cull(*a, **k)))
         return out
 
-    rec.launches = 0             # the wrapper counts on the module's name
     monkeypatch.setattr(tc, 'hier_cull', rec)
     res = {}
     for dev in (cuda, torch.device('cpu')):
@@ -777,9 +830,9 @@ def test_dot_matches_plain(cuda, route, out_cols):
     and measurably off the fp32 result (the operands were rounded)."""
     x, w = _probe_inputs(cuda, 64, 128, seed=21)
     kern = sm.dot_fp32 if route == 'fp32' else sm.dot_tf32
-    before = kern.launches
+    before = _launches(kern.__name__)
     out_k, pairs_k = kern(x, w, 8, 1e-3, out_cols)
-    assert kern.launches == before + 1
+    assert _launches(kern.__name__) == before + 1
     out_p, pairs_p = sm.dot_plain(x, w, 8, 1e-3, out_cols,
                                   tf32=route == 'tf32')
     if route == 'fp32':
@@ -806,9 +859,9 @@ def test_dot_fp32_matches_plain(cuda, m, n, reps, eps, cols, scale):
     multiple of 4, and operands scaled so that the results are subnormal."""
     x, w = _probe_inputs(cuda, m, n, seed=28)
     x, w = x * scale, w * scale
-    before = sm.dot_fp32.launches
+    before = _launches('dot_fp32')
     out_k = sm.dot_fp32(x, w, reps, eps, cols)
-    assert sm.dot_fp32.launches == before + 1
+    assert _launches('dot_fp32') == before + 1
     out_p = sm.dot_plain(x, w, reps, eps, cols)
     assert _same_bits(out_k[0], out_p[0]) and _same_bits(out_k[1], out_p[1])
     if scale < 1.0:
@@ -852,10 +905,10 @@ def test_dot_tf32_matches_plain_at_every_tile(cuda, m, n, reps, eps, tile,
     if m != 208:
         assert sm.dot_tile(n) == tile
     x, w = _probe_inputs(cuda, m, n, seed=26)
-    before = sm.dot_tf32.launches
+    before = _launches('dot_tf32')
     out_k, pairs_k = sm.dot_tf32(x, w, reps, eps, cols,
                                  tile if m == 208 else None)
-    assert sm.dot_tf32.launches == before + 1
+    assert _launches('dot_tf32') == before + 1
     out_p, pairs_p = sm.dot_plain(x, w, reps, eps, cols, tf32=True)
     bound = sm.dot_plain(x.abs(), w.abs(), reps, eps, n)[0]
     assert bool(((out_k - out_p).abs()
@@ -874,9 +927,9 @@ def test_epilogue_matches_plain(cuda, m, reps):
                         .astype(np.float32), device=cuda)
     tn = torch.as_tensor(np.abs(rng.standard_normal((1, m)))
                          .astype(np.float32) * 0.1, device=cuda)
-    before = sm.epilogue.launches
+    before = _launches('epilogue')
     out_k = sm.epilogue(p, tn, reps, 1e-3)
-    assert sm.epilogue.launches == before + 1
+    assert _launches('epilogue') == before + 1
     out_p = sm.epilogue_plain(p, tn, reps, 1e-3)
     assert (out_p[0] < BIG_T).float().mean().item() > 0.3
     assert torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
@@ -913,16 +966,16 @@ def test_epilogue_and_edgemat_match_plain(cuda):
                                device=cuda)
 
     p, tn = t(m, 6 * sm.SUBT), t(1, m).abs() * 0.1
-    before = sm.epilogue.launches
+    before = _launches('epilogue')
     out_k = sm.epilogue(p, tn, 16, 1e-3)
-    assert sm.epilogue.launches == before + 1
+    assert _launches('epilogue') == before + 1
     out_p = sm.epilogue_plain(p, tn, 16, 1e-3)
     assert (out_p[0] < BIG_T).float().mean().item() > 0.5
     assert torch.equal(out_k, out_p)
     o, d, tr = t(3, m), t(3, m), t(12, sm.SUBT)
-    before = sm.edgemat.launches
+    before = _launches('edgemat')
     e_k = sm.edgemat(o, d, tr, 16, 1e-3)
-    assert sm.edgemat.launches == before + 1
+    assert _launches('edgemat') == before + 1
     e_p = sm.edgemat_plain(o, d, tr, 16, 1e-3)
     assert (e_p < BIG_T).float().mean().item() > 0.2
     assert torch.equal(e_k, e_p)
@@ -940,9 +993,9 @@ def terrain_workload():
 @pytest.mark.parametrize('variant', sa.VARIANTS)
 def test_ablate_matches_plain(terrain_workload, variant):
     w = terrain_workload
-    before = sa.sweep_ablate.launches
+    before = _launches('sweep_ablate')
     out_k = sa.sweep_ablate(*w.args(), variant)
-    assert sa.sweep_ablate.launches == before + 1
+    assert _launches('sweep_ablate') == before + 1
     out_p = sa.sweep_ablate_plain(*w.args(), variant)
     for a, b in zip(out_k, out_p):
         assert torch.equal(a, b)
@@ -963,9 +1016,9 @@ def test_edgemat_matches_plain_over_rep_ranges(cuda, m, reps):
                                device=cuda)
 
     o, d, tr = t(3, m), t(3, m), t(12, sm.SUBT)
-    before = sm.edgemat.launches
+    before = _launches('edgemat')
     e_k = sm.edgemat(o, d, tr, reps, 1e-3)
-    assert sm.edgemat.launches == before + 1
+    assert _launches('edgemat') == before + 1
     e_p = sm.edgemat_plain(o, d, tr, reps, 1e-3)
     assert (e_p < BIG_T).float().mean().item() > 0.2
     assert torch.equal(e_k.view(torch.int32), e_p.view(torch.int32))
@@ -1022,8 +1075,8 @@ def test_probe_wrappers_refuse_mixed_devices(cuda):
     """A CUDA launch whose inputs are not all on the card raises; it does
     not fall back to the plain version."""
     x, w = _probe_inputs(cuda, 64, 128, seed=23)
-    counts = (sm.dot_fp32.launches, sm.dot_tf32.launches,
-              sm.epilogue.launches, sm.edgemat.launches)
+    counts = (_launches('dot_fp32'), _launches('dot_tf32'),
+              _launches('epilogue'), _launches('edgemat'))
     with pytest.raises(ValueError):
         sm.dot_fp32(x, w.cpu(), 2, 1e-3, 64)
     with pytest.raises(ValueError):
@@ -1034,8 +1087,8 @@ def test_probe_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         sm.edgemat(x[:, :3].T.contiguous(), torch.zeros((3, 64)),
                    torch.zeros((12, sm.SUBT), device=cuda), 2, 1e-3)
-    assert counts == (sm.dot_fp32.launches, sm.dot_tf32.launches,
-                      sm.epilogue.launches, sm.edgemat.launches)
+    assert counts == (_launches('dot_fp32'), _launches('dot_tf32'),
+                      _launches('epilogue'), _launches('edgemat'))
 
 
 def _material_scene(dev):
@@ -1254,9 +1307,9 @@ def test_resume_bit_equal_on_card(cuda, tmp_path):
     cfg = rnd.RenderConfig(width=64, height=48, nrays=4, samples_per_wave=1,
                            nb_bounces=3, compact_rays=True,
                            has_denoiser=True)
-    before = tc.cluster_sweep.launches
+    before = _launches('cluster_sweep')
     straight = [pt.Renderer(sc, cam, cfg).render() for _ in range(2)]
-    assert tc.cluster_sweep.launches > before
+    assert _launches('cluster_sweep') > before
     path = str(tmp_path / 'ck.npz')
     r = pt.Renderer(sc, cam, cfg)
     r.render_resumable(path, guard=chip_smoke.AfterSamples(r, 2))
@@ -1389,7 +1442,7 @@ def test_train_step_grads_match_cpu(cuda):
     for dev in ('cuda', 'cpu'):
         sc = wk.cluster_scene(device=dev)
         params = {k: getattr(sc, k) for k in ('kd', 'ks', 'light_intensity')}
-        tc.cluster_sweep.launches = 0
+        before = _launches('cluster_sweep')
         loss, grads = sharding.make_loss_and_grads(
             sharding.make_mesh(n_devices=1, dp=1), cfg)(
             params, sc, pt.make_camera(*wk.CAM),
@@ -1398,7 +1451,7 @@ def test_train_step_grads_match_cpu(cuda):
         out[dev] = (float(loss), {k: g.cpu().numpy() for k, g in
                                   grads.items()})
         if dev == 'cuda':
-            assert tc.cluster_sweep.launches > 0
+            assert _launches('cluster_sweep') > before
     (lc, gc), (lh, gh) = out['cuda'], out['cpu']
     assert np.isfinite(lc) and abs(lc - lh) <= 1e-5 * lh
     assert np.abs(gh['kd']).max() > 0
@@ -1574,17 +1627,16 @@ def test_pcg_draws_match_plain(cuda, n, states, gate, pair):
     chain bit for bit, state and uniforms, over three chained draws, at
     one 1080p sample pass of lanes and at an odd count."""
     from pathtracer_tpu_torch.core import rng as prng
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     fn, plain = ((prng.next_uniform2, prng.next_uniform2_plain) if pair else
                  (prng.next_uniform, prng.next_uniform_plain))
     st = st_p = _pcg_states(states, n, cuda)
     g = _pcg_gate(gate, n, cuda)
-    before = pcg.pcg_draw.launches
+    before = _launches('pcg_draw')
     for _ in range(3):
         k, p = fn(st, gate=g), plain(st_p, gate=g)
         _same_draws(k, p)
         st, st_p = k[-1], p[-1]
-    assert pcg.pcg_draw.launches - before == 3
+    assert _launches('pcg_draw') - before == 3
     if pair and gate == 'false':
         assert torch.equal(k[0], k[1])
 
@@ -1624,7 +1676,6 @@ def _flagship_step(cuda, plain):
     """One 64x48 flagship sample pass (3 bounces, no mesh) through the
     kernel or, with `plain`, the plain draws: (film accumulators, draw
     calls, kernel launches, plain calls)."""
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     sc = chip_smoke.flagship_scene(cuda)
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0)).to(cuda)
     cfg = rnd.RenderConfig(width=64, height=48, nrays=4, nb_bounces=3,
@@ -1634,9 +1685,9 @@ def _flagship_step(cuda, plain):
         if plain:
             stack.enter_context(chip_smoke.plain_draws())
         calls = stack.enter_context(chip_smoke.counted_draws())
-        before = pcg.pcg_draw.launches
+        before = _launches('pcg_draw')
         r.step()
-        launched = pcg.pcg_draw.launches - before
+        launched = _launches('pcg_draw') - before
     return ((r.image, r.sample_count), sum(calls[d] for d in
                                            chip_smoke.DRAWS),
             launched, sum(calls[f'{d}_plain'] for d in chip_smoke.DRAWS))
@@ -1682,11 +1733,10 @@ def test_pcg_gradients_are_the_plain_draws_gradients(cuda):
     """render_unsplatted's samples and gradients through the kernel equal
     the plain draws' bit for bit; the forward and the remat recompute
     launch the kernel once a draw call."""
-    from pathtracer_tpu_torch.ops import pcg_draw as pcg
     with chip_smoke.counted_draws() as calls:
-        before = pcg.pcg_draw.launches
+        before = _launches('pcg_draw')
         s_k, g_k = _flagship_grads(cuda)
-        launched = pcg.pcg_draw.launches - before
+        launched = _launches('pcg_draw') - before
     with chip_smoke.plain_draws():
         s_p, g_p = _flagship_grads(cuda)
     assert chip_smoke.same_bits(s_k, s_p)

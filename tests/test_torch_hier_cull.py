@@ -7,7 +7,7 @@ the plain version is tests/test_torch_gpu.py's.  Here: the CPU route
 returns the plain version's outputs, the wrapper refuses what the kernel
 does not take (as cull_tree and the sweeps do), the dense-tier queries
 reach it, and the plain version gives the empty emission where the
-kernel writes it without a sort.  Imports no JAX.
+kernel writes it without a sort.  The JAX side is not called.
 """
 
 import numpy as np
@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch.ops import cluster as tc
-from pathtracer_tpu_torch.utils import procgen
+from pathtracer_tpu_torch.utils import procgen, profiling
+from test_torch_cluster import one_torch_thread  # noqa: F401 (autouse)
 
 BIG_T = float(np.float32(1e30))
 
@@ -68,9 +69,9 @@ def test_cpu_route_returns_the_plain_outputs(inputs, with_nrm, with_exclude):
     bounds, nrm, exclude, o, d, tm = inputs
     kw = dict(nrm=nrm if with_nrm else None,
               exclude=exclude if with_exclude else None)
-    before = tc.hier_cull.launches
+    before = profiling.counters().get('hier_cull.launches', 0)
     out = tc.hier_cull(bounds, o, d, tm, **kw)
-    assert tc.hier_cull.launches == before          # no kernel on the CPU
+    assert profiling.counters().get('hier_cull.launches', 0) == before
     ref = tc._hier_cull(bounds, o, d, tm, **kw)
     assert len(out) == 4
     for a, b in zip(out, ref):
@@ -128,10 +129,10 @@ def _bad(case, bounds, nrm, exclude, o, d, tm):
                                   'too_many_clusters'])
 def test_wrapper_refuses_bad_arguments(inputs, case):
     args, kw = _bad(case, *inputs)
-    before = tc.hier_cull.launches
+    before = profiling.counters().get('hier_cull.launches', 0)
     with pytest.raises(ValueError, match='detach' if case == 'grad' else ''):
         tc.hier_cull(*args, **kw)
-    assert tc.hier_cull.launches == before
+    assert profiling.counters().get('hier_cull.launches', 0) == before
 
 
 @pytest.mark.parametrize('case', ['dead_lanes', 'all_excluded'])

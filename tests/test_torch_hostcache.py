@@ -16,6 +16,7 @@ from pathtracer_tpu_torch.ops import cluster, traverse
 from pathtracer_tpu_torch.scene import scene as scn
 from pathtracer_tpu_torch.scene import topology
 from pathtracer_tpu_torch.utils import hostcache, procgen, profiling
+from test_torch_cluster import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _sphere(lat=24):

@@ -194,10 +194,10 @@ def test_sweep_operators_take_the_launch_arguments():
     implementation)."""
     from pathtracer_tpu_torch.ops import cluster  # noqa: F401 (defines them)
     ops = torch.ops.pathtracer_tpu_torch
-    for op, outs in ((ops.cluster_sweep_launch, ('t', 'tri', 'stats')),
-                     (ops.cluster_sweep_any_launch, ('occ', 'stats'))):
-        args = op.default._schema.arguments
-        assert tuple(a.name for a in args[-len(outs):]) == outs
-        assert all(a.alias_info is not None and a.alias_info.is_write
-                   for a in args[-len(outs):])
-        assert [a.name for a in args[12:14]] == ['n_sub', 'group']
+    for op, outs in ((ops.cluster_sweep_launch,
+                      ('t_out', 'tri_out', 'stats')),
+                     (ops.cluster_sweep_any_launch, ('occ_out', 'stats'))):
+        args = {a.name: a for a in op.default._schema.arguments}
+        assert all(args[o].alias_info is not None
+                   and args[o].alias_info.is_write for o in outs)
+        assert [str(args[k].type) for k in ('n_sub', 'group')] == ['int'] * 2

@@ -44,6 +44,7 @@ from pathtracer_tpu_torch.ops import cluster as tc
 from pathtracer_tpu_torch.ops import sweep_ablate as sa
 from pathtracer_tpu_torch.ops import sweep_micro as sm
 from pathtracer_tpu_torch.scripts import ablate_sweep, prof_sweep, proto_mxu
+from pathtracer_tpu_torch.utils import profiling
 from test_torch_cluster import _assert_hits_match, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -182,9 +183,7 @@ def test_probe_entry_points(capsys, monkeypatch):
 
 def test_probe_wrappers_refuse_other_devices():
     meta = dict(device='meta')
-    counts = (sm.dot_fp32.launches, sm.dot_tf32.launches,
-              sm.epilogue.launches, sm.edgemat.launches,
-              sa.sweep_ablate.launches)
+    counts = profiling.counters()
     x, w = torch.zeros((64, 8), **meta), torch.zeros((8, 128), **meta)
     for fn in (sm.dot_fp32, sm.dot_tf32):
         with pytest.raises(ValueError):
@@ -198,9 +197,7 @@ def test_probe_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match='variant'):
         sa.sweep_ablate(None, None, None, torch.zeros((1, 3)), None, None,
                         None, 'high')
-    assert counts == (sm.dot_fp32.launches, sm.dot_tf32.launches,
-                      sm.epilogue.launches, sm.edgemat.launches,
-                      sa.sweep_ablate.launches)
+    assert profiling.counters() == counts
 
 
 # ---- the ablation ----
